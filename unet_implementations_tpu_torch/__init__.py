@@ -1,0 +1,39 @@
+"""unet_implementations_tpu_torch — the PyTorch/CUDA port for NVIDIA Hopper.
+
+A second package beside the JAX reference ``unet_implementations_tpu``. It
+keeps the reference's module names so each counterpart is easy to find:
+
+- ``models``   — the 6-stage segmentation UNet as ``nn.Module``s, and the
+                 JAX-params / reference-``.pth`` converters.
+- ``ops``      — ImageNet normalization and the bilinear resize primitives
+                 (the plain versions the kernels are held to).
+- ``kernels``  — hand-written CUDA C++ kernels for ``sm_90a`` (``csrc/``),
+                 built with ``nvcc`` at first use and bound with ``ctypes``.
+- ``recipes``  — the serving path (``predict_segmentation``).
+
+Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.
+Entry points run on CUDA unless the caller passes ``device="cpu"``; they never
+fall back to the CPU on their own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else CUDA.
+
+    Raises when no device is given and no CUDA card is visible — the port
+    never runs on the CPU unless the caller asked for it.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return torch.device("cuda")

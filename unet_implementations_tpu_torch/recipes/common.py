@@ -1,0 +1,128 @@
+"""The serving path: segmentation masks for images.
+
+Counterpart of ``unet_implementations_tpu/recipes/common.py::
+predict_segmentation``. The forward and the argmax run on the model's
+device; the nearest resize back to each image's original size runs on the
+host with torch/cv2 floor index math, as the reference eval protocol does.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.utils.visualize import colorize_mask
+
+IMAGE_SIZE = 512
+
+
+def resize_nearest_np(arr: np.ndarray, size) -> np.ndarray:
+    """Host-side nearest resize with torch/cv2 floor index semantics."""
+    in_h, in_w = arr.shape[:2]
+    out_h, out_w = int(size[0]), int(size[1])
+    rows = np.clip(
+        np.floor(np.arange(out_h, dtype=np.float64) * (in_h / out_h)).astype(np.int64),
+        0, in_h - 1,
+    )
+    cols = np.clip(
+        np.floor(np.arange(out_w, dtype=np.float64) * (in_w / out_w)).astype(np.int64),
+        0, in_w - 1,
+    )
+    return arr[rows][:, cols]
+
+
+@torch.inference_mode()
+def predict_arrays(
+    model: torch.nn.Module,
+    images_512: np.ndarray,
+    original_dims: Sequence[Tuple[int, int]],
+) -> List[np.ndarray]:
+    """Masks for one batch of images.
+
+    ``images_512``: (N, 512, 512, 3) uint8 RGB, already resized. The pixels
+    cross to the model's device as uint8, are ImageNet-normalized there, run
+    through ``model`` in its dtype, and the argmax comes back. Each
+    512² mask is then nearest-resized to its ``original_dims`` entry (h, w).
+    Returns uint8 masks with class ids {0, 1, 2}.
+    """
+    if images_512.ndim != 4 or images_512.shape[-1] != 3 or images_512.dtype != np.uint8:
+        raise ValueError(
+            f"images_512 must be (N, H, W, 3) uint8, got {images_512.shape} {images_512.dtype}")
+    if len(original_dims) != len(images_512):
+        raise ValueError(f"{len(original_dims)} original sizes for {len(images_512)} images")
+    device = next(model.parameters()).device
+    pixels = torch.from_numpy(np.ascontiguousarray(images_512)).to(device, non_blocking=True)
+    logits = model(normalize_image(pixels))
+    preds = torch.argmax(logits, dim=-1).to(torch.uint8).cpu().numpy()
+    return [resize_nearest_np(pred, dims) for pred, dims in zip(preds, original_dims)]
+
+
+def predict_segmentation(
+    model_path: str | Path,
+    inputs: str | Path,
+    output_dir: str | Path,
+    *,
+    batch_size: int = 32,
+    dtype: torch.dtype = torch.bfloat16,
+    overlay: bool = True,
+    device=None,
+    verbose: bool = True,
+) -> int:
+    """Run the 6-stage UNet from a reference-schema ``.pth`` (``cli
+    export_torch`` of the JAX package) on an image file or a directory.
+
+    Writes ``<stem>_mask.png`` (class ids {0,1,2} at the image's original
+    resolution) and, with ``overlay``, ``<stem>_overlay.png`` (the coloured
+    mask blended over the image). Runs on CUDA unless ``device`` names
+    another device. Returns the number of images processed. The last batch
+    may be smaller than ``batch_size``: eager PyTorch has no recompile to
+    avoid, so it is not padded.
+    """
+    import cv2
+
+    from unet_implementations_tpu_torch.models import convert
+
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    device = default_device(device)
+    inputs = Path(inputs)
+    files = sorted(
+        p for p in ([inputs] if inputs.is_file() else inputs.iterdir())
+        if p.suffix.lower() in (".jpg", ".jpeg", ".png")
+    )
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    model = convert.load_reference_checkpoint(model_path, device=device, dtype=dtype)
+
+    n = 0
+    for start in range(0, len(files), batch_size):
+        imgs, dims, ok = [], [], []
+        for p in files[start:start + batch_size]:
+            raw = cv2.imread(str(p))
+            if raw is None:
+                if verbose:
+                    print(f"skipping unreadable image: {p}")
+                continue
+            rgb = cv2.cvtColor(raw, cv2.COLOR_BGR2RGB)
+            dims.append(rgb.shape[:2])
+            imgs.append(cv2.resize(rgb, (IMAGE_SIZE, IMAGE_SIZE),
+                                   interpolation=cv2.INTER_LINEAR))
+            ok.append((p, rgb))
+        if not imgs:
+            continue
+        masks = predict_arrays(model, np.stack(imgs), dims)
+        for (p, rgb), mask in zip(ok, masks):
+            cv2.imwrite(str(output_dir / f"{p.stem}_mask.png"), mask)
+            if overlay:
+                blend = (0.6 * rgb + 0.4 * colorize_mask(mask)).astype(np.uint8)
+                cv2.imwrite(str(output_dir / f"{p.stem}_overlay.png"),
+                            cv2.cvtColor(blend, cv2.COLOR_RGB2BGR))
+            n += 1
+    if verbose:
+        print(f"predicted {n} images -> {output_dir}")
+    return n
