@@ -3,28 +3,39 @@
 
     python3 chip_smoke.py
 
+Two layouts of the model are served: dense, and the JAX model's
+space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
+0 and decoder_3 in s2d). Four kernels: K1 (InstanceNorm+LeakyReLU), K2a (2x
+upsample, dense), K2b (2x upsample into s2d) and K3 (the fused s2d block
+tail).
+
 Phases (any failure makes the script exit non-zero without a result line):
 
 1. Card and build: the card's name and power limit, then nvcc's register,
    shared-memory and spill report for every kernel.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the 512² forward of a batch of 8 gives it.
-3. The slice: ``unet_6stage`` in bf16 from a seeded generator, saved as a
-   reference-schema ``.pth``, reloaded through ``load_reference_checkpoint``,
-   and three batches of 8 images answered by ``predict_arrays``. The launch
-   counts of that run must be 22 (K1) and 5 (K2) per batch. The same requests
-   are then answered with the plain versions and by the float32 model, and
-   the masks are held to the bounds of phase 4.
+3. The slice, in each layout: ``unet_6stage`` in bf16 from a seeded
+   generator, saved as a reference-schema ``.pth``, reloaded through
+   ``load_reference_checkpoint``, and three batches of 8 images answered by
+   ``predict_arrays``. The launch counts of that run must be, per batch,
+   K1/K2a/K2b/K3 = 22/5/0/0 dense and 16/3/2/3 s2d. The same requests are
+   then answered with the plain versions and by the float32 model, and the
+   masks are held to the bounds of phase 4.
 4. The whole 512² forward (batch 8) with the kernels against the same model
-   with the plain versions, in bf16 and float32.
-5. Times with CUDA events: the b128 512² bf16 forward (then held to the
-   bounds of phase 4 at b128), and each kernel, its plain version and the
-   single PyTorch call that computes the same function (where there is one),
-   at the b128 main-path shapes, beside the kernel's bound. Each kernel
-   output timed there is first held to its plain version.
+   with the plain versions, in bf16 and float32, in each layout; and the
+   float32 s2d forward against the float32 dense one (an exact rewrite).
+5. Times with CUDA events: the b128 512² bf16 forward of each layout (then
+   held to the bounds of phase 4 at b128), and each kernel, its plain
+   version and the single PyTorch call that computes the same function
+   (where there is one), at the b128 main-path shapes, beside the kernel's
+   bound. Each kernel output timed there is first held to its plain
+   version. Also cuDNN's time for the dense-equivalent of K3's conv and for
+   K4's reference conv, as context.
 
 Every forward runs with the launch counts set to 0 just before it: a forward
-with the kernels must read 22 and 5 after it, one with the plain versions 0.
+with the kernels must read its layout's counts after it, one with the plain
+versions 0.
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -48,9 +59,11 @@ import torch.nn.functional as F
 
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.kernels import instance_norm as k1
+from unet_implementations_tpu_torch.kernels import s2d_region as k3
 from unet_implementations_tpu_torch.kernels import upsample as k2
 from unet_implementations_tpu_torch.models import blocks, convert
-from unet_implementations_tpu_torch.models.unet import DEFAULT_FEATURES, unet_6stage
+from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
+from unet_implementations_tpu_torch.models.unet import DEFAULT_FEATURES, S2D_LAYOUT, unet_6stage
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
@@ -60,19 +73,29 @@ IMG = 512
 # The batch of the predict path (phases 2-4) and of the timed forward (5).
 SERVE_BATCH = 8
 TIMED_BATCH = 128
-# Published H100 SXM peaks (NVIDIA data sheet): device memory rate, and the
-# float32 rate outside the tensor cores, where these kernels compute.
+# Published H100 SXM peaks (NVIDIA data sheet): device memory rate, the
+# float32 rate outside the tensor cores, where the elementwise kernels
+# compute, and the dense bf16 tensor-core rate (K3's conv).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 # Level l of the 6-stage model at 512²: (side, channels).
 LEVELS = [(IMG >> l, c) for l, c in enumerate(DEFAULT_FEATURES)]
 # K1 calls per forward at each level: 2 per encoder stage, 2 per decoder.
 K1_CALLS = [4, 4, 4, 4, 4, 2]
-# K2 input shapes (side, channels), one call per decoder.
+# K2a input shapes (side, channels), one call per dense decoder.
 K2_INPUTS = [(16, 512), (32, 512), (64, 256), (128, 128), (256, 64)]
+# The s2d layout: K2b inputs (side, channels) of decoder_3 and decoder_4, and
+# K3 calls (block, s2d side, original channels C; the input has 4C).
+K2B_INPUTS = [(128, 128), (256, 64)]
+K3_CALLS = [("encoder_0", 256, 32), ("decoder_3", 128, 64), ("decoder_4", 256, 32)]
+LAYOUTS = {"dense": {}, "s2d": S2D_LAYOUT}
+KERNELS = ("K1", "K2a", "K2b", "K3")
 # Kernel launches of one forward with the kernels, and with the plain versions.
-PER_FORWARD = {"K1": sum(K1_CALLS), "K2": len(K2_INPUTS)}
-NO_LAUNCHES = {"K1": 0, "K2": 0}
+PER_FORWARD = {"dense": {"K1": sum(K1_CALLS), "K2a": len(K2_INPUTS), "K2b": 0, "K3": 0},
+               "s2d": {"K1": sum(K1_CALLS) - 2 * len(K3_CALLS), "K2a": len(K2_INPUTS) - 2,
+                       "K2b": len(K2B_INPUTS), "K3": len(K3_CALLS)}}
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
          (300, 300), (181, 257)]
@@ -97,12 +120,29 @@ E2E_F32_REL_L2 = 1e-4
 E2E_F32_AGREEMENT = 0.999
 E2E_BF16_SLACK = 0.25
 E2E_BF16_AGREEMENT_SLACK = 0.005
+# K3 against its plain version. float32: 1e-4 (rtol and atol), from the sum
+# orders of the statistics and of the conv. bfloat16, elementwise: the conv
+# sums in another order than cuDNN, so a conv output may round one bf16 ulp
+# the other way, and IN2 carries that ulp into the result scaled by
+# |scale2 · rstd2| (``_torch_tail(carried_ulp=True)`` gives it per element);
+# the result may then round once more the other way, and K1's apply pass
+# activates before it rounds (one more): two bf16 ulps of the result plus the
+# carried conv ulp plus 1e-4. IN1's statistics, summed in another order, also
+# round a few conv inputs the other way; a conv output near zero can then
+# move by more than its own ulp. So at most K3_BF16_OUTLIER_SHARE of the
+# elements may exceed the elementwise bound, and the kernel must be as close
+# to the float32 computation of the same function on the same bf16 values as
+# the plain version is: max and mean |error| within E2E_BF16_SLACK of the
+# plain version's.
+K3_F32_TOL = 1e-4
+K3_BF16_ULPS = 2.0
+K3_BF16_OUTLIER_SHARE = 1e-4
 # Timed calls cycle through copies of their input that together hold at
 # least this many times the card's L2, so no call reads its input from L2.
 L2_MULTIPLE = 4
 
 failures: list[str] = []
-report: dict = {"k1_err": 0.0, "k2_err": 0.0}
+report: dict = {"err": dict.fromkeys(KERNELS, 0.0)}
 
 
 def log(msg: str) -> None:
@@ -133,15 +173,23 @@ def nvidia_smi_card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+WRAPPERS = {"K1": k1.fused_instance_norm, "K2a": k2.upsample2x_nhwc_fast,
+            "K2b": k2.upsample2x_into_s2d_fast, "K3": k3.fused_s2d_tail}
+
+
 def launches() -> dict:
-    return {"K1": k1.fused_instance_norm.launches, "K2": k2.upsample2x_nhwc_fast.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def counted(fn, expected: dict):
     """``fn()`` with the launch counts set to 0 just before it; fails unless
     they read ``expected`` just after."""
-    k1.fused_instance_norm.launches = 0
-    k2.upsample2x_nhwc_fast.launches = 0
+    reset_launches()
     out = fn()
     if launches() != expected:
         raise AssertionError(f"expected launches {expected}, got {launches()}")
@@ -155,14 +203,19 @@ def times(expected: dict, n: int) -> dict:
 @contextmanager
 def plain_versions():
     """Route the model's blocks through the plain PyTorch versions."""
-    saved = blocks.fused_instance_norm, blocks.upsample2x_nhwc_fast
-    blocks.fused_instance_norm = lambda x, s, b, eps, slope: k1._torch_forward(
-        x, s, b, eps, slope, 1)[0]
-    blocks.upsample2x_nhwc_fast = upsample2x_nhwc
+    names = ("fused_instance_norm", "upsample2x_nhwc_fast", "upsample2x_into_s2d_fast",
+             "fused_s2d_tail")
+    saved = [getattr(blocks, name) for name in names]
+    plain = (lambda x, s, b, eps, slope, group=1: k1._torch_forward(x, s, b, eps, slope,
+                                                                    group)[0],
+             upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail)
+    for name, fn in zip(names, plain):
+        setattr(blocks, name, fn)
     try:
         yield
     finally:
-        blocks.fused_instance_norm, blocks.upsample2x_nhwc_fast = saved
+        for name, fn in zip(names, saved):
+            setattr(blocks, name, fn)
 
 
 @contextmanager
@@ -174,21 +227,26 @@ def deterministic():
         torch.backends.cudnn.deterministic = False
 
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol: float = 0.0) -> float:
-    """max(|a - b| - atol, 0) in units of the bf16 spacing at max(|a|, |b|)."""
+def bf16_ulps_map(a: torch.Tensor, b: torch.Tensor, atol=0.0) -> torch.Tensor:
+    """max(|a - b| - atol, 0) in units of the bf16 spacing at max(|a|, |b|),
+    per element; ``atol`` a number or a tensor like a."""
     a, b = a.float(), b.float()
     mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
     excess = ((a - b).abs() - atol).clamp_min(0.0)
-    return float((excess / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+    return excess / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol=0.0) -> float:
+    return float(bf16_ulps_map(a, b, atol).max())
 
 
 def check_k1(x, scale, bias, group: int = 1) -> str:
     """K1 against its plain version on the same inputs; fails beyond the tolerance."""
     got = counted(lambda: k1.fused_instance_norm(x, scale, bias, 1e-5, 0.01, group),
-                  {"K1": 1, "K2": 0})
+                  one_launch("K1"))
     want = k1._torch_forward(x, scale, bias, 1e-5, 0.01, group)[0]
     err = float((got.float() - want.float()).abs().max())
-    report["k1_err"] = max(report["k1_err"], err)
+    report["err"]["K1"] = max(report["err"]["K1"], err)
     if x.dtype == torch.float32:
         ok = torch.allclose(got, want, rtol=K1_F32_TOL, atol=K1_F32_TOL)
         detail = f"max_abs_err {err:.3e} (tol {K1_F32_TOL:g})"
@@ -203,38 +261,75 @@ def check_k1(x, scale, bias, group: int = 1) -> str:
     return f"{label}: {detail} ok"
 
 
-def check_k2(x) -> str:
-    """K2 against its plain version on the same input; fails unless bitwise equal."""
-    got = counted(lambda: k2.upsample2x_nhwc_fast(x), {"K1": 0, "K2": 1})
-    want = upsample2x_nhwc(x)
+def one_launch(kernel: str) -> dict:
+    return {**NO_LAUNCHES, kernel: 1}
+
+
+def check_k2(x, s2d: bool = False) -> str:
+    """K2a (or K2b) against its plain version on the same input; fails unless
+    bitwise equal."""
+    kernel = "K2b" if s2d else "K2a"
+    fast, plain = ((k2.upsample2x_into_s2d_fast, upsample2x_into_s2d) if s2d
+                   else (k2.upsample2x_nhwc_fast, upsample2x_nhwc))
+    got = counted(lambda: fast(x), one_launch(kernel))
+    want = plain(x)
     err = float((got.float() - want.float()).abs().max())
-    report["k2_err"] = max(report["k2_err"], err)
-    label = f"K2 {tuple(x.shape)} {str(x.dtype)[6:]}"
+    report["err"][kernel] = max(report["err"][kernel], err)
+    label = f"{kernel} {tuple(x.shape)} {str(x.dtype)[6:]}"
     if not torch.equal(got, want):
         raise AssertionError(f"{label} differs from its plain version (max_abs_err {err:.3e})")
     return f"{label}: bitwise equal ({tuple(got.shape)}, {got.numel()} elements)"
 
 
-def check_forwards(served, reference, x: torch.Tensor) -> dict:
+def check_k3(args, label: str) -> str:
+    """K3 against its plain version on the same inputs; fails beyond the
+    tolerances (K3_F32_TOL; K3_BF16_ULPS, K3_BF16_OUTLIER_SHARE and the
+    float32 comparison for bf16)."""
+    x = args[0]
+    got = counted(lambda: k3.fused_s2d_tail(*args), one_launch("K3"))
+    want, carried = k3._torch_tail(*args, 1e-5, 0.01, carried_ulp=True)
+    err = float((got.float() - want.float()).abs().max())
+    report["err"]["K3"] = max(report["err"]["K3"], err)
+    if x.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=K3_F32_TOL, atol=K3_F32_TOL)
+        detail = f"max_abs_err {err:.3e} (tol {K3_F32_TOL:g})"
+    else:
+        ulps = bf16_ulps_map(got, want, carried + K3_F32_TOL)
+        share = float((ulps > K3_BF16_ULPS).float().mean())
+        ref = k3._torch_tail(x.float(), *args[1:], 1e-5, 0.01)
+        e_k, e_p = (got.float() - ref).abs(), (want.float() - ref).abs()
+        max_k, max_p, mean_k, mean_p = (float(e_k.max()), float(e_p.max()), float(e_k.mean()),
+                                        float(e_p.mean()))
+        ok = (share <= K3_BF16_OUTLIER_SHARE and max_k <= max_p * (1 + E2E_BF16_SLACK)
+              and mean_k <= mean_p * (1 + E2E_BF16_SLACK))
+        detail = (f"max_abs_err {err:.3e}, max {bf16_ulps(got, want):.2f} bf16 ulp; beyond 2 ulp "
+                  f"+ carried conv ulp + {K3_F32_TOL:g}: {share:.2e} of elements (tol "
+                  f"{K3_BF16_OUTLIER_SHARE:g}), at most {float(ulps.max()):.2f} ulp; |error| "
+                  f"against float32, kernel/plain: max {max_k:.4e}/{max_p:.4e}, mean "
+                  f"{mean_k:.4e}/{mean_p:.4e} (slack {E2E_BF16_SLACK:g})")
+        del ref, e_k, e_p, ulps
+    label = f"K3 {label} {tuple(x.shape)} {str(x.dtype)[6:]}"
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: {detail}")
+    return f"{label}: {detail} ok"
+
+
+def check_forwards(served, reference, x: torch.Tensor, per_forward: dict) -> dict:
     """The bf16 and float32 models with the kernels and with the plain
-    versions on the same input ``x``; fails unless the bounds are met."""
+    versions on the same input ``x``; fails unless the bounds are met. Returns
+    the rel-L2 and argmax agreement of each pair, and the float32 logits with
+    the kernels."""
     with deterministic(), torch.inference_mode():
-        out = {"bf16": counted(lambda: served(x), PER_FORWARD),
-               "bf16 again": counted(lambda: served(x), PER_FORWARD),
-               "f32": counted(lambda: reference(x), PER_FORWARD)}
+        out = {"bf16": counted(lambda: served(x), per_forward),
+               "bf16 again": counted(lambda: served(x), per_forward),
+               "f32": counted(lambda: reference(x), per_forward)}
         with plain_versions():
             out["bf16 plain"] = counted(lambda: served(x), NO_LAUNCHES)
             out["f32 plain"] = counted(lambda: reference(x), NO_LAUNCHES)
 
-    def rel_l2(a, b):
-        return float((out[a] - out[b]).norm() / out[b].norm())
-
-    def agree(a, b):
-        return float((out[a].argmax(-1) == out[b].argmax(-1)).float().mean())
-
     pairs = [("bf16", "bf16 plain"), ("f32", "f32 plain"), ("bf16", "f32 plain"),
              ("bf16 plain", "f32 plain")]
-    e2e = {f"{a} vs {b}": (rel_l2(a, b), agree(a, b)) for a, b in pairs}
+    e2e = {f"{a} vs {b}": compare(out[a], out[b]) for a, b in pairs}
     for name, (r, a) in e2e.items():
         log(f"{name}: logits rel-L2 {r:.4e}, argmax agreement {a:.6f}")
     repeat = torch.equal(out["bf16"], out["bf16 again"])
@@ -254,7 +349,26 @@ def check_forwards(served, reference, x: torch.Tensor) -> dict:
         f"plain >= {p_a - E2E_BF16_AGREEMENT_SLACK:.6f}; {checks}")
     if not all(checks.values()):
         raise AssertionError(f"the forward with kernels misses its bounds: {checks}")
-    return e2e
+    return {"pairs": e2e, "f32": out["f32"]}
+
+
+def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """Logits rel-L2 of a against b, and the share of equal argmaxes."""
+    return (float((a - b).norm() / b.norm()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def check_layouts_agree(f32_s2d: torch.Tensor, f32_dense: torch.Tensor, label: str) -> tuple:
+    """The float32 s2d forward against the float32 dense forward on the same
+    weights and input: the layout is an exact rewrite, so the bounds of the
+    float32 kernel checks hold."""
+    r, a = compare(f32_s2d, f32_dense)
+    ok = r <= E2E_F32_REL_L2 and a >= E2E_F32_AGREEMENT
+    log(f"{label} f32 s2d vs f32 dense (kernels, TF32 off): logits rel-L2 {r:.4e}, argmax "
+        f"agreement {a:.6f} (bounds {E2E_F32_REL_L2:g}, {E2E_F32_AGREEMENT:g}): {ok}")
+    if not ok:
+        raise AssertionError(f"the f32 s2d forward is not the dense one: {r:.4e}, {a:.6f}")
+    return r, a
 
 
 def cuda_times(fn, inputs: list, iters: int, warmup: int = 2) -> list[float]:
@@ -292,9 +406,21 @@ def k1_inputs(b: int, side: int, c: int, dtype, group: int = 1, seed: int = SEED
     return x, scale, bias
 
 
-def k2_input(b: int, side: int, c: int, seed: int = SEED):
+def k2_input(b: int, side: int, c: int, seed: int = SEED, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn((b, side, side, c), generator=g, device="cuda").to(torch.bfloat16)
+    return torch.randn((b, side, side, c), generator=g, device="cuda").to(dtype)
+
+
+def k3_inputs(b: int, side: int, c: int, dtype, seed: int = SEED):
+    """conv_0's output (B, side, side, 4C) and the tail's parameters."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = (randn(b, side, side, 4 * c) * 2 + 0.5).to(dtype)
+    return (x, randn(c) * 0.25 + 1.0, randn(c) * 0.1, randn(c, c, 3, 3) * (2 / (9 * c)) ** 0.5,
+            randn(c) * 0.25 + 1.0, randn(c) * 0.1)
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -315,6 +441,19 @@ def k2_bound_ms(x: torch.Tensor) -> tuple[float, str]:
     # 2 H-lerps + 4 W-lerps of 3 ops each per input element (6 lerps of 4
     # outputs' worth, shared halo lerps not counted twice).
     by_ops = 18 * n / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def k3_bound_ms(x: torch.Tensor) -> tuple[float, str]:
+    n = x.numel()
+    c = x.shape[-1] // 4
+    by_bytes = bytes_ms(2 * n * x.element_size())
+    # The conv's multiply-adds on the tensor cores (bf16), and the norms'
+    # float32 operations on the CUDA cores: IN1 and IN2 sums (3 + 3), IN1's
+    # normalize and activation (6), IN2's apply (5) per element. The two
+    # units run side by side, so the slower of the two bounds.
+    conv_flops = 2 * n * 9 * c
+    by_ops = max(conv_flops / BF16_TENSOR_FLOPS_PER_S, 17 * n / F32_FLOPS_PER_S) * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -344,39 +483,41 @@ def phase_kernels():
         log(check_k1(*k1_inputs(b, IMG // 2, 4 * DEFAULT_FEATURES[0], torch.bfloat16, 4), 4))
         for side, c in K2_INPUTS:
             log(check_k2(k2_input(b, side, c, seed=side)))
+        for side, c in K2B_INPUTS:
+            for dt in (torch.bfloat16, torch.float32):
+                log(check_k2(k2_input(b, side, c, seed=side, dtype=dt), s2d=True))
+        with deterministic():
+            for i, (block, side, c) in enumerate(K3_CALLS):
+                for dt in (torch.bfloat16, torch.float32):
+                    log(check_k3(k3_inputs(b, side, c, dt, seed=SEED + i), block))
 
 
-@phase("3. the slice: reference .pth -> load_reference_checkpoint -> predict_arrays")
-def phase_slice():
-    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
-                        generator=torch.Generator().manual_seed(SEED))
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "unet_6stage.pth"
-        convert.save_reference_checkpoint(model, path)
-        served = convert.load_reference_checkpoint(path, device="cuda", dtype=torch.bfloat16)
-    for (name, a), b in zip(model.state_dict().items(), served.state_dict().values()):
+def serve_layout(layout: str, path: Path, batches: list, seed_model) -> None:
+    """Load the ``.pth`` in ``layout``, answer the request batches with the
+    kernels (checking the launch counts), then with the plain versions and by
+    the float32 model, and hold the masks to the bounds of phase 4."""
+    per_forward = PER_FORWARD[layout]
+    served = convert.load_reference_checkpoint(path, device="cuda", dtype=torch.bfloat16,
+                                               **LAYOUTS[layout])
+    for (name, a), b in zip(seed_model.state_dict().items(), served.state_dict().values()):
         if not torch.equal(a, b):
             raise AssertionError(f"reloaded weight differs: {name}")
-    reference = unet_6stage(dtype=torch.float32, device="cuda")
+    reference = unet_6stage(dtype=torch.float32, device="cuda", **LAYOUTS[layout])
     reference.load_state_dict(served.state_dict())
     reference.eval()
-    report["model"], report["reference"] = served, reference
-    rng = np.random.default_rng(SEED)
-    batches = [rng.integers(0, 256, (SERVE_BATCH, IMG, IMG, 3), dtype=np.uint8)
-               for _ in range(3)]
+    report["models"][layout] = served, reference
 
     def serve(m):
         return [predict_arrays(m, images, SIZES) for images in batches]
 
     torch.cuda.synchronize()
-    k1.fused_instance_norm.launches = 0
-    k2.upsample2x_nhwc_fast.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     results = serve(served)
     elapsed = time.perf_counter() - t0
-    report["launches"] = launches()
-    log(f"3 batches of {SERVE_BATCH} answered in {elapsed * 1e3:.1f} ms (host clock, first "
-        f"calls included); launches {report['launches']}")
+    report["launches"][layout] = launches()
+    log(f"{layout}: 3 batches of {SERVE_BATCH} answered in {elapsed * 1e3:.1f} ms (host clock, "
+        f"first calls included); launches {report['launches'][layout]}")
     for masks in results:
         for mask, size in zip(masks, SIZES):
             if mask.shape != size or mask.dtype != np.uint8:
@@ -384,17 +525,17 @@ def phase_slice():
             if not set(np.unique(mask)) <= {0, 1, 2}:
                 raise AssertionError(f"mask values {np.unique(mask)} outside {{0,1,2}}")
     flat = {"bf16": np.concatenate([mask.ravel() for ms in results for mask in ms])}
-    log(f"mask class counts {np.bincount(flat['bf16'], minlength=3).tolist()}")
-    if report["launches"] != times(PER_FORWARD, len(batches)):
-        raise AssertionError(f"expected {times(PER_FORWARD, len(batches))} launches, "
-                             f"got {report['launches']}")
+    log(f"{layout}: mask class counts {np.bincount(flat['bf16'], minlength=3).tolist()}")
+    if report["launches"][layout] != times(per_forward, len(batches)):
+        raise AssertionError(f"expected {times(per_forward, len(batches))} launches, "
+                             f"got {report['launches'][layout]}")
 
     # The same requests with the plain versions and by the float32 model.
     for name, m, plain in (("bf16 plain", served, True), ("f32", reference, False),
                            ("f32 plain", reference, True)):
         with deterministic(), plain_versions() if plain else nullcontext():
             masks = counted(lambda: serve(m),
-                            NO_LAUNCHES if plain else times(PER_FORWARD, len(batches)))
+                            NO_LAUNCHES if plain else times(per_forward, len(batches)))
         flat[name] = np.concatenate([mask.ravel() for ms in masks for mask in ms])
 
     def agree(a, b):
@@ -402,17 +543,40 @@ def phase_slice():
 
     f32_a, k_a, p_a = (agree("f32", "f32 plain"), agree("bf16", "f32 plain"),
                        agree("bf16 plain", "f32 plain"))
-    report["mask_agreement"] = {"f32 vs f32 plain": f32_a, "bf16 vs f32 plain": k_a,
-                                "bf16 plain vs f32 plain": p_a,
-                                "bf16 vs bf16 plain": agree("bf16", "bf16 plain")}
-    for name, a in report["mask_agreement"].items():
-        log(f"masks {name}: agreement {a:.6f}")
+    report["mask_agreement"][layout] = {
+        "f32 vs f32 plain": f32_a, "bf16 vs f32 plain": k_a, "bf16 plain vs f32 plain": p_a,
+        "bf16 vs bf16 plain": agree("bf16", "bf16 plain")}
+    report["masks"][layout] = flat
+    for name, a in report["mask_agreement"][layout].items():
+        log(f"{layout}: masks {name}: agreement {a:.6f}")
     checks = {"f32 agreement": f32_a >= E2E_F32_AGREEMENT,
               "bf16 agreement vs f32": k_a >= p_a - E2E_BF16_AGREEMENT_SLACK}
-    log(f"bounds: f32 agreement >= {E2E_F32_AGREEMENT:g}, bf16 agreement to f32 plain >= "
-        f"{p_a - E2E_BF16_AGREEMENT_SLACK:.6f}; {checks}")
+    log(f"{layout}: bounds: f32 agreement >= {E2E_F32_AGREEMENT:g}, bf16 agreement to f32 "
+        f"plain >= {p_a - E2E_BF16_AGREEMENT_SLACK:.6f}; {checks}")
     if not all(checks.values()):
         raise AssertionError(f"the served masks with kernels miss their bounds: {checks}")
+
+
+@phase("3. the slice: reference .pth -> load_reference_checkpoint -> predict_arrays")
+def phase_slice():
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batches = [rng.integers(0, 256, (SERVE_BATCH, IMG, IMG, 3), dtype=np.uint8)
+               for _ in range(3)]
+    report.update(models={}, launches={}, mask_agreement={}, masks={})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "unet_6stage.pth"
+        convert.save_reference_checkpoint(model, path)
+        for layout in LAYOUTS:
+            serve_layout(layout, path, batches, model)
+    # One .pth, two layouts: the float32 masks of the two agree as the f32
+    # masks with kernels agree with their plain versions.
+    a = float((report["masks"]["s2d"]["f32"] == report["masks"]["dense"]["f32"]).mean())
+    report["mask_agreement"]["f32 s2d vs f32 dense"] = a
+    log(f"masks f32 s2d vs f32 dense: agreement {a:.6f} (bound {E2E_F32_AGREEMENT:g})")
+    if a < E2E_F32_AGREEMENT:
+        raise AssertionError(f"f32 s2d masks agree with the dense ones on only {a:.6f}")
 
 
 @phase(f"4. whole forward: kernels against plain versions (b{SERVE_BATCH} 512²)")
@@ -420,34 +584,67 @@ def phase_e2e():
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     pixels = torch.randint(0, 256, (SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda",
                            dtype=torch.uint8)
-    report["e2e"] = check_forwards(report["model"], report["reference"], normalize_image(pixels))
+    x = normalize_image(pixels)
+    results = {}
+    for layout in LAYOUTS:
+        log(f"-- {layout}")
+        results[layout] = check_forwards(*report["models"][layout], x, PER_FORWARD[layout])
+    report["e2e"] = {k: v["pairs"] for k, v in results.items()}
+    report["layouts_b8"] = check_layouts_agree(results["s2d"]["f32"], results["dense"]["f32"],
+                                               f"b{SERVE_BATCH}")
+
+
+def time_kernel(name: str, fn, plain, inputs: list, bound: tuple, library=None,
+                iters: int = 10) -> list:
+    """[kernel ms, plain ms, bound ms, library ms] medians of one call, logged."""
+    t = cuda_times(fn, inputs, iters=iters)
+    tp = cuda_times(plain, inputs, iters=3)
+    tl = cuda_times(library, inputs, iters=iters) if library else None
+    lib = f", library {spread(tl)}" if tl else ""
+    log(f"{name} ({len(inputs)} input(s)): kernel {spread(t)}, plain {spread(tp)}{lib}, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / statistics.median(t):.1%} of bound")
+    return [statistics.median(t), statistics.median(tp), bound[0],
+            statistics.median(tl) if tl else None]
 
 
 @phase(f"5. times (CUDA events, b{TIMED_BATCH} 512² bf16) and checks at b{TIMED_BATCH}")
 def phase_times():
-    model, batch = report["model"], TIMED_BATCH
+    batch = TIMED_BATCH
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     pixels = torch.randint(0, 256, (batch, IMG, IMG, 3), generator=g, device="cuda",
                            dtype=torch.uint8)
     x = normalize_image(pixels)
     xb = x.to(torch.bfloat16)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        fwd = cuda_times(lambda inp: counted(lambda: model(inp), PER_FORWARD), [xb], iters=5)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    ms = statistics.median(fwd)
-    report["forward"] = {"batch": batch, "ms": ms, "img_per_s": batch / ms * 1e3,
-                         "peak_gib": peak}
-    log(f"forward b{batch}: {spread(fwd)}, {batch / ms * 1e3:.1f} img/s, "
-        f"peak memory {peak:.2f} GiB")
+    report["forward"] = {}
+    for layout in LAYOUTS:
+        model = report["models"][layout][0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            fwd = cuda_times(lambda inp: counted(lambda: model(inp), PER_FORWARD[layout]), [xb],
+                             iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(fwd)
+        report["forward"][layout] = {"batch": batch, "ms": ms, "img_per_s": batch / ms * 1e3,
+                                     "peak_gib": peak}
+        log(f"{layout} forward b{batch}: {spread(fwd)}, {batch / ms * 1e3:.1f} img/s, "
+            f"peak memory {peak:.2f} GiB")
     del xb
-    report["e2e_b128"] = check_forwards(model, report["reference"], x)
-    del x, pixels
+    results = {}
+    for layout in LAYOUTS:
+        log(f"-- {layout} at b{batch}")
+        results[layout] = check_forwards(*report["models"][layout], x, PER_FORWARD[layout])
+    report["e2e_b128"] = {k: v["pairs"] for k, v in results.items()}
+    report["layouts_b128"] = check_layouts_agree(results["s2d"]["f32"],
+                                                 results["dense"]["f32"], f"b{batch}")
+    del x, pixels, results
 
-    # ms, plain, bound, library; and K1's bound split into its statistics
-    # pass (one read of x) and its apply pass (a read of x and a write of y).
-    rows = {"K1": [0.0, 0.0, 0.0, None], "K2": [0.0, 0.0, 0.0, 0.0]}
+    # ms, plain, bound, library per forward; and K1's bound split into its
+    # statistics pass (one read of x) and its apply pass (a read of x and a
+    # write of y). K1 and K2a per dense forward, K2b and K3 per s2d forward.
+    rows = {"K1": [0.0, 0.0, 0.0, None], "K2a": [0.0, 0.0, 0.0, 0.0],
+            "K2b": [0.0, 0.0, 0.0, None], "K3": [0.0, 0.0, 0.0, None]}
+    bound_by = {}
     k1_split = [0.0, 0.0]
     with torch.inference_mode():
         for level, ((side, c), calls) in enumerate(zip(LEVELS, K1_CALLS)):
@@ -457,16 +654,15 @@ def phase_times():
             nbytes = x.numel() * x.element_size()
             inputs += [k1_inputs(batch, side, c, torch.bfloat16, seed=SEED + i)
                        for i in range(1, n_copies(nbytes))]
-            t = cuda_times(lambda inp: k1.fused_instance_norm(*inp), inputs, iters=10)
-            tp = cuda_times(lambda inp: k1._torch_forward(*inp, 1e-5, 0.01, 1), inputs, iters=3)
-            bound, k1_by = k1_bound_ms(x)
-            for i, v in enumerate((statistics.median(t), statistics.median(tp), bound)):
-                rows["K1"][i] += calls * v
+            bound = k1_bound_ms(x)
+            row = time_kernel(f"K1 level {level} {tuple(x.shape)} x{calls}",
+                              lambda inp: k1.fused_instance_norm(*inp),
+                              lambda inp: k1._torch_forward(*inp, 1e-5, 0.01, 1), inputs, bound)
+            for i in range(3):
+                rows["K1"][i] += calls * row[i]
+            bound_by["K1"] = bound[1]
             k1_split[0] += calls * bytes_ms(nbytes)
             k1_split[1] += calls * bytes_ms(2 * nbytes)
-            log(f"K1 level {level} {tuple(x.shape)} x{calls} ({len(inputs)} input(s)): kernel "
-                f"{spread(t)}, plain {spread(tp)}, bound {bound:.4f} ms ({k1_by}), "
-                f"{bound / statistics.median(t):.1%} of bound")
             del inputs, x
         for side, c in K2_INPUTS:
             x = k2_input(batch, side, c, seed=side)
@@ -474,28 +670,84 @@ def phase_times():
             nbytes = x.numel() * x.element_size()
             inputs = [x] + [k2_input(batch, side, c, seed=side + i)
                             for i in range(1, n_copies(nbytes))]
-            t = cuda_times(k2.upsample2x_nhwc_fast, inputs, iters=10)
-            tp = cuda_times(upsample2x_nhwc, inputs, iters=3)
             # The library call on the NCHW view (channels_last memory). Its
             # NHWC kernel indexes with 32-bit ints: an output of 2^31 or more
             # elements is timed as one call per half batch.
             parts = 2 if 4 * x.numel() >= 2**31 else 1
             views = [[xh.permute(0, 3, 1, 2) for xh in xi.chunk(parts)] for xi in inputs]
-            tl = cuda_times(lambda halves: [F.interpolate(xh, scale_factor=2, mode="bilinear",
-                                                          align_corners=False)
-                                            for xh in halves], views, iters=10)
-            bound, k2_by = k2_bound_ms(x)
-            for i, v in enumerate((statistics.median(t), statistics.median(tp), bound,
-                                   statistics.median(tl))):
-                rows["K2"][i] += v
-            log(f"K2 {tuple(x.shape)} ({len(inputs)} input(s)): kernel {spread(t)}, plain "
-                f"{spread(tp)}, F.interpolate {spread(tl)} ({parts} call(s)), bound "
-                f"{bound:.4f} ms ({k2_by}), {bound / statistics.median(t):.1%} of bound")
+            bound = k2_bound_ms(x)
+            row = time_kernel(f"K2a {tuple(x.shape)}", k2.upsample2x_nhwc_fast, upsample2x_nhwc,
+                              inputs, bound)
+            row[3] = statistics.median(cuda_times(
+                lambda halves: [F.interpolate(xh, scale_factor=2, mode="bilinear",
+                                              align_corners=False) for xh in halves],
+                views, iters=10))
+            log(f"   F.interpolate ({parts} call(s)): median {row[3]:.4f} ms")
+            for i in range(4):
+                rows["K2a"][i] += row[i]
+            bound_by["K2a"] = bound[1]
             del x, inputs, views
+        for side, c in K2B_INPUTS:
+            x = k2_input(batch, side, c, seed=side)
+            log(check_k2(x, s2d=True))
+            nbytes = x.numel() * x.element_size()
+            inputs = [x] + [k2_input(batch, side, c, seed=side + i)
+                            for i in range(1, n_copies(nbytes))]
+            bound = k2_bound_ms(x)
+            row = time_kernel(f"K2b {tuple(x.shape)}", k2.upsample2x_into_s2d_fast,
+                              upsample2x_into_s2d, inputs, bound)
+            for i in range(3):
+                rows["K2b"][i] += row[i]
+            bound_by["K2b"] = bound[1]
+            del x, inputs
+        log("K2b: no single PyTorch call writes the q-major s2d layout (F.pixel_unshuffle is "
+            "c-major, channel c*4 + q), so library_ms is null.")
+        with deterministic():
+            timed = {}
+            for i, (block, side, c) in enumerate(K3_CALLS):
+                if (side, c) in timed:  # the same shape as an earlier call
+                    row = timed[(side, c)]
+                    log(f"K3 {block}: same shape as an earlier call, its times count again")
+                else:
+                    args = k3_inputs(batch, side, c, torch.bfloat16, seed=SEED + i)
+                    log(check_k3(args, block))
+                    bound = k3_bound_ms(args[0])
+                    row = timed[(side, c)] = time_kernel(
+                        f"K3 {block} {tuple(args[0].shape)}", lambda a: k3.fused_s2d_tail(*a),
+                        lambda a: k3._torch_tail(*a, 1e-5, 0.01), [args], bound, iters=5)
+                    bound_by["K3"] = bound[1]
+                    # Context for a later redesign: cuDNN's conv of the same
+                    # work in the dense geometry (not the same function).
+                    xd = torch.randn((batch, c, 2 * side, 2 * side), device="cuda",
+                                     dtype=torch.bfloat16).contiguous(
+                                         memory_format=torch.channels_last)
+                    wd = args[3].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                    td = cuda_times(lambda inp: F.conv2d(inp, wd, padding=1), [xd], iters=10)
+                    log(f"   context: cuDNN F.conv2d of the dense-equivalent conv_1 "
+                        f"{tuple(xd.shape)} {c}->{c} 3x3 bf16 channels_last: {spread(td)}")
+                    del args, xd, wd
+                for j in range(3):
+                    rows["K3"][j] += row[j]
+        log("K3: no single PyTorch call computes IN+LeakyReLU -> conv -> IN+LeakyReLU, so "
+            "library_ms is null.")
+        # K4 (Winograd, not ported) reference shape: b128 3x3 128->128 at 128².
+        xk = torch.randn((batch, 128, 128, 128), device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wk = (torch.randn((128, 128, 3, 3), device="cuda") * 0.03).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bk = torch.zeros(128, device="cuda", dtype=torch.bfloat16)
+        tk = cuda_times(lambda inp: F.conv2d(inp, wk, bk, padding=1), [xk], iters=10)
+        flops = 2 * xk.numel() * 9 * 128
+        k4_bound = max(bytes_ms(2 * xk.numel() * 2), flops / BF16_TENSOR_FLOPS_PER_S * 1e3)
+        report["k4_conv_ms"] = statistics.median(tk)
+        log(f"K4 reference shape: cuDNN F.conv2d {tuple(xk.shape)} 128->128 3x3 + bias, bf16 "
+            f"channels_last: {spread(tk)}; bound {k4_bound:.4f} ms ({flops:.3e} flop)")
+        del xk, wk
     report["rows"] = rows
-    report["bound_by"] = {"K1": k1_by, "K2": k2_by}
+    report["bound_by"] = bound_by
     log("K1 has no single PyTorch call computing InstanceNorm+LeakyReLU (library_ms null).")
-    log(f"per b{batch} forward (sum over the main-path calls of the medians): "
+    log(f"per b{batch} forward (sum over the main-path calls of the medians; K1, K2a dense, "
+        "K2b, K3 s2d): "
         + "; ".join(f"{k}: kernel {v[0]:.3f} ms, plain {v[1]:.3f} ms, bound {v[2]:.3f} ms"
                     for k, v in rows.items()))
     log(f"K1 bound by pass per b{batch} forward: statistics (read x) {k1_split[0]:.3f} ms, "
@@ -504,22 +756,30 @@ def phase_times():
 
 def kernels_line() -> dict:
     rows = report.get("rows", {})
-    counts = report.get("launches", {})
+    by_layout = report.get("launches", {})
     bound_by = report.get("bound_by", {})
     meta = [
         ("K1 fused_instance_norm (InstanceNorm+LeakyReLU fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/instance_norm.cu",
-         "unet_implementations_tpu/kernels/instance_norm.py:80", "K1", "k1_err"),
-        ("K2 upsample2x_nhwc_fast (2x bilinear, dense fwd)",
+         "unet_implementations_tpu/kernels/instance_norm.py:80", "K1"),
+        ("K2a upsample2x_nhwc_fast (2x bilinear, dense fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/upsample.cu",
-         "unet_implementations_tpu/kernels/upsample.py:118", "K2", "k2_err"),
+         "unet_implementations_tpu/kernels/upsample.py:118", "K2a"),
+        ("K2b upsample2x_into_s2d_fast (2x bilinear into s2d, fwd)",
+         "unet_implementations_tpu_torch/kernels/csrc/upsample.cu",
+         "unet_implementations_tpu/kernels/upsample.py:134", "K2b"),
+        ("K3 fused_s2d_tail (s2d block tail IN-lrelu-conv3x3-IN-lrelu, fwd)",
+         "unet_implementations_tpu_torch/kernels/csrc/s2d_region.cu",
+         "unet_implementations_tpu/kernels/s2d_region.py:204", "K3"),
     ]
     out = []
-    for name, source, replaces, key, err in meta:
+    for name, source, replaces, key in meta:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts.get(key), "max_abs_err": report.get(err),
+            # Both served layouts of phase 3 (3 batches each).
+            "launches": sum(counts[key] for counts in by_layout.values()) if by_layout else None,
+            "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by.get(key, "bytes"), "library_ms": library_ms,
         })
@@ -538,7 +798,7 @@ def main() -> int:
     if not failures:
         phase_kernels()
         phase_slice()
-        if "model" in report:
+        if len(report.get("models", {})) == len(LAYOUTS):
             phase_e2e()
             phase_times()
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -5,10 +5,20 @@ file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
-Tolerances: K2 (upsample) is bitwise. K1 (InstanceNorm) sums in float32 in
-another order than the plain version: float32 outputs agree to 1e-4, and
-bfloat16 outputs within one bf16 ulp plus that 1e-4, since the float32
-difference may tip the final rounding to the neighbouring bf16 value.
+Tolerances: K2 (upsample, K2a and K2b) is bitwise. K1 (InstanceNorm) sums
+in float32 in another order than the plain version: float32 outputs agree to
+1e-4, and bfloat16 outputs within one bf16 ulp plus that 1e-4, since the
+float32 difference may tip the final rounding to the neighbouring bf16 value.
+K3 (the s2d block tail): float32 to 1e-4 (sum orders). bfloat16: the conv
+sums in another order than cuDNN, so a conv output may round one bf16 ulp
+the other way, and IN2 carries that ulp into the result scaled by
+|scale2 · rstd2| (``_torch_tail(carried_ulp=True)``); the result may also
+round once more the other way, and K1's apply pass activates before it
+rounds (one more ulp): two bf16 ulps of the result plus the carried conv ulp
+plus 1e-4, for all but 1e-4 of the elements (IN1's statistics, summed in
+another order, round a few conv inputs the other way too); and the kernel is
+as close to the float32 computation as the plain version (max and mean
+|error| within 25%). The reasons are set out in ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -16,7 +26,12 @@ import pytest
 import torch
 
 from unet_implementations_tpu_torch.kernels import instance_norm as torch_in
-from unet_implementations_tpu_torch.kernels.upsample import upsample2x_nhwc_fast
+from unet_implementations_tpu_torch.kernels import s2d_region as torch_region
+from unet_implementations_tpu_torch.kernels.upsample import (
+    upsample2x_into_s2d_fast,
+    upsample2x_nhwc_fast,
+)
+from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
 from unet_implementations_tpu_torch.models.unet import UNet
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
@@ -73,6 +88,59 @@ def test_upsample_bitwise(dtype, shape):
     assert upsample2x_nhwc_fast.launches == before + 1
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (2, 32, 32, 64), (1, 5, 7, 6)])
+def test_upsample_s2d_bitwise(dtype, shape):
+    _need_cuda()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape))
+    x = x.to("cuda", DTYPES[dtype])
+    before = upsample2x_into_s2d_fast.launches
+    with torch.no_grad():
+        assert torch.equal(upsample2x_into_s2d_fast(x), upsample2x_into_s2d(x))
+    assert upsample2x_into_s2d_fast.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 128, 32), (2, 32, 32, 128), (2, 16, 16, 256),
+                                   (1, 9, 13, 64)])
+def test_s2d_tail(dtype, shape, monkeypatch):
+    _need_cuda()
+    # The plain version's conv is cuDNN's: float32 without TF32, as the kernel.
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(3)
+    c = shape[-1] // 4
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    x = t(rng.normal(size=shape), DTYPES[dtype])
+    args = (x, t(rng.uniform(0.5, 1.5, c)), t(rng.normal(size=c) * 0.1),
+            t(rng.normal(size=(c, c, 3, 3)) * np.sqrt(2 / (9 * c))),
+            t(rng.uniform(0.5, 1.5, c)), t(rng.normal(size=c) * 0.1))
+    before = torch_region.fused_s2d_tail.launches
+    with torch.no_grad():
+        got = torch_region.fused_s2d_tail(*args)
+        want, carried = torch_region._torch_tail(*args, 1e-5, 0.01, carried_ulp=True)
+        ref = torch_region._torch_tail(x.float(), *args[1:], 1e-5, 0.01)
+    assert torch_region.fused_s2d_tail.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    got, want, carried, ref = (v.float().cpu().numpy() for v in (got, want, carried, ref))
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert (bf16_ulps(got, want, 1e-4 + carried) > 2.0).mean() <= 1e-4
+        e_k, e_p = np.abs(got - ref), np.abs(want - ref)
+        assert e_k.max() <= 1.25 * e_p.max() and e_k.mean() <= 1.25 * e_p.mean()
+
+
+def test_s2d_tail_refuses_unsupported_channels():
+    _need_cuda()
+    x = torch.zeros((1, 8, 8, 4 * 24), device="cuda")
+    v = torch.ones(24, device="cuda")
+    with torch.no_grad(), pytest.raises(ValueError, match="C in"):
+        torch_region.fused_s2d_tail(x, v, v, torch.zeros((24, 24, 3, 3), device="cuda"), v, v)
+
+
 def test_refuses_grad():
     _need_cuda()
     x = torch.ones((1, 4, 4, 8), device="cuda", requires_grad=True)
@@ -81,6 +149,8 @@ def test_refuses_grad():
     with pytest.raises(RuntimeError, match="no backward"):
         torch_in.fused_instance_norm(x, torch.ones(8, device="cuda"),
                                      torch.zeros(8, device="cuda"))
+    with pytest.raises(RuntimeError, match="no backward"):
+        upsample2x_into_s2d_fast(x)
 
 
 def test_predict_arrays_runs_the_kernels():
@@ -91,5 +161,21 @@ def test_predict_arrays_runs_the_kernels():
     masks = predict_arrays(model, images, [(30, 40), (64, 64)])
     assert torch_in.fused_instance_norm.launches - k1 == 22
     assert upsample2x_nhwc_fast.launches - k2 == 5
+    assert [m.shape for m in masks] == [(30, 40), (64, 64)]
+    assert set(np.unique(np.concatenate([m.ravel() for m in masks]))) <= {0, 1, 2}
+
+
+def test_predict_arrays_runs_the_s2d_kernels():
+    """The s2d layout (level 0 and decoder_3) launches 16 K1, 3 K2a, 2 K2b and
+    3 K3 per forward."""
+    _need_cuda()
+    model = UNet(features_per_stage=(8, 32, 16, 16, 16, 16), dtype=torch.bfloat16,
+                 s2d_level0=True, s2d_low_channel_decoders=True).cuda().eval()
+    images = np.random.default_rng(2).integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    wrappers = (torch_in.fused_instance_norm, upsample2x_nhwc_fast, upsample2x_into_s2d_fast,
+                torch_region.fused_s2d_tail)
+    before = [w.launches for w in wrappers]
+    masks = predict_arrays(model, images, [(30, 40), (64, 64)])
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [16, 3, 2, 3]
     assert [m.shape for m in masks] == [(30, 40), (64, 64)]
     assert set(np.unique(np.concatenate([m.ravel() for m in masks]))) <= {0, 1, 2}

@@ -14,11 +14,21 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from unet_implementations_tpu.kernels import instance_norm as jax_in
-from unet_implementations_tpu.kernels.upsample import _upsample2x_dense_pallas
+from unet_implementations_tpu.kernels import s2d_region as jax_region
+from unet_implementations_tpu.kernels.upsample import (
+    _upsample2x_dense_pallas,
+    _upsample2x_s2d_pallas,
+)
+from unet_implementations_tpu.models.s2d import upsample2x_into_s2d as jax_upsample_s2d
 from unet_implementations_tpu.ops.resize import upsample2x_nhwc as jax_upsample2x
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.kernels import instance_norm as torch_in
-from unet_implementations_tpu_torch.kernels.upsample import upsample2x_nhwc_fast
+from unet_implementations_tpu_torch.kernels import s2d_region as torch_region
+from unet_implementations_tpu_torch.kernels.upsample import (
+    upsample2x_into_s2d_fast,
+    upsample2x_nhwc_fast,
+)
+from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -125,6 +135,118 @@ class TestUpsamplePlain:
             upsample2x_nhwc_fast(torch.zeros(4, 4, 8))
 
 
+class TestUpsampleS2dPlain:
+    """K2b's CPU wrapper (its plain version) against the JAX jnp reference
+    and the Pallas kernel in interpret mode: bitwise, except float32 against
+    the interpreted Pallas kernel, which XLA compiles with fused multiply-adds
+    (it differs from JAX's own jnp reference there): <= 1e-6."""
+
+    SHAPES = [(2, 8, 8, 8), (1, 6, 10, 16), (2, 5, 7, 4)]
+
+    @pytest.mark.parametrize("impl", ["jnp", "pallas"])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    @pytest.mark.parametrize("shape", SHAPES)
+    def test_bitwise(self, impl, dtype, shape):
+        jdtype, tdtype = DTYPES[dtype]
+        x = jnp.asarray(np.random.default_rng(shape[2]).standard_normal(shape), jdtype)
+        want = _upsample2x_s2d_pallas(x, interpret=True) if impl == "pallas" \
+            else jax_upsample_s2d(x)
+        before = upsample2x_into_s2d_fast.launches
+        got = upsample2x_into_s2d_fast(
+            torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdtype))
+        assert upsample2x_into_s2d_fast.launches == before
+        assert got.dtype == tdtype and tuple(got.shape) == want.shape
+        got, want = got.to(torch.float32).numpy(), np.asarray(want.astype(jnp.float32))
+        if impl == "pallas" and dtype == "f32":
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+    def test_wrapper_refuses_bad_rank(self):
+        with pytest.raises(ValueError, match="B, H, W, C"):
+            upsample2x_into_s2d_fast(torch.zeros(4, 4, 8))
+
+
+def _tail_case(seed, b=2, h=16, w=128, c=8):
+    """The shapes of ``tests/test_s2d_region.py::_mk``, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, h, w, 4 * c)).astype(np.float32)
+    scale1 = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias1 = (rng.normal(size=c) * 0.1).astype(np.float32)
+    k2 = (rng.normal(size=(3, 3, c, c)) * 0.2).astype(np.float32)
+    scale2 = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    bias2 = (rng.normal(size=c) * 0.1).astype(np.float32)
+    return x, scale1, bias1, k2, scale2, bias2
+
+
+class TestS2dTailPlain:
+    """K3's CPU wrapper (its plain version) against the JAX ``jnp_tail`` and
+    ``_pallas_tail`` in interpret mode, with JAX's own tolerances: f32 2e-5,
+    bf16 4e-2."""
+
+    TOL = {"f32": 2e-5, "bf16": 4e-2}
+
+    @pytest.mark.parametrize("impl", ["jnp", "pallas"])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_matches_jax(self, impl, dtype):
+        jdtype, tdtype = DTYPES[dtype]
+        x, scale1, bias1, k2, scale2, bias2 = _tail_case(0)
+        xj = jnp.asarray(x, jdtype)
+        args = (xj, jnp.asarray(scale1), jnp.asarray(bias1), jnp.asarray(k2),
+                jnp.asarray(scale2), jnp.asarray(bias2))
+        if impl == "pallas":
+            want = jax_region._pallas_tail(*args, eps=1e-5, neg=0.01, interpret=True)
+        else:
+            want = jax_region.jnp_tail(*args)
+        before = torch_region.fused_s2d_tail.launches
+        got = torch_region.fused_s2d_tail(
+            torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdtype),
+            torch.from_numpy(scale1), torch.from_numpy(bias1),
+            torch.from_numpy(np.ascontiguousarray(k2.transpose(3, 2, 0, 1))),
+            torch.from_numpy(scale2), torch.from_numpy(bias2))
+        assert torch_region.fused_s2d_tail.launches == before
+        assert got.dtype == tdtype and tuple(got.shape) == x.shape
+        tol = self.TOL[dtype]
+        np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                                   np.asarray(want.astype(jnp.float32)), atol=tol, rtol=tol)
+
+    def test_conv_bias_cancels(self):
+        """The module composition WITH conv_1's bias equals the tail without
+        it (f32, 1e-5): IN2 subtracts the bias with the mean."""
+        from unet_implementations_tpu_torch.models import s2d
+
+        x, scale1, bias1, k2, scale2, bias2 = (torch.from_numpy(a) for a in _tail_case(1, c=8))
+        weight = k2.permute(3, 2, 0, 1).contiguous()
+        bias_c = torch.from_numpy(np.random.default_rng(9).normal(size=8).astype(np.float32))
+        y = s2d.instance_norm_s2d(x, scale1, bias1)
+        y = torch.where(y >= 0, y, y * 0.01)
+        y = s2d.conv_s2d(y, weight, bias_c)
+        y = s2d.instance_norm_s2d(y, scale2, bias2)
+        want = torch.where(y >= 0, y, y * 0.01)
+        got = torch_region.fused_s2d_tail(x, scale1, bias1, weight, scale2, bias2)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+    def test_wrapper_refuses_other_devices(self):
+        x = torch.empty((1, 4, 4, 32), device="meta")
+        v = torch.ones(8)
+        with pytest.raises(ValueError, match="CPU or all on CUDA"):
+            torch_region.fused_s2d_tail(x, v, v, torch.zeros(8, 8, 3, 3), v, v)
+
+
+def test_profiling_kinds():
+    """utils/profiling.py files each of the port's kernels under its own kind
+    (K2's template flag tells K2b from K2a)."""
+    from unet_implementations_tpu_torch.utils.profiling import kind_of
+
+    ns = "void unet::(anonymous namespace)::"
+    assert kind_of(ns + "upsample2x_kernel<__nv_bfloat16, 8, true>(x)") == "K2b upsample into s2d"
+    assert kind_of(ns + "upsample2x_kernel<__nv_bfloat16, 8, false>(x)") == "K2a upsample"
+    assert kind_of(ns + "s2d_conv_kernel<__nv_bfloat16, 32>(x)") == "K3 s2d tail conv"
+    assert kind_of(ns + "in_finalize_kernel(x)") == "K1a instance norm statistics"
+    assert kind_of("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
+    assert kind_of("elementwise_kernel<CUDAFunctor_add>") == "other"
+
+
 class TestBuild:
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -136,6 +258,6 @@ class TestBuild:
 
     def test_sources_and_flags(self):
         names = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-        assert names == ["instance_norm.cu", "runtime.cu", "upsample.cu"]
+        assert names == ["instance_norm.cu", "runtime.cu", "s2d_region.cu", "upsample.cu"]
         assert "-gencode=arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
 

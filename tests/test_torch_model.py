@@ -27,6 +27,7 @@ from unet_implementations_tpu.ops.resize import resize_bilinear as jax_resize_bi
 from unet_implementations_tpu.utils.visualize import colorize_mask as jax_colorize
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models import convert
+from unet_implementations_tpu_torch.models.unet import S2D_LAYOUT as S2D
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
 from unet_implementations_tpu_torch.ops import normalize as torch_normalize
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear
@@ -60,13 +61,13 @@ def _seeded_params(tree, rng):
     return out
 
 
-def _jax_and_port(config, size, seed):
+def _jax_and_port(config, size, seed, **layout):
     jmodel = JaxUNet(**config)
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(2, size, size, 3)).astype(np.float32)
     shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.asarray(x))["params"]
     params = _seeded_params(shapes, rng)
-    model = UNet(**config).eval()
+    model = UNet(**config, **layout).eval()
     model.load_state_dict(convert.params_from_jax(params, model), strict=True)
     return jmodel, params, model, x
 
@@ -82,6 +83,71 @@ class TestForwardParity:
             got = model(torch.from_numpy(x))
         assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)
+
+
+class TestS2dLayout:
+    """The port's space-to-depth UNet (NARROW6 at 64², f32, eval: level 0 and
+    decoder_3 in s2d, three fused tails) against the JAX default UNet, with
+    JAX's fused tail on (``jnp_tail`` on the CPU) and off (its module path),
+    to rtol 1e-3 / atol 1e-4; and against the port's own dense forward on the
+    same weights (float32, 1e-5 relative L2: an exact rewrite, only sum
+    orders differ)."""
+
+    @pytest.mark.parametrize("region", ["1", "0"])
+    def test_matches_jax(self, region, monkeypatch):
+        monkeypatch.setenv("UNET_TPU_S2D_REGION", region)
+        jmodel, params, model, x = _jax_and_port(NARROW6, 64, seed=7, **S2D)
+        want = np.asarray(jax.jit(lambda p, x: jmodel.apply({"params": p}, x))(
+            params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = model(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)
+
+    @pytest.mark.parametrize("size", [64, 34], ids=["even", "odd-half"])
+    def test_matches_dense(self, size):
+        dense = UNet(**NARROW6, generator=torch.Generator().manual_seed(4)).eval()
+        s2d = UNet(**NARROW6, **S2D).eval()
+        s2d.load_state_dict(dense.state_dict(), strict=True)
+        x = torch.from_numpy(np.random.default_rng(size).normal(size=(2, size, size, 3)).astype(
+            np.float32))
+        with torch.no_grad():
+            want, got = dense(x), s2d(x)
+        assert float((got - want).norm() / want.norm()) <= 1e-5
+
+    def test_train_mode_module_path(self):
+        """Training mode takes the module path (no fused tail): with dropout
+        rates 0 it equals the dense model in training mode."""
+        config = dict(features_per_stage=(8, 32, 16), strides=(1, 2, 2),
+                      encoder_dropout_rates=(0.0,) * 3, decoder_dropout_rates=(0.0,) * 2)
+        dense = UNet(**config, generator=torch.Generator().manual_seed(6)).train()
+        s2d = UNet(**config, **S2D).train()
+        s2d.load_state_dict(dense.state_dict(), strict=True)
+        x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 32, 32, 3)).astype(
+            np.float32))
+        with torch.no_grad():
+            want, got = dense(x), s2d(x)
+        assert float((got - want).norm() / want.norm()) <= 1e-5
+
+    def test_same_state_dict_keys(self):
+        dense, s2d = unet_6stage(device="cpu"), unet_6stage(device="cpu", **S2D)
+        assert list(dense.state_dict()) == list(s2d.state_dict())
+        assert [v.shape for v in dense.state_dict().values()] == \
+            [v.shape for v in s2d.state_dict().values()]
+
+    def test_one_checkpoint_loads_both_layouts(self, tmp_path):
+        model = unet_6stage(device="cpu", generator=torch.Generator().manual_seed(8))
+        path = tmp_path / "model.pth"
+        convert.save_reference_checkpoint(model, path)
+        loaded = convert.load_reference_checkpoint(path, device="cpu", dtype=torch.float32, **S2D)
+        assert loaded.s2d_level0 and loaded.s2d_low_channel_decoders and not loaded.training
+        for (k, a), b in zip(model.state_dict().items(), loaded.state_dict().values()):
+            assert torch.equal(a, b), k
+        x = torch.from_numpy(np.random.default_rng(8).normal(size=(1, 64, 64, 3)).astype(
+            np.float32))
+        with torch.no_grad():
+            want, got = model.eval()(x), loaded(x)
+        assert float((got - want).norm() / want.norm()) <= 1e-5
 
 
 class TestConvert:
@@ -186,4 +252,6 @@ print(json.dumps({"modules": names, "bad": bad}))
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
-    assert "unet_implementations_tpu_torch.kernels.instance_norm" in result["modules"]
+    for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
+                 "models.s2d"):
+        assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

@@ -30,7 +30,7 @@
 // The second read of x in pass 3 is the price over the one-read-one-write
 // bound (at most 1.5x); a chunk of an image that fits in L2 may be served
 // from there.
-#include "common.cuh"
+#include "instance_norm.cuh"
 
 namespace unet {
 namespace {
@@ -163,42 +163,71 @@ cudaError_t launch_stats(const T* x, float* partials, long long b, long long hw,
 }
 
 template <typename T, int VEC>
-void launch_apply(const T* x, T* y, const float* mean, const float* rstd, const float* scale,
-                  const float* bias, long long b, long long hw, int c, int group, float slope,
-                  cudaStream_t stream) {
+cudaError_t launch_apply(const T* x, T* y, const float* mean, const float* rstd,
+                         const float* scale, const float* bias, long long b, long long hw, int c,
+                         int group, float slope, cudaStream_t stream) {
   const long long nvec = b * hw * c / VEC;
   in_apply_kernel<T, VEC><<<grid_for(nvec, 256, kMaxBlocks), 256, 0, stream>>>(
       x, y, mean, rstd, scale, bias, hw, c, c / group, slope, nvec);
-}
-
-template <typename T>
-cudaError_t forward(const void* xv, void* yv, const float* scale, const float* bias,
-                    float* partials, float* mean, float* rstd, long long b, long long hw, int c,
-                    int group, int chunk_px, int nchunk, float eps, float slope,
-                    cudaStream_t stream) {
-  const T* x = static_cast<const T*>(xv);
-  T* y = static_cast<T*>(yv);
-  const int vec = vec_width<T>(c, xv, yv);
-  constexpr int kWide = 16 / sizeof(T);
-  cudaError_t err = vec == kWide
-      ? launch_stats<T, kWide>(x, partials, b, hw, c, chunk_px, nchunk, stream)
-      : launch_stats<T, 1>(x, partials, b, hw, c, chunk_px, nchunk, stream);
-  if (err != cudaSuccess) return err;
-  const int cg_count = c / group;
-  in_finalize_kernel<<<dim3((cg_count + 31) / 32, static_cast<unsigned>(b)), dim3(32, 8), 0,
-                       stream>>>(partials, mean, rstd, nchunk, c, group,
-                                 static_cast<float>(hw * group), eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (vec == kWide) {
-    launch_apply<T, kWide>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream);
-  } else {
-    launch_apply<T, 1>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream);
-  }
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t stats(const void* xv, float* partials, long long b, long long hw, int c,
+                  int chunk_px, int nchunk, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  constexpr int kWide = 16 / sizeof(T);
+  return vec_width<T>(c, xv, xv) == kWide
+      ? launch_stats<T, kWide>(x, partials, b, hw, c, chunk_px, nchunk, stream)
+      : launch_stats<T, 1>(x, partials, b, hw, c, chunk_px, nchunk, stream);
+}
+
+template <typename T>
+cudaError_t apply(const void* xv, void* yv, const float* mean, const float* rstd,
+                  const float* scale, const float* bias, long long b, long long hw, int c,
+                  int group, float slope, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  T* y = static_cast<T*>(yv);
+  constexpr int kWide = 16 / sizeof(T);
+  return vec_width<T>(c, xv, yv) == kWide
+      ? launch_apply<T, kWide>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream)
+      : launch_apply<T, 1>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream);
+}
+
 }  // namespace
+
+cudaError_t in_stats(const void* x, int dtype, float* partials, long long b, long long hw, int c,
+                     int chunk_px, int nchunk, cudaStream_t stream) {
+  switch (dtype) {
+    case kFloat32:
+      return stats<float>(x, partials, b, hw, c, chunk_px, nchunk, stream);
+    case kBFloat16:
+      return stats<__nv_bfloat16>(x, partials, b, hw, c, chunk_px, nchunk, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t in_finalize(const float* partials, float* mean, float* rstd, long long b,
+                        int nchunk, int c, int group, float n, float eps, cudaStream_t stream) {
+  in_finalize_kernel<<<dim3((c / group + 31) / 32, static_cast<unsigned>(b)), dim3(32, 8), 0,
+                       stream>>>(partials, mean, rstd, nchunk, c, group, n, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t in_apply(const void* x, void* y, int dtype, const float* mean, const float* rstd,
+                     const float* scale, const float* bias, long long b, long long hw, int c,
+                     int group, float slope, cudaStream_t stream) {
+  switch (dtype) {
+    case kFloat32:
+      return apply<float>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream);
+    case kBFloat16:
+      return apply<__nv_bfloat16>(x, y, mean, rstd, scale, bias, b, hw, c, group, slope, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace unet
 
 // x, y: (B, H*W, C) contiguous, float32 or bfloat16 (`dtype`, see common.cuh).
@@ -213,20 +242,15 @@ extern "C" int unet_instance_norm_fwd(const void* x, void* y, const void* scale,
       nchunk <= 0 || chunk_px <= 0 || static_cast<long long>(chunk_px) * nchunk < hw) {
     return cudaErrorInvalidValue;
   }
+  if (dtype != unet::kFloat32 && dtype != unet::kBFloat16) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
   auto pa = static_cast<float*>(partials);
   auto me = static_cast<float*>(mean);
   auto rs = static_cast<float*>(rstd);
-  switch (dtype) {
-    case unet::kFloat32:
-      return unet::forward<float>(x, y, sc, bi, pa, me, rs, b, hw, c, group, chunk_px, nchunk,
-                                  eps, slope, s);
-    case unet::kBFloat16:
-      return unet::forward<__nv_bfloat16>(x, y, sc, bi, pa, me, rs, b, hw, c, group, chunk_px,
-                                          nchunk, eps, slope, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  cudaError_t err = unet::in_stats(x, dtype, pa, b, hw, c, chunk_px, nchunk, s);
+  if (err != cudaSuccess) return err;
+  err = unet::in_finalize(pa, me, rs, b, nchunk, c, group, static_cast<float>(hw * group), eps, s);
+  if (err != cudaSuccess) return err;
+  return unet::in_apply(x, y, dtype, me, rs, static_cast<const float*>(scale),
+                        static_cast<const float*>(bias), b, hw, c, group, slope, s);
 }

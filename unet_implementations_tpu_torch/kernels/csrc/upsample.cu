@@ -1,7 +1,12 @@
-// K2: exact 2x bilinear upsample, dense NHWC, forward, for Hopper (sm_90a).
+// K2: exact 2x bilinear upsample, forward, for Hopper (sm_90a), in two
+// output layouts:
 //
-// Replaces unet_implementations_tpu/kernels/upsample.py::
-// _upsample2x_dense_pallas (its _dense_kernel).
+//   K2a, dense: (B, H, W, C) -> (B, 2H, 2W, C). Replaces
+//       unet_implementations_tpu/kernels/upsample.py::_upsample2x_dense_pallas
+//       (its _dense_kernel).
+//   K2b, s2d:   (B, H, W, C) -> (B, H, W, 4C) = space_to_depth(upsample), the
+//       four sub-pixel phases as q-major channel blocks (channel q*C + c,
+//       q = dy*2 + dx). Replaces _upsample2x_s2d_pallas (its _s2d_kernel).
 //
 // Torch half-pixel sampling (align_corners=False), edge-clamped: along each
 // axis the even output is 0.25*x[i-1] + 0.75*x[i] and the odd output is
@@ -15,11 +20,13 @@
 // 12 flops an output element. Each thread owns one input pixel and 16 bytes
 // of its channels: it reads the pixel's edge-clamped 3x3 neighbourhood (the
 // +-1 halo rows and columns), forms the four sub-pixel phases in registers
-// and writes them straight into the interleaved (2H, 2W) output, so no
-// intermediate touches device memory. Neighbouring threads take neighbouring
+// and writes them straight into the interleaved (2H, 2W) output (K2a) or into
+// the four channel blocks of the same pixel (K2b), so no intermediate touches
+// device memory. Neighbouring threads take neighbouring
 // channels, then neighbouring pixels of the same input row, so a block
 // covers a contiguous span of one row; the halo reads of the rows above and
-// below hit L1/L2, not device memory.
+// below hit L1/L2, not device memory. Indices are 64-bit: the last decoder's
+// output at b128 holds 2^31 elements in both layouts.
 #include "common.cuh"
 
 namespace unet {
@@ -37,7 +44,7 @@ __device__ __forceinline__ float lerp_odd(float cur, float next) {
   return round_to<T>(__fadd_rn(__fmul_rn(0.75f, cur), __fmul_rn(0.25f, next)));
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool S2D>
 __global__ void upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w,
                                   int c, long long nvec) {
   const int tc = c / VEC;
@@ -79,49 +86,68 @@ __global__ void upsample2x_kernel(const T* __restrict__ x, T* __restrict__ y, in
       oe.v[k] = from_f32<T>(lerp_even<T>(od[0], od[1]));
       oo.v[k] = from_f32<T>(lerp_odd<T>(od[1], od[2]));
     }
-    const long long w2 = 2LL * w;
-    T* top = y + ((b * 2 * h + 2LL * row) * w2 + 2LL * col) * c + cv * VEC;
-    T* bot = top + w2 * c;
-    store_vec<T, VEC>(top, ee);
-    store_vec<T, VEC>(top + c, eo);
-    store_vec<T, VEC>(bot, oe);
-    store_vec<T, VEC>(bot + c, oo);
+    if (S2D) {
+      T* out = y + pix * 4 * c + cv * VEC;
+      store_vec<T, VEC>(out, ee);
+      store_vec<T, VEC>(out + c, eo);
+      store_vec<T, VEC>(out + 2 * c, oe);
+      store_vec<T, VEC>(out + 3 * c, oo);
+    } else {
+      const long long w2 = 2LL * w;
+      T* top = y + ((b * 2 * h + 2LL * row) * w2 + 2LL * col) * c + cv * VEC;
+      T* bot = top + w2 * c;
+      store_vec<T, VEC>(top, ee);
+      store_vec<T, VEC>(top + c, eo);
+      store_vec<T, VEC>(bot, oe);
+      store_vec<T, VEC>(bot + c, oo);
+    }
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool S2D>
 cudaError_t launch(const T* x, T* y, long long b, int h, int w, int c, cudaStream_t stream) {
   const long long nvec = b * h * w * c / VEC;
-  upsample2x_kernel<T, VEC><<<grid_for(nvec, 256, kMaxBlocks), 256, 0, stream>>>(x, y, h, w, c,
-                                                                                nvec);
+  upsample2x_kernel<T, VEC, S2D><<<grid_for(nvec, 256, kMaxBlocks), 256, 0, stream>>>(
+      x, y, h, w, c, nvec);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool S2D>
 cudaError_t forward(const void* xv, void* yv, long long b, int h, int w, int c,
                     cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   constexpr int kWide = 16 / sizeof(T);
-  return vec_width<T>(c, xv, yv) == kWide ? launch<T, kWide>(x, y, b, h, w, c, stream)
-                                          : launch<T, 1>(x, y, b, h, w, c, stream);
+  return vec_width<T>(c, xv, yv) == kWide ? launch<T, kWide, S2D>(x, y, b, h, w, c, stream)
+                                          : launch<T, 1, S2D>(x, y, b, h, w, c, stream);
+}
+
+template <bool S2D>
+int entry(const void* x, void* y, int dtype, long long b, int h, int w, int c, void* stream) {
+  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return forward<float, S2D>(x, y, b, h, w, c, s);
+    case kBFloat16:
+      return forward<__nv_bfloat16, S2D>(x, y, b, h, w, c, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace unet
 
-// x: (B, H, W, C) contiguous; y: (B, 2H, 2W, C) contiguous; float32 or
-// bfloat16 (`dtype`, see common.cuh).
+// x: (B, H, W, C) contiguous, float32 or bfloat16 (`dtype`, see common.cuh).
+// K2a: y (B, 2H, 2W, C) contiguous.
 extern "C" int unet_upsample2x_fwd(const void* x, void* y, int dtype, long long b, int h, int w,
                                    int c, void* stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || c <= 0) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case unet::kFloat32:
-      return unet::forward<float>(x, y, b, h, w, c, s);
-    case unet::kBFloat16:
-      return unet::forward<__nv_bfloat16>(x, y, b, h, w, c, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return unet::entry<false>(x, y, dtype, b, h, w, c, stream);
+}
+
+// K2b: y (B, H, W, 4C) contiguous, q-major.
+extern "C" int unet_upsample2x_s2d_fwd(const void* x, void* y, int dtype, long long b, int h,
+                                       int w, int c, void* stream) {
+  return unet::entry<true>(x, y, dtype, b, h, w, c, stream);
 }

@@ -1,0 +1,160 @@
+"""K3: the fused tail of a space-to-depth ConvBlock, forward (CUDA,
+``csrc/s2d_region.cu``).
+
+Replaces ``unet_implementations_tpu/kernels/s2d_region.py::_pallas_tail``
+(``_region_kernel``). Every s2d ConvBlock of an inference forward ends in
+``IN1 -> LeakyReLU -> conv_1 -> IN2 -> LeakyReLU``; ``fused_s2d_tail``
+computes that chain on conv_0's q-major output (B, H′, W′, 4C), with both
+norms pooling the four sub-pixels of each original channel. conv_1's bias is
+not taken: IN2 subtracts each channel's mean, which removes it exactly.
+Three calls per forward of the s2d 6-stage model (encoder_0, decoder_3,
+decoder_4).
+
+The TPU kernel kept one image in VMEM; an SM's 227 KB does not hold one. The
+CUDA entry point runs K1's statistics passes for IN1, a hand-written 3×3 conv
+in the full-resolution geometry that normalizes and activates its input as it
+loads it and sums Σy, Σy² of its rounded output per tile (bf16 on the tensor
+cores, float32 on the CUDA cores), then K1's finalize and apply passes for
+IN2. Bound: bytes, one read of x and one write of y; the design moves about
+four times that (see the source).
+
+The plain version ``_torch_tail`` follows the JAX ``jnp_tail`` op for op:
+IN1 rounded to the dtype, LeakyReLU in the dtype, the conv's output rounded
+to the dtype, IN2's statistics from those rounded values, LeakyReLU in the
+dtype. K1's apply pass activates before it rounds, so a negative output may
+differ from the plain version by one ulp of the dtype.
+
+On a CPU tensor ``fused_s2d_tail`` runs the plain version; on a CUDA tensor
+it launches the kernel or raises (C must be 8, 16, 32 or 64). Forward only: a
+CUDA call that autograd would record raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from unet_implementations_tpu_torch.kernels import _build
+from unet_implementations_tpu_torch.models.s2d import conv_s2d, instance_norm_s2d
+
+# Original channel counts the CUDA kernel takes.
+CHANNELS = (8, 16, 32, 64)
+# Full-resolution rows of one block of the conv kernel (kTileH in the source).
+_STRIP_ROWS = 8
+# Bytes of x a block of IN1's statistics pass reduces (as K1).
+_STATS_CHUNK_BYTES = 64 * 1024
+
+_ARGTYPES = [ctypes.c_void_p] * 14 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+]
+
+
+def _lrelu_in_dtype(y: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``jnp.where(y >= 0, y, y * jnp.asarray(neg, y.dtype))``: the slope is
+    rounded to y's dtype and the product to y's dtype."""
+    slope = torch.tensor(negative_slope, dtype=y.dtype, device=y.device)
+    return torch.where(y >= 0, y, y * slope)
+
+
+def _torch_tail(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope,
+                carried_ulp=False):
+    """Plain version: the op sequence of the JAX ``jnp_tail``.
+
+    x: (B, H′, W′, 4C) q-major; weight2: conv_1's (C, C, 3, 3) kernel;
+    scale*/bias*: (C,) float32.
+
+    With ``carried_ulp`` it also returns, per output element, what one ulp
+    (in x's dtype) of the conv's rounded output moves the result by through
+    IN2 and the activation: ``ulp(conv) · |scale2 · rstd2|``, times the slope
+    where the result is negative and that move cannot cross zero. A kernel
+    that sums the conv in another order may round a conv output the other
+    way; this is what that costs.
+    """
+    y = instance_norm_s2d(x, scale1, bias1, eps, out_dtype=x.dtype)
+    y = _lrelu_in_dtype(y, negative_slope)
+    conv = conv_s2d(y, weight2.to(y.dtype), None)
+    y = instance_norm_s2d(conv, scale2, bias2, eps, out_dtype=x.dtype)
+    out = _lrelu_in_dtype(y, negative_slope)
+    if not carried_ulp:
+        return out
+    b, hp, wp, c4 = conv.shape
+    cf = conv.to(torch.float32).reshape(b, hp, wp, 4, c4 // 4)
+    mean = cf.mean(dim=(1, 2, 3), keepdim=True)
+    var = torch.clamp((cf * cf).mean(dim=(1, 2, 3), keepdim=True) - mean * mean, min=0.0)
+    gain = (torch.rsqrt(var + eps) * scale2.to(torch.float32)).abs().reshape(b, 1, 1, 1, -1)
+    mag = cf.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(x.dtype).eps
+    carried = (ulp * gain).reshape(b, hp, wp, c4)
+    outf = out.to(torch.float32)
+    full = (outf >= 0) | (outf.abs() <= carried * negative_slope)
+    return out, torch.where(full, carried, carried * negative_slope)
+
+
+def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope):
+    b, hp, wp, c4 = x.shape
+    c = c4 // 4
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"fused_s2d_tail takes float32 or bfloat16, got {x.dtype}")
+    if c4 % 4 or c not in CHANNELS:
+        raise ValueError(f"fused_s2d_tail takes 4C channels with C in {CHANNELS}, got {c4}")
+    if tuple(weight2.shape) != (c, c, 3, 3):
+        raise ValueError(f"conv_1's kernel must be ({c}, {c}, 3, 3), got {tuple(weight2.shape)}")
+    for t in (scale1, bias1, scale2, bias2):
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"norm affines must have {c} entries, got {tuple(t.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("fused_s2d_tail needs x at a 16-byte aligned address")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    w = weight2.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # (3, 3, C_in, C_out)
+    affines = [t.to(torch.float32).contiguous() for t in (scale1, bias1, scale2, bias2)]
+    hw = hp * wp
+    chunk_px = max(1, _STATS_CHUNK_BYTES // (c4 * x.element_size()))
+    nchunk = -(-hw // chunk_px)
+    nstrips = -(-2 * hp // _STRIP_ROWS)
+    y_conv = torch.empty_like(x)
+    out = torch.empty_like(x)
+    partials1 = torch.empty((b, nchunk, 2, c4), **f32)
+    partials2 = torch.empty((b, nstrips, 2, c4), **f32)
+    stats = [torch.empty((b, c4), **f32) for _ in range(4)]  # mean1, rstd1, mean2, rstd2
+    fn = _build.kernel_function("unet_s2d_tail_fwd", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in affines),
+                  y_conv.data_ptr(), out.data_ptr(), partials1.data_ptr(), stats[0].data_ptr(),
+                  stats[1].data_ptr(), partials2.data_ptr(), stats[2].data_ptr(),
+                  stats[3].data_ptr(), _build.DTYPE_CODES[x.dtype], b, hp, wp, c, chunk_px,
+                  nchunk, nstrips, eps, negative_slope, _build.stream_of(x))
+    _build.check(code, "unet_s2d_tail_fwd")
+    fused_s2d_tail.launches += 1
+    return out
+
+
+def fused_s2d_tail(
+    x: torch.Tensor,
+    scale1: torch.Tensor,
+    bias1: torch.Tensor,
+    weight2: torch.Tensor,
+    scale2: torch.Tensor,
+    bias2: torch.Tensor,
+    eps: float = 1e-5,
+    negative_slope: float = 0.01,
+) -> torch.Tensor:
+    """``lrelu(IN2(conv_s2d(lrelu(IN1(x)), K2)))`` of a q-major s2d tensor.
+
+    ``x``: (B, H′, W′, 4C), conv_0's raw output. ``scale*``/``bias*``: the
+    two norms' (C,) affines. ``weight2``: conv_1's canonical (C, C, 3, 3)
+    kernel; its bias is not taken (it cancels in IN2).
+    """
+    if x.ndim != 4:
+        raise ValueError(f"fused_s2d_tail takes (B, H', W', 4C), got {tuple(x.shape)}")
+    tensors = (x, scale1, bias1, weight2, scale2, bias2)
+    if not _build.uses_kernel(*tensors):
+        return _torch_tail(*tensors, eps, negative_slope)
+    _build.refuse_grad("fused_s2d_tail", *tensors)
+    return _cuda_forward(*tensors, eps, negative_slope)
+
+
+# Kernel launches since the count was last set to 0 (CPU calls do not count).
+fused_s2d_tail.launches = 0

@@ -1,9 +1,16 @@
-"""UNet building blocks as ``nn.Module``s, dense path.
+"""UNet building blocks as ``nn.Module``s, dense and space-to-depth.
 
 Counterpart of ``unet_implementations_tpu/models/blocks.py``. Activations
 are NCHW tensors in ``channels_last`` memory, so the kernels see NHWC-
 contiguous memory through a ``permute`` view and cuDNN convs take the same
-tensors without a copy.
+tensors without a copy. A space-to-depth (s2d) activation is the NCHW view
+(B, 4C, H′, W′) of a q-major NHWC tensor (``models/s2d.py``).
+
+Where JAX sets a block's layout as a module field, these blocks take it as a
+``forward`` argument (``s2d``, ``s2d_input_first``, ``s2d_segments_first``),
+since the UNet decides it from the input's size at each call. The layout
+changes no parameter: each ``nn.Conv2d.weight`` is the canonical kernel, and
+the s2d convs transform it at call time.
 
 Module attributes follow the reference torch UNet's state-dict scheme
 (``block.{idx}`` inside a ``ConvBlock``, ``conv_block`` inside an
@@ -14,13 +21,22 @@ LeakyReLU(, channel dropout)], so a reference ``.pth`` loads strictly.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from unet_implementations_tpu_torch.kernels.instance_norm import fused_instance_norm
-from unet_implementations_tpu_torch.kernels.upsample import upsample2x_nhwc_fast
+from unet_implementations_tpu_torch.kernels.s2d_region import fused_s2d_tail
+from unet_implementations_tpu_torch.kernels.upsample import (
+    upsample2x_into_s2d_fast,
+    upsample2x_nhwc_fast,
+)
+from unet_implementations_tpu_torch.models.s2d import (
+    conv_s2d,
+    conv_s2d_multi,
+    conv_s2d_to_dense_stride2,
+)
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -61,6 +77,9 @@ class InstanceNorm(nn.Module):
     In bf16 the JAX model's default path rounds the norm to bf16 and then
     applies LeakyReLU in bf16; K1 applies it in float32 and rounds once, so
     a negative output can differ from the JAX bf16 model by one bf16 ulp.
+
+    ``group=4`` takes an s2d tensor: each original channel's statistics pool
+    its 4 q-major sub-pixel blocks.
     """
 
     def __init__(self, channels: int):
@@ -68,8 +87,9 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nchw(fused_instance_norm(nhwc(x), self.weight, self.bias, EPS, NEGATIVE_SLOPE))
+    def forward(self, x: torch.Tensor, group: int = 1) -> torch.Tensor:
+        return nchw(fused_instance_norm(nhwc(x), self.weight, self.bias, EPS, NEGATIVE_SLOPE,
+                                        group))
 
 
 class FusedActivation(nn.Identity):
@@ -80,7 +100,18 @@ class FusedActivation(nn.Identity):
 
 class ConvBlock(nn.Module):
     """2 x [3x3 Conv -> InstanceNorm+LeakyReLU -> channel dropout]; the
-    stride applies to the first conv only."""
+    stride applies to the first conv only.
+
+    Layouts (``forward`` arguments):
+    - dense (default): ``x`` is a dense tensor, the block runs as the
+      reference's ``block`` Sequential;
+    - ``s2d``: ``x`` is an s2d tensor, or with ``s2d_segments_first`` a tuple
+      of s2d tensors whose logical channel-concat conv_0 takes without
+      materializing it (segments: their dense channel counts); the output is
+      s2d. In eval mode conv_0 is followed by the fused tail (K3);
+    - ``s2d_input_first``: conv_0 is the stride-2 conv taking an s2d tensor,
+      with a dense half-resolution output; the rest of the block is dense.
+    """
 
     def __init__(self, cin: int, features: int, stride: int = 1, dropout_rate: float = 0.0,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
@@ -97,16 +128,68 @@ class ConvBlock(nn.Module):
                 layers.append(nn.Dropout2d(dropout_rate))
             c = features
         self.block = nn.Sequential(*layers)
+        self.dropout_rate = dropout_rate
+        self.step = 4 if dropout_rate > 0 else 3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(x)
+    def _unit(self, i: int):
+        """(conv, norm) of conv unit i."""
+        return self.block[i * self.step], self.block[i * self.step + 1]
+
+    def _conv0(self, x, s2d_input_first: bool,
+               segments: Optional[Tuple[int, ...]]) -> torch.Tensor:
+        conv = self._unit(0)[0]
+        if s2d_input_first:
+            return nchw(conv_s2d_to_dense_stride2(nhwc(x), conv.weight, conv.bias))
+        if segments is not None:
+            return nchw(conv_s2d_multi([nhwc(xi) for xi in x], conv.weight, conv.bias,
+                                       segments))
+        return nchw(conv_s2d(nhwc(x), conv.weight, conv.bias))
+
+    def _dropout_s2d(self, x: torch.Tensor) -> torch.Tensor:
+        """Channel dropout of an s2d tensor: whole original channels drop, the
+        mask broadcast over space and the 4 q blocks."""
+        if not self.training or self.dropout_rate == 0:
+            return x
+        xh = nhwc(x)
+        b, hp, wp, c4 = xh.shape
+        keep = torch.nn.functional.dropout(xh.new_ones((b, 1, 1, 1, c4 // 4)),
+                                           self.dropout_rate, training=True)
+        return nchw((xh.reshape(b, hp, wp, 4, c4 // 4) * keep).reshape(b, hp, wp, c4))
+
+    def forward(self, x, s2d: bool = False, s2d_input_first: bool = False,
+                s2d_segments_first: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+        if not (s2d or s2d_input_first):
+            return self.block(x)
+        if s2d and s2d_input_first:
+            raise ValueError("a block is s2d or takes an s2d input first, not both")
+        x = self._conv0(x, s2d_input_first, s2d_segments_first)
+        if s2d and N_CONVS == 2 and not self.training:
+            # The fused tail (K3): IN -> lrelu -> conv_1 -> IN -> lrelu.
+            # Dropout is off in eval mode; conv_1's bias cancels in IN2.
+            (_, norm0), (conv1, norm1) = self._unit(0), self._unit(1)
+            return nchw(fused_s2d_tail(nhwc(x), norm0.weight, norm0.bias, conv1.weight,
+                                       norm1.weight, norm1.bias, EPS, NEGATIVE_SLOPE))
+        for i in range(N_CONVS):
+            conv, norm = self._unit(i)
+            if i > 0:
+                x = nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d else conv(x)
+            if s2d:
+                x = self._dropout_s2d(norm(x, group=4))
+            else:
+                x = norm(x)
+                if self.dropout_rate > 0:
+                    x = self.block[i * self.step + 3](x)
+        return x
 
 
 class UpBlock(nn.Module):
     """Bilinear upsample to the skip's size, concat [upsampled, skip], ConvBlock.
 
-    An exact 2x step goes through the K2 kernel; any other size ratio (odd
-    input sizes) through ``resize_bilinear``.
+    Dense: an exact 2x step goes through the K2a kernel, any other size ratio
+    (odd input sizes) through ``resize_bilinear``, and the concat is
+    materialized. ``s2d``: ``skip`` is an s2d tensor at ``x``'s spatial size;
+    K2b emits the upsample straight into s2d layout, and the two s2d tensors
+    go to the block as segments, never concatenated.
     """
 
     def __init__(self, cin: int, skip_channels: int, features: int, dropout_rate: float = 0.0,
@@ -115,8 +198,14 @@ class UpBlock(nn.Module):
         self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, dtype,
                                     generator)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, s2d: bool = False) -> torch.Tensor:
         size, skip_size = tuple(x.shape[2:]), tuple(skip.shape[2:])
+        if s2d:
+            if size != skip_size:
+                raise ValueError(f"an s2d skip must match x spatially: {size} vs {skip_size}")
+            up = nchw(upsample2x_into_s2d_fast(nhwc(x)))
+            segments = (x.shape[1], skip.shape[1] // 4)
+            return self.conv_block((up, skip), s2d=True, s2d_segments_first=segments)
         if size != skip_size:
             if skip_size == (2 * size[0], 2 * size[1]):
                 x = nchw(upsample2x_nhwc_fast(nhwc(x)))

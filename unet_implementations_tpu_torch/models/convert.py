@@ -68,12 +68,15 @@ def save_reference_checkpoint(model: UNet, path) -> None:
     torch.save({"epoch": 0, "model_state_dict": sd, "best_dice": 0.0}, str(path))
 
 
-def load_reference_checkpoint(path, device=None, dtype: torch.dtype = torch.bfloat16) -> UNet:
+def load_reference_checkpoint(path, device=None, dtype: torch.dtype = torch.bfloat16,
+                              **layout) -> UNet:
     """Build ``unet_6stage`` on ``device`` (CUDA unless named) and load a
     reference-schema ``.pth`` (full checkpoint dict or bare state dict)
-    strictly. Returns the model in eval mode."""
+    strictly. ``layout`` (``s2d_level0``, ``s2d_low_channel_decoders``) goes
+    to ``unet_6stage``: one ``.pth`` loads into either layout. Returns the
+    model in eval mode."""
     ckpt = torch.load(str(Path(path)), map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    model = unet_6stage(dtype=dtype, device=device)
+    model = unet_6stage(dtype=dtype, device=device, **layout)
     model.load_state_dict(sd, strict=True)
     return model.eval()
