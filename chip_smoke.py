@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and drive its serving path on one card.
+"""Build the PyTorch port's CUDA kernels and drive its serving and training
+paths on one card.
 
     python3 chip_smoke.py
 
-Two layouts of the model are served: dense, and the JAX model's
+Two layouts of the model are served and trained: dense, and the JAX model's
 space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
-0 and decoder_3 in s2d). Four kernels: K1 (InstanceNorm+LeakyReLU), K2a (2x
-upsample, dense), K2b (2x upsample into s2d) and K3 (the fused s2d block
-tail).
+0 and decoder_3 in s2d). Six kernels: K1 (InstanceNorm+LeakyReLU), K2a (2x
+upsample, dense), K2b (2x upsample into s2d), K3 (the fused s2d block tail)
+and K4/K4f (the Winograd s2d conv, with the unfolded and the folded U).
 
 Phases (any failure makes the script exit non-zero without a result line):
 
@@ -30,12 +31,30 @@ Phases (any failure makes the script exit non-zero without a result line):
    version and the single PyTorch call that computes the same function
    (where there is one), at the b128 main-path shapes, beside the kernel's
    bound. Each kernel output timed there is first held to its plain
-   version. Also cuDNN's time for the dense-equivalent of K3's conv and for
-   K4's reference conv, as context.
+   version. Also cuDNN's time for the dense-equivalent of K3's conv, as
+   context.
+6. K4 through its differentiable entry point ``winograd_conv_s2d``, at b32
+   on the eligible convs of ``unet_6stage`` (encoder_2..4 conv_1, decoder_0
+   conv_0), in both U layouts: forward and, through autograd, dx, dW and db
+   against the plain version and the direct conv in float32 (TF32 off), and
+   in bf16 against the float32 direct conv; one launch per forward and one
+   more per backward; times of the forward and of dx against the bound and
+   cuDNN's ``F.conv2d`` of the same shape.
+7. The train step of each layout: ``unet_6stage`` at full width, 512², bf16
+   compute with float32 parameters, from the reference ``.pth`` of phase 3,
+   SGD-Nesterov at the JAX defaults, seeded synthetic uint8 batches. Launch
+   counts per step (K1/K2a/K2b/K3: 22/5/0/0 dense, 22/3/2/0 s2d, where
+   training takes no fused tail; 0 with the plain versions); at b8 one step
+   with the kernels against one with the plain versions (float32 and bf16,
+   the same weights and dropout seed), and in float32 against one whose K1
+   outputs are the kernel's values with the plain version's gradient; 10
+   steps on one b8 batch must lower the loss; then the b32 step time,
+   images/s and peak memory, and one b32 eval step.
 
-Every forward runs with the launch counts set to 0 just before it: a forward
-with the kernels must read its layout's counts after it, one with the plain
-versions 0.
+Every forward and train step runs with the launch counts set to 0 just
+before it: one with the kernels must read its counts after it, one with the
+plain versions 0. The ``launches`` of the kernels line add up those counted
+runs of the main paths (phases 3, 6 and 7).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -44,6 +63,7 @@ The last three lines are the card (as nvidia-smi reports it), a JSON line
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -57,16 +77,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.kernels import instance_norm as k1
 from unet_implementations_tpu_torch.kernels import s2d_region as k3
 from unet_implementations_tpu_torch.kernels import upsample as k2
+from unet_implementations_tpu_torch.kernels import winograd as k4
 from unet_implementations_tpu_torch.models import blocks, convert
-from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
+from unet_implementations_tpu_torch.models.s2d import (
+    depth_to_space,
+    space_to_depth,
+    upsample2x_into_s2d,
+)
 from unet_implementations_tpu_torch.models.unet import DEFAULT_FEATURES, S2D_LAYOUT, unet_6stage
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
+from unet_implementations_tpu_torch.training.steps import (
+    make_segmentation_eval_step,
+    make_segmentation_train_step,
+)
+from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
 
 SEED = 0
 IMG = 512
@@ -90,12 +121,26 @@ K2_INPUTS = [(16, 512), (32, 512), (64, 256), (128, 128), (256, 64)]
 K2B_INPUTS = [(128, 128), (256, 64)]
 K3_CALLS = [("encoder_0", 256, 32), ("decoder_3", 128, 64), ("decoder_4", 256, 32)]
 LAYOUTS = {"dense": {}, "s2d": S2D_LAYOUT}
-KERNELS = ("K1", "K2a", "K2b", "K3")
-# Kernel launches of one forward with the kernels, and with the plain versions.
-PER_FORWARD = {"dense": {"K1": sum(K1_CALLS), "K2a": len(K2_INPUTS), "K2b": 0, "K3": 0},
-               "s2d": {"K1": sum(K1_CALLS) - 2 * len(K3_CALLS), "K2a": len(K2_INPUTS) - 2,
-                       "K2b": len(K2B_INPUTS), "K3": len(K3_CALLS)}}
+KERNELS = ("K1", "K2a", "K2b", "K3", "K4", "K4f")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# Kernel launches of one forward with the kernels, and with the plain versions.
+PER_FORWARD = {"dense": {**NO_LAUNCHES, "K1": sum(K1_CALLS), "K2a": len(K2_INPUTS)},
+               "s2d": {**NO_LAUNCHES, "K1": sum(K1_CALLS) - 2 * len(K3_CALLS),
+                       "K2a": len(K2_INPUTS) - 2, "K2b": len(K2B_INPUTS), "K3": len(K3_CALLS)}}
+# A train step takes no fused tail: every s2d block runs its module path.
+PER_STEP = {"dense": PER_FORWARD["dense"],
+            "s2d": {**PER_FORWARD["s2d"], "K1": sum(K1_CALLS), "K3": 0}}
+# K4 (phase 6): the eligible 3x3 convs of unet_6stage at b32, (conv, dense
+# side, Cin, Cout); Cin and Cout multiples of 128.
+K4_BATCH = 32
+K4_CONVS = [("encoder_2 conv_1", 128, 128, 128), ("encoder_3 conv_1", 64, 256, 256),
+            ("encoder_4 conv_1", 32, 512, 512), ("decoder_0 conv_0", 32, 1024, 512)]
+K4_MODES = {"K4": False, "K4f": True}  # kernel -> _FOLDED
+# The train step (phase 7): the check batch and the timed batch.
+CHECK_BATCH = 8
+TRAIN_BATCH = 32
+TRAIN_STEPS_DOWN = 10
+TIMED_STEPS, WARMUP_STEPS = 5, 2
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
          (300, 300), (181, 257)]
@@ -137,12 +182,47 @@ E2E_BF16_AGREEMENT_SLACK = 0.005
 K3_F32_TOL = 1e-4
 K3_BF16_ULPS = 2.0
 K3_BF16_OUTLIER_SHARE = 1e-4
+# K4 in float32 (TF32 off): max |error| / max |reference| of the forward and
+# of dx, dW and db, against the plain version and against the direct conv
+# (the tolerance of tests/test_winograd.py: Winograd reassociates the sums).
+# In bf16 the kernel transforms in float32 and rounds once where the plain
+# version (as JAX) rounds after each add, so both are held to the float32
+# direct conv: the kernel's rel-L2 within E2E_BF16_SLACK of the plain one's.
+K4_F32_TOL = 1e-4
+# The train step at b8 in float32 (TF32 off, deterministic cuDNN). The loss
+# with the kernels against the plain versions: TRAIN_F32_LOSS_REL. Gradients
+# are compared per group: each parameter alone, except that a conv followed
+# by InstanceNorm goes with its bias, whose exact gradient is zero (the norm
+# removes it) and whose computed gradient is rounding noise.
+#
+# Against the plain step, the gradients cannot meet 1e-4: K1 sums in another
+# order than the plain version, a pre-activation within a float32 rounding of
+# zero then takes the other slope of the LeakyReLU, and its gradient jumps.
+# A plain step whose K1 sums run over the flipped input (``k1_reordered``,
+# logged in every run) shows how far the order alone moves them: worst group
+# 3.416e-3 dense, 5.718e-3 s2d, where the step with the kernels read 3.479e-3
+# and 4.806e-3 (H100 80GB HBM3, 700 W; the same in three runs of this
+# script). TRAIN_F32_PLAIN_GRAD_REL sits 2.6x above the larger reading; a
+# backward that is wrong as a whole reads more, but one that is a little off
+# may not. So the gradients are also gated at TRAIN_F32_GRAD_REL against a
+# step whose K1 outputs and statistics are the kernel's values,
+# differentiated as the plain version (autograd through its ops): the same
+# forward and the same slopes, so the two differ only by the backward's
+# arithmetic (K1's formula against autograd of the plain ops, K2's transpose
+# against autograd of the plain lerps).
+#
+# In bf16 the step with the kernels must be no further from the float32
+# plain step than the bf16 plain step is, within E2E_BF16_SLACK.
+TRAIN_F32_LOSS_REL = 1e-5
+TRAIN_F32_PLAIN_GRAD_REL = 1.5e-2
+TRAIN_F32_GRAD_REL = 1e-4
 # Timed calls cycle through copies of their input that together hold at
 # least this many times the card's L2, so no call reads its input from L2.
 L2_MULTIPLE = 4
 
 failures: list[str] = []
-report: dict = {"err": dict.fromkeys(KERNELS, 0.0)}
+report: dict = {"err": dict.fromkeys(KERNELS, 0.0), "path_launches": dict.fromkeys(KERNELS, 0),
+                "rows": {}, "bound_by": {}}
 
 
 def log(msg: str) -> None:
@@ -178,12 +258,24 @@ WRAPPERS = {"K1": k1.fused_instance_norm, "K2a": k2.upsample2x_nhwc_fast,
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts["K4"] = k4.winograd_conv_s2d.launches
+    counts["K4f"] = k4.winograd_conv_s2d.launches_folded
+    return counts
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    k4.winograd_conv_s2d.launches = 0
+    k4.winograd_conv_s2d.launches_folded = 0
+
+
+def add_path_launches() -> None:
+    """Add the counts read now, just after a run of a main path that started
+    with them at 0, to the kernels line's launches."""
+    for name, n in launches().items():
+        report["path_launches"][name] += n
 
 
 def counted(fn, expected: dict):
@@ -196,19 +288,63 @@ def counted(fn, expected: dict):
     return out
 
 
+def counted_path(fn, expected: dict):
+    """``counted`` for a run of a main path: its counts go into the kernels
+    line."""
+    out = counted(fn, expected)
+    add_path_launches()
+    return out
+
+
 def times(expected: dict, n: int) -> dict:
     return {k: v * n for k, v in expected.items()}
 
 
+def k1_plain(x, s, b, eps, slope, group=1):
+    return k1._torch_forward(x, s, b, eps, slope, group)[0]
+
+
+class _Values(torch.autograd.Function):
+    """``values`` in the forward, the gradient of ``differentiable`` in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, differentiable, values):
+        return values.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def k1_kernel_values(x, s, b, eps, slope, group=1):
+    """K1's output, mean and rstd (one launch), differentiated as the plain
+    version: its op sequence with the kernel's statistics in value, so the
+    LeakyReLU takes the slope K1's backward takes at every element."""
+    with torch.no_grad():
+        y_k, mean_k, rstd_k = k1._cuda_forward(x, s, b, eps, slope, group)
+    _, mean, rstd = k1._torch_forward(x, s, b, eps, slope, group)
+    mean, rstd = _Values.apply(mean, mean_k), _Values.apply(rstd, rstd_k)
+    y = (x.to(torch.float32) - mean[:, None, None, :]) * rstd[:, None, None, :]
+    y = y * s.to(torch.float32).repeat(group) + b.to(torch.float32).repeat(group)
+    y = torch.where(y >= 0, y, y * slope).to(x.dtype)
+    return _Values.apply(y, y_k)
+
+
+def k1_reordered(x, s, b, eps, slope, group=1):
+    """The plain version with its sums over the spatially flipped input: the
+    same function, its float32 sums in another order."""
+    return k1_plain(x.flip((1, 2)), s, b, eps, slope, group).flip((1, 2))
+
+
 @contextmanager
-def plain_versions():
-    """Route the model's blocks through the plain PyTorch versions."""
+def plain_versions(k1_version=k1_plain):
+    """Route the model's blocks through the plain PyTorch versions (K1
+    through ``k1_version``)."""
     names = ("fused_instance_norm", "upsample2x_nhwc_fast", "upsample2x_into_s2d_fast",
              "fused_s2d_tail")
     saved = [getattr(blocks, name) for name in names]
-    plain = (lambda x, s, b, eps, slope, group=1: k1._torch_forward(x, s, b, eps, slope,
-                                                                    group)[0],
-             upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail)
+    plain = (k1_version, upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail)
     for name, fn in zip(names, plain):
         setattr(blocks, name, fn)
     try:
@@ -516,6 +652,7 @@ def serve_layout(layout: str, path: Path, batches: list, seed_model) -> None:
     results = serve(served)
     elapsed = time.perf_counter() - t0
     report["launches"][layout] = launches()
+    add_path_launches()
     log(f"{layout}: 3 batches of {SERVE_BATCH} answered in {elapsed * 1e3:.1f} ms (host clock, "
         f"first calls included); launches {report['launches'][layout]}")
     for masks in results:
@@ -730,21 +867,8 @@ def phase_times():
                     rows["K3"][j] += row[j]
         log("K3: no single PyTorch call computes IN+LeakyReLU -> conv -> IN+LeakyReLU, so "
             "library_ms is null.")
-        # K4 (Winograd, not ported) reference shape: b128 3x3 128->128 at 128².
-        xk = torch.randn((batch, 128, 128, 128), device="cuda", dtype=torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        wk = (torch.randn((128, 128, 3, 3), device="cuda") * 0.03).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        bk = torch.zeros(128, device="cuda", dtype=torch.bfloat16)
-        tk = cuda_times(lambda inp: F.conv2d(inp, wk, bk, padding=1), [xk], iters=10)
-        flops = 2 * xk.numel() * 9 * 128
-        k4_bound = max(bytes_ms(2 * xk.numel() * 2), flops / BF16_TENSOR_FLOPS_PER_S * 1e3)
-        report["k4_conv_ms"] = statistics.median(tk)
-        log(f"K4 reference shape: cuDNN F.conv2d {tuple(xk.shape)} 128->128 3x3 + bias, bf16 "
-            f"channels_last: {spread(tk)}; bound {k4_bound:.4f} ms ({flops:.3e} flop)")
-        del xk, wk
-    report["rows"] = rows
-    report["bound_by"] = bound_by
+    report["rows"].update(rows)
+    report["bound_by"].update(bound_by)
     log("K1 has no single PyTorch call computing InstanceNorm+LeakyReLU (library_ms null).")
     log(f"per b{batch} forward (sum over the main-path calls of the medians; K1, K2a dense, "
         "K2b, K3 s2d): "
@@ -754,10 +878,346 @@ def phase_times():
         f"apply (read x, write y) {k1_split[1]:.3f} ms")
 
 
+def k4_inputs(side: int, cin: int, cout: int, dtype, seed: int):
+    """x (b32, side/2, side/2, 4·Cin) q-major, a Kaiming-scaled float32
+    (Cout, Cin, 3, 3) kernel and a float32 bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((K4_BATCH, side // 2, side // 2, 4 * cin), generator=g, device="cuda")
+    w = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * (2 / (9 * cin)) ** 0.5
+    b = torch.randn(cout, generator=g, device="cuda") * 0.1
+    return x.to(dtype), w, b
+
+
+def dense_nchw(x: torch.Tensor) -> torch.Tensor:
+    """The dense NCHW view (channels_last memory) of a q-major s2d tensor."""
+    return depth_to_space(x).permute(0, 3, 1, 2)
+
+
+def direct_conv_s2d(x, w, b):
+    """The reference: cuDNN's SAME 3x3 conv of the dense view, back in s2d."""
+    return space_to_depth(F.conv2d(dense_nchw(x), w, b, padding=1).permute(0, 2, 3, 1))
+
+
+def rel_of_max(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
+    a, ref = a.float(), ref.float()
+    return float((a - ref).norm() / ref.norm())
+
+
+@contextmanager
+def k4_mode(kernel: str):
+    saved = k4._FOLDED
+    k4._FOLDED = K4_MODES[kernel]
+    try:
+        yield
+    finally:
+        k4._FOLDED = saved
+
+
+def k4_u(w: torch.Tensor, kernel: str, dtype) -> torch.Tensor:
+    tw = k4.transform_weights_folded if K4_MODES[kernel] else k4.transform_weights
+    return tw(w).to(dtype)
+
+
+def check_k4(conv: str, side: int, cin: int, cout: int, kernel: str, dtype, seed: int) -> str:
+    """One forward and backward through ``winograd_conv_s2d`` (counted: one
+    launch each) against the plain version and the direct conv."""
+    x, w, b = k4_inputs(side, cin, cout, dtype, seed)
+    gy = torch.randn((K4_BATCH, side // 2, side // 2, 4 * cout), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(seed + 1)).to(dtype)
+    xk, wk, bk = (t.clone().requires_grad_() for t in (x, w, b))
+    with k4_mode(kernel):
+        y = counted_path(lambda: k4.winograd_conv_s2d(xk, wk, bk), one_launch(kernel))
+        counted_path(lambda: y.backward(gy), one_launch(kernel))
+    # The plain version on the same U, and on the flipped kernel for dx.
+    w_flip = w.flip((2, 3)).transpose(0, 1)
+    y_p = k4._torch_winograd_s2d(x, k4_u(w, kernel, dtype), b)
+    dx_p = k4._torch_winograd_s2d(gy, k4_u(w_flip, kernel, dtype),
+                                  torch.zeros(cin, device="cuda"))
+    # The float32 direct conv on the same (rounded) values, and its grads.
+    xr, wr, br = (t.detach().float().clone().requires_grad_() for t in (x, w, b))
+    y_r = direct_conv_s2d(xr, wr, br)
+    y_r.backward(gy.float())
+    label = f"{kernel} {conv} {tuple(x.shape)} {str(dtype)[6:]}"
+    report["err"][kernel] = max(report["err"][kernel], float((y.float() - y_p.float()).abs().max()))
+    if dtype == torch.float32:
+        errs = {"y vs plain": rel_of_max(y, y_p), "y vs direct": rel_of_max(y, y_r),
+                "dx vs plain": rel_of_max(xk.grad, dx_p), "dx vs direct": rel_of_max(xk.grad, xr.grad),
+                "dW vs direct": rel_of_max(wk.grad, wr.grad),
+                "db vs direct": rel_of_max(bk.grad, br.grad)}
+        ok = all(e <= K4_F32_TOL for e in errs.values())
+        detail = ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {K4_F32_TOL:g} of max)"
+    else:
+        errs = {"y": (rel_l2(y, y_r), rel_l2(y_p, y_r)), "dx": (rel_l2(xk.grad, xr.grad),
+                                                             rel_l2(dx_p, xr.grad))}
+        ok = all(k_ <= p_ * (1 + E2E_BF16_SLACK) for k_, p_ in errs.values())
+        detail = ", ".join(f"{k} rel-L2 to f32 direct kernel/plain {a:.4e}/{p_:.4e}"
+                           for k, (a, p_) in errs.items())
+        detail += (f" (slack {E2E_BF16_SLACK:g}); dW, db rel-L2 to f32 direct "
+                   f"{rel_l2(wk.grad, wr.grad):.4e}, {rel_l2(bk.grad, br.grad):.4e}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees: {detail}")
+    return f"{label}: {detail} ok"
+
+
+def k4_bound_ms(n_tiles: int, cin: int, cout: int, kernel: str) -> tuple[float, str]:
+    """Bytes: x (n_tiles x 4·Cin), U (16 Cin x Cout matrices unfolded, 8 of
+    3·Cin x Cout folded) and y (n_tiles x 4·Cout) in bf16, the f32 bias.
+    Operations: the function's 16 Winograd products per tile, 2·Cin·Cout each
+    (4/9 of the direct conv), on the bf16 tensor cores, in both layouts: the
+    folded kernel multiplies more (24 per tile) for the same function."""
+    u_mats = 24 if K4_MODES[kernel] else 16
+    nbytes = 2 * (n_tiles * 4 * cin + u_mats * cin * cout + n_tiles * 4 * cout) + 4 * cout
+    by_bytes = bytes_ms(nbytes)
+    by_ops = 2 * 16 * cin * cout * n_tiles / BF16_TENSOR_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+@phase(f"6. K4 winograd_conv_s2d: kernel against plain version and direct conv (b{K4_BATCH})")
+def phase_k4():
+    with deterministic():
+        for i, (conv, side, cin, cout) in enumerate(K4_CONVS):
+            for kernel in K4_MODES:
+                for dt in (torch.float32, torch.bfloat16):
+                    log(check_k4(conv, side, cin, cout, kernel, dt, seed=SEED + 10 * i))
+                    torch.cuda.empty_cache()
+    # Times of the kernel launch (U precomputed), its plain version and
+    # cuDNN's F.conv2d + bias of the same shape (bf16, channels_last), for
+    # the forward and for dx (the kernel on the cotangent, Cout -> Cin).
+    for kernel in K4_MODES:
+        row = [0.0, 0.0, 0.0, 0.0]
+        for i, (conv, side, cin, cout) in enumerate(K4_CONVS):
+            x, w, b = k4_inputs(side, cin, cout, torch.bfloat16, seed=SEED + 10 * i)
+            n_tiles = x.shape[0] * x.shape[1] * x.shape[2]
+            for what, ci, co, wt in (("forward", cin, cout, w),
+                                     ("dx", cout, cin, w.flip((2, 3)).transpose(0, 1))):
+                # dx runs on a cotangent of y's shape, into Cin channels.
+                xs = x if what == "forward" else k4_inputs(side, ci, co, torch.bfloat16,
+                                                           seed=SEED + 10 * i + 1)[0]
+                u = k4_u(wt, kernel, torch.bfloat16)
+                bias = b if what == "forward" else torch.zeros(co, device="cuda")
+                nbytes = xs.numel() * xs.element_size()
+                inputs = [(xs, u, bias)] + [(torch.randn_like(xs, dtype=torch.float32).to(
+                    torch.bfloat16), u, bias) for _ in range(1, n_copies(nbytes))]
+                bound = k4_bound_ms(n_tiles, ci, co, kernel)
+                wd = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                bd = bias.to(torch.bfloat16)
+                dense = [dense_nchw(a[0]).contiguous(memory_format=torch.channels_last)
+                         for a in inputs]
+                t = time_kernel(f"{kernel} {what} {conv} {tuple(xs.shape)} {ci}->{co}",
+                                lambda a: k4._cuda_winograd_s2d(*a),
+                                lambda a: k4._torch_winograd_s2d(*a), inputs, bound)
+                tl = cuda_times(lambda d: F.conv2d(d, wd, bd, padding=1), dense, iters=10)
+                log(f"   cuDNN F.conv2d + bias {tuple(dense[0].shape)} {ci}->{co} bf16 "
+                    f"channels_last: {spread(tl)}")
+                if what == "forward":
+                    row = [row[0] + t[0], row[1] + t[1], row[2] + bound[0],
+                           row[3] + statistics.median(tl)]
+                    report["bound_by"][kernel] = bound[1]
+                del inputs, dense, xs
+            del x
+            torch.cuda.empty_cache()
+        report["rows"][kernel] = row
+        log(f"{kernel} per b{K4_BATCH} set of the four convs' forwards: kernel {row[0]:.3f} ms, "
+            f"plain {row[1]:.3f} ms, bound {row[2]:.3f} ms, cuDNN {row[3]:.3f} ms")
+
+
+def grad_groups(model) -> dict:
+    """Parameter names by comparison group: each parameter alone, except a
+    conv followed by InstanceNorm (inside a block), whose bias goes with its
+    weight (the norm cancels the bias: its exact gradient is zero)."""
+    groups = {}
+    for name, _ in model.named_parameters():
+        prefix = name.rsplit(".", 1)[0]
+        if ".block." in name and isinstance(model.get_submodule(prefix), torch.nn.Conv2d):
+            groups.setdefault(prefix, []).append(name)
+        else:
+            groups[name] = [name]
+    return groups
+
+
+def group_rel_l2(grads: dict, ref: dict, groups: dict) -> dict:
+    return {g: rel_l2(torch.cat([grads[n].reshape(-1) for n in names]),
+                      torch.cat([ref[n].reshape(-1) for n in names]))
+            for g, names in groups.items()}
+
+
+def train_model(layout: str, state: dict, dtype):
+    model = unet_6stage(dtype=dtype, device="cuda", **LAYOUTS[layout])
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def device_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+# The step variants of the b8 check: the launches each makes, and the
+# version of K1 its blocks run (None: the wrappers, with the kernels).
+STEP_MODES = {"kernels": None, "plain": k1_plain, "kernel values": k1_kernel_values,
+              "reordered": k1_reordered}
+
+
+def one_step(layout: str, state: dict, dtype, batch: dict, mode: str):
+    """One train step from ``state`` (counted): the loss and every gradient."""
+    model = train_model(layout, state, dtype)
+    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    expected = {"kernels": PER_STEP[layout], "kernel values": {
+        **NO_LAUNCHES, "K1": PER_STEP[layout]["K1"]}}.get(mode, NO_LAUNCHES)
+    k1_version = STEP_MODES[mode]
+    with deterministic(), plain_versions(k1_version) if k1_version else nullcontext():
+        loss = (counted_path if mode == "kernels" else counted)(lambda: float(step(batch, gen)),
+                                                                 expected)
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    return loss, grads, grad_groups(model)
+
+
+def check_train_step(layout: str, state: dict, batch: dict) -> dict:
+    runs = {(torch.float32, mode): one_step(layout, state, torch.float32, batch, mode)
+            for mode in STEP_MODES}
+    runs.update({(torch.bfloat16, mode): one_step(layout, state, torch.bfloat16, batch, mode)
+                 for mode in ("kernels", "plain")})
+    f32, f32_plain = runs[(torch.float32, "kernels")], runs[(torch.float32, "plain")]
+    f32_values, f32_reordered = (runs[(torch.float32, "kernel values")],
+                                 runs[(torch.float32, "reordered")])
+    bf, bf_plain = runs[(torch.bfloat16, "kernels")], runs[(torch.bfloat16, "plain")]
+    groups = f32[2]
+    loss_rel = abs(f32[0] - f32_plain[0]) / abs(f32_plain[0])
+    values_loss_rel = abs(f32[0] - f32_values[0]) / abs(f32_values[0])
+    g32 = group_rel_l2(f32[1], f32_values[1], groups)
+    worst32 = max(g32, key=g32.get)
+    g_plain = group_rel_l2(f32[1], f32_plain[1], groups)
+    g_reord = group_rel_l2(f32_reordered[1], f32_plain[1], groups)
+    gk = group_rel_l2(bf[1], f32_plain[1], groups)
+    gp = group_rel_l2(bf_plain[1], f32_plain[1], groups)
+    ratio = {g: gk[g] / gp[g] for g in groups}
+    worst_ratio = max(ratio, key=ratio.get)
+
+    def all_rel(a, b):
+        return rel_l2(torch.cat([v.reshape(-1) for v in a.values()]),
+                      torch.cat([v.reshape(-1) for v in b.values()]))
+
+    all_k, all_p = all_rel(bf[1], f32_plain[1]), all_rel(bf_plain[1], f32_plain[1])
+    dl_k, dl_p = abs(bf[0] - f32_plain[0]), abs(bf_plain[0] - f32_plain[0])
+    med = statistics.median
+    log(f"{layout} b{CHECK_BATCH} step losses: f32 {f32[0]:.7f} / plain {f32_plain[0]:.7f} "
+        f"(rel {loss_rel:.3e}) / kernel values {f32_values[0]:.7f} (rel {values_loss_rel:.3e}); "
+        f"bf16 {bf[0]:.7f} / plain {bf_plain[0]:.7f}")
+    log(f"{layout} f32 gradients vs the step with the kernel's values and the plain gradient: "
+        f"worst group rel-L2 {g32[worst32]:.3e} ({worst32}), median {med(g32.values()):.3e} over "
+        f"{len(groups)} groups")
+    worst_plain = max(g_plain, key=g_plain.get)
+    log(f"{layout} f32 gradients vs the plain step: all parameters "
+        f"{all_rel(f32[1], f32_plain[1]):.3e}, worst group {g_plain[worst_plain]:.3e} "
+        f"({worst_plain}), median {med(g_plain.values()):.3e}; the plain step with K1's sums "
+        f"reordered vs the plain step: all parameters "
+        f"{all_rel(f32_reordered[1], f32_plain[1]):.3e}, worst group "
+        f"{max(g_reord.values()):.3e}, median {med(g_reord.values()):.3e}")
+    log(f"{layout} bf16 gradients to f32 plain, kernels/plain: all parameters {all_k:.4e}/"
+        f"{all_p:.4e}; worst group ratio {ratio[worst_ratio]:.3f} ({worst_ratio}: "
+        f"{gk[worst_ratio]:.4e}/{gp[worst_ratio]:.4e}); |loss - f32 plain| {dl_k:.3e}/{dl_p:.3e}")
+    checks = {"f32 loss": loss_rel <= TRAIN_F32_LOSS_REL,
+              "f32 loss, kernel values": values_loss_rel <= TRAIN_F32_LOSS_REL,
+              "f32 grads": g32[worst32] <= TRAIN_F32_GRAD_REL,
+              "f32 grads vs plain": g_plain[worst_plain] <= TRAIN_F32_PLAIN_GRAD_REL,
+              "bf16 grads": ratio[worst_ratio] <= 1 + E2E_BF16_SLACK,
+              "bf16 all grads": all_k <= all_p * (1 + E2E_BF16_SLACK),
+              "bf16 loss": dl_k <= dl_p * (1 + E2E_BF16_SLACK),
+              "finite": all(math.isfinite(r[0]) for r in runs.values())}
+    log(f"{layout} train-step bounds: f32 loss rel <= {TRAIN_F32_LOSS_REL:g}, f32 grad rel-L2 "
+        f"<= {TRAIN_F32_GRAD_REL:g} (against the kernel's values with the plain gradient) and "
+        f"<= {TRAIN_F32_PLAIN_GRAD_REL:g} (against the plain step), bf16 within "
+        f"{E2E_BF16_SLACK:g} of the bf16 plain step: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{layout}: the train step with kernels misses its bounds: {checks}")
+    return {"f32 loss rel": loss_rel, "f32 worst grad rel-L2": g32[worst32],
+            "f32 vs plain worst grad rel-L2": max(g_plain.values()),
+            "f32 reordered vs plain worst grad rel-L2": max(g_reord.values()),
+            "bf16 worst grad ratio": ratio[worst_ratio], "bf16 all grads": (all_k, all_p),
+            "bf16 loss err": (dl_k, dl_p)}
+
+
+def train_layout(layout: str, path: Path) -> None:
+    served = convert.load_reference_checkpoint(path, device="cuda", dtype=torch.bfloat16,
+                                               **LAYOUTS[layout])
+    if any(p.dtype != torch.float32 for p in served.parameters()):
+        raise AssertionError("the model's parameters are not float32")
+    state = {k: v.clone() for k, v in served.state_dict().items()}
+    check = device_batch(as_uint8(synthetic_batch(SEED + 3, CHECK_BATCH, IMG)))
+    report["train"][layout] = {"check": check_train_step(layout, state, check)}
+    torch.cuda.empty_cache()
+
+    # Ten steps on one b8 batch (bf16, kernels) must lower the loss.
+    model = train_model(layout, state, torch.bfloat16)
+    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = []
+    for _ in range(TRAIN_STEPS_DOWN):
+        losses.append(counted_path(lambda: float(step(check, gen)), PER_STEP[layout]))
+    log(f"{layout} {TRAIN_STEPS_DOWN} steps on one b{CHECK_BATCH} batch: losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    report["train"][layout]["losses"] = losses
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{layout}: the loss did not go down: {losses}")
+    del model, step, check
+    torch.cuda.empty_cache()
+
+    # The b32 step: the model loaded from the .pth, a batch already on the card.
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 4, TRAIN_BATCH, IMG)))
+    step = make_segmentation_train_step(served, sgd_nesterov(served.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_times(lambda b: counted_path(lambda: step(b, gen), PER_STEP[layout]), [batch],
+                    iters=TIMED_STEPS, warmup=WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(ms)
+    last = counted_path(lambda: float(step(batch, gen)), PER_STEP[layout])
+    log(f"{layout} train step b{TRAIN_BATCH} 512² bf16: {spread(ms)}, "
+        f"{TRAIN_BATCH / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; loss after "
+        f"{WARMUP_STEPS + TIMED_STEPS + 1} steps {last:.4f}")
+    if not math.isfinite(last):
+        raise AssertionError(f"{layout}: the b{TRAIN_BATCH} loss is not finite")
+    evaluate = make_segmentation_eval_step(served)
+    evaluate(batch)
+    torch.cuda.synchronize()
+    ev = cuda_times(lambda b: counted_path(lambda: evaluate(b), PER_FORWARD[layout]), [batch],
+                    iters=1, warmup=0)
+    out = counted_path(lambda: evaluate(batch), PER_FORWARD[layout])
+    cm = out["confusion"]
+    if float(cm.sum()) != float((batch["mask"] != 255).sum()) or not bool(
+            torch.isfinite(out["loss"])):
+        raise AssertionError(f"{layout}: eval step confusion {cm.tolist()} or loss {out['loss']}")
+    log(f"{layout} eval step b{TRAIN_BATCH}: {ev[0]:.3f} ms, loss {float(out['loss']):.4f}, dice "
+        f"{[round(float(v), 4) for v in out['dice']]}")
+    report["train"][layout].update(step_ms=med, img_per_s=TRAIN_BATCH / med * 1e3, peak_gib=peak,
+                                   eval_ms=ev[0])
+
+
+@phase(f"7. the train step: unet_6stage 512² bf16, f32 params, SGD-Nesterov (b{CHECK_BATCH} "
+       f"checks, b{TRAIN_BATCH} times)")
+def phase_train():
+    report["train"] = {}
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 5))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "unet_6stage_train.pth"
+        convert.save_reference_checkpoint(model, path)
+        del model
+        for layout in LAYOUTS:
+            log(f"-- {layout}")
+            train_layout(layout, path)
+            torch.cuda.empty_cache()
+
+
 def kernels_line() -> dict:
-    rows = report.get("rows", {})
-    by_layout = report.get("launches", {})
-    bound_by = report.get("bound_by", {})
+    rows = report["rows"]
+    bound_by = report["bound_by"]
     meta = [
         ("K1 fused_instance_norm (InstanceNorm+LeakyReLU fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/instance_norm.cu",
@@ -771,14 +1231,20 @@ def kernels_line() -> dict:
         ("K3 fused_s2d_tail (s2d block tail IN-lrelu-conv3x3-IN-lrelu, fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/s2d_region.cu",
          "unet_implementations_tpu/kernels/s2d_region.py:204", "K3"),
+        ("K4 winograd_conv_s2d (Winograd F(2,3) s2d conv, unfolded U, fwd and dx)",
+         "unet_implementations_tpu_torch/kernels/csrc/winograd.cu",
+         "unet_implementations_tpu/kernels/winograd.py:365", "K4"),
+        ("K4f winograd_conv_s2d (Winograd F(2,3) s2d conv, folded U, fwd and dx)",
+         "unet_implementations_tpu_torch/kernels/csrc/winograd.cu",
+         "unet_implementations_tpu/kernels/winograd.py:266", "K4f"),
     ]
     out = []
     for name, source, replaces, key in meta:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # Both served layouts of phase 3 (3 batches each).
-            "launches": sum(counts[key] for counts in by_layout.values()) if by_layout else None,
+            # The counted runs of the main paths (phases 3, 6 and 7).
+            "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by.get(key, "bytes"), "library_ms": library_ms,
@@ -793,6 +1259,7 @@ def main() -> int:
     # Float32 is compared throughout: no TF32 in convs or matmuls.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(SEED)
     t0 = time.perf_counter()
     phase_build()
     if not failures:
@@ -801,6 +1268,10 @@ def main() -> int:
         if len(report.get("models", {})) == len(LAYOUTS):
             phase_e2e()
             phase_times()
+        report.pop("models", None)
+        torch.cuda.empty_cache()
+        phase_k4()
+        phase_train()
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

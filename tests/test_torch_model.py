@@ -253,5 +253,6 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert result["bad"] == []
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
-                 "models.s2d"):
+                 "kernels.winograd", "models.s2d", "ops.losses", "ops.metrics",
+                 "training.train_state", "training.steps", "data.synthetic"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

@@ -2,11 +2,13 @@
 models/s2d.py) against ``unet_implementations_tpu/models/s2d.py``.
 
 Inputs come from numpy with a seed. Tolerances: the rearrangements and the
-kernel transforms are bitwise (after HWIO -> OIHW); the convs and the norm
+kernel transforms are bitwise (after HWIO -> OIHW), the transforms' backward
+to 1e-6 (it sums 4 positions per element); the convs and the norm
 agree with JAX to 1e-5 in float32 (both run highest-precision float32 convs
 on the CPU, in other summation orders).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +74,23 @@ class TestKernelTransforms:
         got = s2d.transform_kernel(kernel)
         assert got.dtype == torch.bfloat16
         assert torch.equal(got.unique(), torch.cat([kernel.flatten(), kernel.new_zeros(1)]).unique())
+
+    @pytest.mark.parametrize("k,segments,stride2", [
+        (3, None, False), (1, None, False), (3, (4, 2), False), (3, None, True)])
+    def test_transform_grad_matches_jax(self, k, segments, stride2):
+        """The transforms' backward (a gather through the inverse index) is
+        the transpose JAX takes of its own transforms."""
+        kernel = _rand(11, k, k, 6, 4)
+        fn_j = (jax_s2d.transform_kernel_stride2 if stride2
+                else lambda w: jax_s2d.transform_kernel(w, segments))
+        fn_t = (s2d.transform_kernel_stride2 if stride2
+                else lambda w: s2d.transform_kernel(w, segments))
+        out, vjp = jax.vjp(fn_j, jnp.asarray(kernel))
+        ct = np.random.default_rng(12).normal(size=out.shape).astype(np.float32)
+        want = np.asarray(vjp(jnp.asarray(ct))[0])
+        w = _oihw(kernel).requires_grad_()
+        fn_t(w).backward(torch.from_numpy(np.ascontiguousarray(ct.transpose(3, 2, 0, 1))))
+        np.testing.assert_allclose(_hwio(w.grad), want, rtol=1e-6, atol=1e-6)
 
     def test_segments_must_sum_to_cin(self):
         with pytest.raises(ValueError, match="do not sum"):

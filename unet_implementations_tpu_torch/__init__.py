@@ -5,10 +5,15 @@ keeps the reference's module names so each counterpart is easy to find:
 
 - ``models``   — the 6-stage segmentation UNet as ``nn.Module``s, and the
                  JAX-params / reference-``.pth`` converters.
-- ``ops``      — ImageNet normalization and the bilinear resize primitives
-                 (the plain versions the kernels are held to).
+- ``ops``      — ImageNet normalization, the bilinear resize primitives (the
+                 plain versions the kernels are held to), the segmentation
+                 losses and the metrics.
 - ``kernels``  — hand-written CUDA C++ kernels for ``sm_90a`` (``csrc/``),
-                 built with ``nvcc`` at first use and bound with ``ctypes``.
+                 built with ``nvcc`` at first use and bound with ``ctypes``;
+                 the differentiable ones carry their backward.
+- ``training`` — optimizers, schedules, and the segmentation train and eval
+                 steps.
+- ``data``     — synthetic batches.
 - ``recipes``  — the serving path (``predict_segmentation``).
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.

@@ -137,12 +137,13 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels are forward-only: a CUDA call that autograd would record
-    raises instead of computing a result with no backward."""
+    """For a forward-only kernel (K3, inference only as in JAX): a CUDA call
+    that autograd would record raises instead of computing a result with no
+    backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no backward kernel yet; call it under torch.no_grad() "
-            "or torch.inference_mode()"
+            f"{name} has no backward; call it under torch.no_grad() or "
+            "torch.inference_mode()"
         )
 
 

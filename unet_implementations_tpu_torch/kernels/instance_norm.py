@@ -15,7 +15,13 @@ the source for the design.
 
 On a CPU tensor ``fused_instance_norm`` runs the plain version
 ``_torch_forward``; on a CUDA tensor it launches the kernel or raises.
-Forward only: a CUDA call that autograd would record raises.
+
+It is differentiable. The backward is ``_torch_backward``, the formula of the
+JAX ``_bwd_impl`` in plain torch ops on both devices: the JAX package has no
+backward kernel for K1 (its ``_bwd_impl`` is jnp, compiled by XLA), so there
+is none here either. It works in float32 from the saved x, mean and rstd,
+pools ``dscale``/``dbias`` over the batch (and the 4 q blocks with
+``group=4``), and returns dx in x's dtype.
 """
 
 from __future__ import annotations
@@ -94,6 +100,55 @@ def _cuda_forward(x, scale_c, bias_c, eps, negative_slope, group):
     return y, mean, rstd
 
 
+def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
+    """The JAX ``_bwd_impl``: (dx in x's dtype, dscale, dbias) float32."""
+    b, h, w, c = x.shape
+    xf = x.to(torch.float32)
+    dyf = dy.to(torch.float32)
+    scale_full = scale_c.to(torch.float32).repeat(group)
+    bias_full = bias_c.to(torch.float32).repeat(group)
+    rstd_b = rstd[:, None, None, :]
+    xhat = (xf - mean[:, None, None, :]) * rstd_b
+    y_pre = xhat * scale_full + bias_full
+    dpre = dyf * torch.where(y_pre >= 0, 1.0, negative_slope)
+    # Parameter grads, pooled over the batch (and the group's q blocks).
+    dscale = (dpre * xhat).sum(dim=(0, 1, 2))
+    dbias = dpre.sum(dim=(0, 1, 2))
+    if group > 1:
+        dscale = dscale.reshape(group, c // group).sum(0)
+        dbias = dbias.reshape(group, c // group).sum(0)
+    # Input grad: the instance-norm backward with group-pooled means.
+    dxhat = dpre * scale_full
+    if group > 1:
+        shape_g = (b, h, w, group, c // group)  # q-major sub-pixel axis
+        dxhat_g, xhat_g = dxhat.reshape(shape_g), xhat.reshape(shape_g)
+        m1 = dxhat_g.mean(dim=(1, 2, 3), keepdim=True)
+        m2 = (dxhat_g * xhat_g).mean(dim=(1, 2, 3), keepdim=True)
+        dx = (dxhat_g - m1 - xhat_g * m2).reshape(b, h, w, c)
+    else:
+        m1 = dxhat.mean(dim=(1, 2), keepdim=True)
+        m2 = (dxhat * xhat).mean(dim=(1, 2), keepdim=True)
+        dx = dxhat - m1 - xhat * m2
+    return (dx * rstd_b).to(x.dtype), dscale, dbias
+
+
+class _FusedInstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, negative_slope, group):
+        run = _cuda_forward if _build.uses_kernel(x, scale, bias) else _torch_forward
+        y, mean, rstd = run(x, scale, bias, eps, negative_slope, group)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.negative_slope, ctx.group = negative_slope, group
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = _torch_backward(x, scale, bias, mean, rstd, dy, ctx.negative_slope,
+                                            ctx.group)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None
+
+
 def fused_instance_norm(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -109,10 +164,7 @@ def fused_instance_norm(
     """
     if x.ndim != 4:
         raise ValueError(f"fused_instance_norm takes (B, H, W, C), got {tuple(x.shape)}")
-    if not _build.uses_kernel(x, scale, bias):
-        return _torch_forward(x, scale, bias, eps, negative_slope, group)[0]
-    _build.refuse_grad("fused_instance_norm", x, scale, bias)
-    return _cuda_forward(x, scale, bias, eps, negative_slope, group)[0]
+    return _FusedInstanceNorm.apply(x, scale, bias, eps, negative_slope, group)
 
 
 # Kernel launches since the count was last set to 0 (CPU calls do not count).

@@ -22,8 +22,16 @@ places in the output; see the source. No single PyTorch call writes the
 q-major layout (``F.pixel_unshuffle`` is c-major, channel c·4 + q).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises. Forward only: a CUDA call that autograd would
-record raises.
+launches the kernel or raises.
+
+Both are differentiable. The backward is the transpose of the plain version,
+as the JAX package's is (``jax.linear_transpose`` of the reference,
+upsample.py:211-216), with JAX's roundings: per axis, in the reverse order of
+the forward, the two lerps are transposed in float32 (each input element
+gathers 0.75 of its two sub-pixels and 0.25 of the neighbours', edges
+clamped), with the casts and additions in the input's dtype where the
+forward's slices were cast (``_lerp2_taps_transpose``). JAX has no backward
+kernel here, so there is none: it is plain torch ops on both devices.
 """
 
 from __future__ import annotations
@@ -57,6 +65,68 @@ def _cuda_forward(x: torch.Tensor, s2d: bool) -> torch.Tensor:
     return y
 
 
+def _lerp2_taps_transpose(ct_even: torch.Tensor, ct_odd: torch.Tensor, axis: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Transpose of ``ops.resize.lerp2_taps`` along ``axis``: the cotangents of
+    its (even, odd) outputs -> the cotangent of its input, in ``dtype``.
+
+    even[i] = 0.25·x[i−1] + 0.75·x[i], odd[i] = 0.75·x[i] + 0.25·x[i+1], with
+    x[−1] = x[0] and x[n] = x[n−1], in float32 from the edge-padded input's
+    three slices, each cast to float32. So, as JAX transposes it: each
+    slice's cotangent is formed in float32 and cast to ``dtype``, and the
+    three are summed in ``dtype`` into the padded input (mid + right, then
+    left), whose edge entries then fold into x[n−1] and x[0]."""
+    e, o = ct_even.to(torch.float32), ct_odd.to(torch.float32)
+    n = e.shape[axis]
+    left = (0.25 * e).to(dtype)
+    right = (0.25 * o).to(dtype)
+    dx = (0.75 * e + 0.75 * o).to(dtype)
+    if n > 1:
+        dx.narrow(axis, 1, n - 1).add_(right.narrow(axis, 0, n - 1))
+        dx.narrow(axis, 0, n - 1).add_(left.narrow(axis, 1, n - 1))
+    dx.narrow(axis, n - 1, 1).add_(right.narrow(axis, n - 1, 1))
+    dx.narrow(axis, 0, 1).add_(left.narrow(axis, 0, 1))
+    return dx
+
+
+def upsample2x_nhwc_transpose(ct: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Transpose of ``upsample2x_nhwc``: (B, 2H, 2W, C) -> (B, H, W, C) in
+    ``dtype`` (the input's), W first, then H."""
+    b, h2, w2, c = ct.shape
+    ct = ct.reshape(b, h2, w2 // 2, 2, c)
+    rows = _lerp2_taps_transpose(ct[:, :, :, 0], ct[:, :, :, 1], 2, dtype)
+    rows = rows.reshape(b, h2 // 2, 2, w2 // 2, c)
+    return _lerp2_taps_transpose(rows[:, :, 0], rows[:, :, 1], 1, dtype)
+
+
+def upsample2x_into_s2d_transpose(ct: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Transpose of ``upsample2x_into_s2d``: (B, H, W, 4C) -> (B, H, W, C) in
+    ``dtype``; the q-major blocks are the (row, column) phases 00, 01, 10, 11."""
+    c00, c01, c10, c11 = ct.chunk(4, dim=-1)
+    row0 = _lerp2_taps_transpose(c00, c01, 2, dtype)
+    row1 = _lerp2_taps_transpose(c10, c11, 2, dtype)
+    return _lerp2_taps_transpose(row0, row1, 1, dtype)
+
+
+class _Upsample2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s2d):
+        ctx.s2d, ctx.dtype = s2d, x.dtype
+        if not _build.uses_kernel(x):
+            return upsample2x_into_s2d(x) if s2d else upsample2x_nhwc(x)
+        y = _cuda_forward(x, s2d)
+        if s2d:
+            upsample2x_into_s2d_fast.launches += 1
+        else:
+            upsample2x_nhwc_fast.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        transpose = upsample2x_into_s2d_transpose if ctx.s2d else upsample2x_nhwc_transpose
+        return transpose(ct, ctx.dtype), None
+
+
 def _check_input(x: torch.Tensor, name: str) -> None:
     if x.ndim != 4 or min(x.shape) == 0:
         raise ValueError(f"{name} takes a non-empty (B, H, W, C), got {tuple(x.shape)}")
@@ -65,24 +135,14 @@ def _check_input(x: torch.Tensor, name: str) -> None:
 def upsample2x_nhwc_fast(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x bilinear upsample of an NHWC tensor: (B,H,W,C) -> (B,2H,2W,C)."""
     _check_input(x, "upsample2x_nhwc_fast")
-    if not _build.uses_kernel(x):
-        return upsample2x_nhwc(x)
-    _build.refuse_grad("upsample2x_nhwc_fast", x)
-    y = _cuda_forward(x, s2d=False)
-    upsample2x_nhwc_fast.launches += 1
-    return y
+    return _Upsample2x.apply(x, False)
 
 
 def upsample2x_into_s2d_fast(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x bilinear upsample emitted in s2d layout: (B,H,W,C) -> (B,H,W,4C),
     q-major (channel q·C + c, q = dy·2 + dx)."""
     _check_input(x, "upsample2x_into_s2d_fast")
-    if not _build.uses_kernel(x):
-        return upsample2x_into_s2d(x)
-    _build.refuse_grad("upsample2x_into_s2d_fast", x)
-    y = _cuda_forward(x, s2d=True)
-    upsample2x_into_s2d_fast.launches += 1
-    return y
+    return _Upsample2x.apply(x, True)
 
 
 # Kernel launches since the count was last set to 0 (CPU calls do not count).

@@ -12,6 +12,11 @@ since the UNet decides it from the input's size at each call. The layout
 changes no parameter: each ``nn.Conv2d.weight`` is the canonical kernel, and
 the s2d convs transform it at call time.
 
+Parameters are float32, as the JAX model's (flax's default ``param_dtype``);
+every conv casts its weight and bias to the activation's dtype at the call,
+as the JAX ``ConvOp`` does, so a bf16 model trains float32 masters. Channel
+dropout draws from the ``torch.Generator`` passed down from ``UNet.forward``.
+
 Module attributes follow the reference torch UNet's state-dict scheme
 (``block.{idx}`` inside a ``ConvBlock``, ``conv_block`` inside an
 ``UpBlock``): each conv owns the indices [Conv2d, InstanceNorm,
@@ -24,6 +29,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unet_implementations_tpu_torch.kernels.instance_norm import fused_instance_norm
@@ -50,16 +56,23 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def kaiming_conv(cin: int, cout: int, kernel_size: int, stride: int, dtype,
+def kaiming_conv(cin: int, cout: int, kernel_size: int, stride: int,
                  generator: Optional[torch.Generator]) -> nn.Conv2d:
-    """Conv2d with the reference init: Kaiming-normal fan_out with gain²=2
-    (std = sqrt(2 / (k*k*cout))), zero bias; padding k//2."""
+    """Float32 Conv2d with the reference init: Kaiming-normal fan_out with
+    gain²=2 (std = sqrt(2 / (k*k*cout))), zero bias; padding k//2."""
     conv = nn.Conv2d(cin, cout, kernel_size, stride, kernel_size // 2)
     with torch.no_grad():
         std = math.sqrt(2.0 / (kernel_size * kernel_size * cout))
         conv.weight.normal_(0.0, std, generator=generator)
         conv.bias.zero_()
-    return conv.to(dtype=dtype, memory_format=torch.channels_last)
+    return conv.to(memory_format=torch.channels_last)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` applied in x's dtype: its float32 weight and bias are cast at
+    the call."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
+                    conv.padding)
 
 
 # The reference block: InstanceNorm2d(eps=1e-5, affine) + LeakyReLU(0.01)
@@ -98,34 +111,61 @@ class FusedActivation(nn.Identity):
     keeps the reference's state-dict indices."""
 
 
+class ChannelDropout(nn.Module):
+    """Channel dropout from an explicit generator: whole channels drop with
+    probability ``rate`` and the kept ones scale by 1/(1 − rate), the mask
+    broadcast over space (JAX ``nn.Dropout(broadcast_dims=(1, 2))``). With
+    ``group=4`` the input is s2d and the mask also spans the 4 q blocks of
+    each original channel. It holds no parameter: it keeps the reference's
+    dropout index in the ``block`` Sequential."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                group: int = 1) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        if generator is None:
+            raise ValueError("channel dropout in training mode needs a torch.Generator "
+                             "(UNet.forward(x, generator=...))")
+        b, c = x.shape[:2]
+        keep = 1.0 - self.rate
+        draw = torch.rand((b, c // group), generator=generator, device=x.device)
+        mask = (draw < keep).repeat(1, group)[:, :, None, None]
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConvBlock(nn.Module):
     """2 x [3x3 Conv -> InstanceNorm+LeakyReLU -> channel dropout]; the
     stride applies to the first conv only.
 
     Layouts (``forward`` arguments):
-    - dense (default): ``x`` is a dense tensor, the block runs as the
-      reference's ``block`` Sequential;
+    - dense (default): ``x`` is a dense tensor, and the block runs the
+      units of the reference's ``block`` Sequential in order;
     - ``s2d``: ``x`` is an s2d tensor, or with ``s2d_segments_first`` a tuple
       of s2d tensors whose logical channel-concat conv_0 takes without
       materializing it (segments: their dense channel counts); the output is
-      s2d. In eval mode conv_0 is followed by the fused tail (K3);
+      s2d. In eval mode conv_0 is followed by the fused tail (K3), which
+      takes no gradient: training runs the module path;
     - ``s2d_input_first``: conv_0 is the stride-2 conv taking an s2d tensor,
       with a dense half-resolution output; the rest of the block is dense.
     """
 
     def __init__(self, cin: int, features: int, stride: int = 1, dropout_rate: float = 0.0,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         layers = []
         c = cin
         for i in range(N_CONVS):
             layers += [
-                kaiming_conv(c, features, 3, stride if i == 0 else 1, dtype, generator),
+                kaiming_conv(c, features, 3, stride if i == 0 else 1, generator),
                 InstanceNorm(features),
                 FusedActivation(),
             ]
             if dropout_rate > 0:
-                layers.append(nn.Dropout2d(dropout_rate))
+                layers.append(ChannelDropout(dropout_rate))
             c = features
         self.block = nn.Sequential(*layers)
         self.dropout_rate = dropout_rate
@@ -134,6 +174,12 @@ class ConvBlock(nn.Module):
     def _unit(self, i: int):
         """(conv, norm) of conv unit i."""
         return self.block[i * self.step], self.block[i * self.step + 1]
+
+    def _dropout(self, x: torch.Tensor, i: int, generator: Optional[torch.Generator],
+                 group: int = 1) -> torch.Tensor:
+        if self.dropout_rate == 0:
+            return x
+        return self.block[i * self.step + 3](x, generator, group)
 
     def _conv0(self, x, s2d_input_first: bool,
                segments: Optional[Tuple[int, ...]]) -> torch.Tensor:
@@ -145,40 +191,27 @@ class ConvBlock(nn.Module):
                                        segments))
         return nchw(conv_s2d(nhwc(x), conv.weight, conv.bias))
 
-    def _dropout_s2d(self, x: torch.Tensor) -> torch.Tensor:
-        """Channel dropout of an s2d tensor: whole original channels drop, the
-        mask broadcast over space and the 4 q blocks."""
-        if not self.training or self.dropout_rate == 0:
-            return x
-        xh = nhwc(x)
-        b, hp, wp, c4 = xh.shape
-        keep = torch.nn.functional.dropout(xh.new_ones((b, 1, 1, 1, c4 // 4)),
-                                           self.dropout_rate, training=True)
-        return nchw((xh.reshape(b, hp, wp, 4, c4 // 4) * keep).reshape(b, hp, wp, c4))
-
     def forward(self, x, s2d: bool = False, s2d_input_first: bool = False,
-                s2d_segments_first: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-        if not (s2d or s2d_input_first):
-            return self.block(x)
+                s2d_segments_first: Optional[Tuple[int, ...]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if s2d and s2d_input_first:
             raise ValueError("a block is s2d or takes an s2d input first, not both")
-        x = self._conv0(x, s2d_input_first, s2d_segments_first)
+        if s2d or s2d_input_first:
+            x = self._conv0(x, s2d_input_first, s2d_segments_first)
+        else:
+            x = conv2d(x, self._unit(0)[0])
         if s2d and N_CONVS == 2 and not self.training:
             # The fused tail (K3): IN -> lrelu -> conv_1 -> IN -> lrelu.
             # Dropout is off in eval mode; conv_1's bias cancels in IN2.
             (_, norm0), (conv1, norm1) = self._unit(0), self._unit(1)
             return nchw(fused_s2d_tail(nhwc(x), norm0.weight, norm0.bias, conv1.weight,
                                        norm1.weight, norm1.bias, EPS, NEGATIVE_SLOPE))
+        group = 4 if s2d else 1
         for i in range(N_CONVS):
             conv, norm = self._unit(i)
             if i > 0:
-                x = nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d else conv(x)
-            if s2d:
-                x = self._dropout_s2d(norm(x, group=4))
-            else:
-                x = norm(x)
-                if self.dropout_rate > 0:
-                    x = self.block[i * self.step + 3](x)
+                x = nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d else conv2d(x, conv)
+            x = self._dropout(norm(x, group=group), i, generator, group)
         return x
 
 
@@ -193,23 +226,24 @@ class UpBlock(nn.Module):
     """
 
     def __init__(self, cin: int, skip_channels: int, features: int, dropout_rate: float = 0.0,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, dtype,
-                                    generator)
+        self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, generator)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor, s2d: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, s2d: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         size, skip_size = tuple(x.shape[2:]), tuple(skip.shape[2:])
         if s2d:
             if size != skip_size:
                 raise ValueError(f"an s2d skip must match x spatially: {size} vs {skip_size}")
             up = nchw(upsample2x_into_s2d_fast(nhwc(x)))
             segments = (x.shape[1], skip.shape[1] // 4)
-            return self.conv_block((up, skip), s2d=True, s2d_segments_first=segments)
+            return self.conv_block((up, skip), s2d=True, s2d_segments_first=segments,
+                                   generator=generator)
         if size != skip_size:
             if skip_size == (2 * size[0], 2 * size[1]):
                 x = nchw(upsample2x_nhwc_fast(nhwc(x)))
             else:
                 x = nchw(resize_bilinear(nhwc(x), skip_size))
         x = torch.cat([x, skip], dim=1).contiguous(memory_format=torch.channels_last)
-        return self.conv_block(x)
+        return self.conv_block(x, generator=generator)

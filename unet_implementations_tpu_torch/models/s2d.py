@@ -74,10 +74,10 @@ def _s2d_kernel_pattern(k: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _transform_index(k: int, cout: int, segments: tuple, device: torch.device) -> torch.Tensor:
+def _transform_index(k: int, cout: int, segments: tuple, device: torch.device) -> tuple:
     """Flat indices into ``[kernel.flatten(), 0]`` that build the transformed
-    (4Cout, 4Cin, K′, K′) kernel; index ``kernel.numel()`` is the zero. Built
-    once per shape and device."""
+    (4Cout, 4Cin, K′, K′) kernel (index ``kernel.numel()`` is the zero), and
+    their inverse (``_cached_index``). Built once per shape and device."""
     cin = sum(segments)
     entries = _s2d_kernel_pattern(k)
     b_lo = int(entries[:, :2].min())
@@ -94,11 +94,11 @@ def _transform_index(k: int, cout: int, segments: tuple, device: torch.device) -
                 4 * base + qin * cs:4 * base + (qin + 1) * cs,
                 by - b_lo, bx - b_lo] = ((co * cin + ci) * k + ky) * k + kx
             base += cs
-    return torch.from_numpy(idx).to(device)
+    return _cached_index(idx, cout * cin * k * k, device)
 
 
 @functools.lru_cache(maxsize=None)
-def _stride2_index(cout: int, cin: int, device: torch.device) -> torch.Tensor:
+def _stride2_index(cout: int, cin: int, device: torch.device) -> tuple:
     """As ``_transform_index``, for ``transform_kernel_stride2``."""
     idx = np.full((cout, 4 * cin, 2, 2), cout * cin * 9, np.int64)
     co, ci = np.arange(cout)[:, None], np.arange(cin)[None, :]
@@ -108,13 +108,46 @@ def _stride2_index(cout: int, cin: int, device: torch.device) -> torch.Tensor:
             qin = (ny % 2) * 2 + nx % 2
             idx[:, qin * cin:(qin + 1) * cin, ny // 2 + 1, nx // 2 + 1] = \
                 ((co * cin + ci) * 3 + ky) * 3 + kx
-    return torch.from_numpy(idx).to(device)
+    return _cached_index(idx, cout * cin * 9, device)
 
 
-def _gather(kernel: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``[kernel.flatten(), 0][index]``: a scatter into zeros written as one
-    gather, exact in every dtype."""
-    return torch.cat([kernel.reshape(-1), kernel.new_zeros(1)])[index]
+def _cached_index(idx: np.ndarray, n_sources: int, device: torch.device) -> tuple:
+    """(index, inverse) on ``device``: ``inverse[s]`` lists the flat
+    positions of ``idx`` that hold source element s, which every source
+    fills equally often (4 times in the stride-1 transform, once in the
+    stride-2 one). Built as normal tensors even under
+    ``torch.inference_mode``, so that a later training forward may save them
+    for backward."""
+    flat = idx.reshape(-1)
+    order = np.argsort(flat, kind="stable")[:int((flat < n_sources).sum())]
+    inverse = order.reshape(n_sources, -1)
+    if not (flat[inverse] == np.arange(n_sources)[:, None]).all():
+        raise AssertionError("a source element fills an uneven number of positions")
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device), torch.from_numpy(inverse).to(device)
+
+
+class _Gather(torch.autograd.Function):
+    """``[kernel.flatten(), 0][index]``; its backward gathers each source
+    element's positions through the inverse index and sums them, where the
+    autograd of the indexing would scatter-add, every zero position into one
+    element (slow on the card)."""
+
+    @staticmethod
+    def forward(ctx, kernel, index, inverse):
+        ctx.save_for_backward(inverse)
+        ctx.shape = kernel.shape
+        return torch.cat([kernel.reshape(-1), kernel.new_zeros(1)])[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inverse,) = ctx.saved_tensors
+        return grad.reshape(-1)[inverse].sum(dim=-1).reshape(ctx.shape), None, None
+
+
+def _gather(kernel: torch.Tensor, indices: tuple) -> torch.Tensor:
+    """A scatter into zeros written as one gather, exact in every dtype."""
+    return _Gather.apply(kernel, *indices)
 
 
 def transform_kernel(kernel: torch.Tensor,
@@ -156,7 +189,7 @@ def conv_s2d_to_dense_stride2(x: torch.Tensor, kernel: torch.Tensor,
     last output row and column: one extra row and column of products, and
     no padded copy of the input. The returned NHWC view is not contiguous.
     """
-    kt = transform_kernel_stride2(kernel).to(x.dtype)
+    kt = transform_kernel_stride2(kernel.to(x.dtype))
     y = F.conv2d(_nchw(x), kt, bias.to(x.dtype), padding=1)
     return _nhwc(y)[:, :x.shape[1], :x.shape[2]]
 
@@ -169,9 +202,9 @@ def s2d_bias(bias: torch.Tensor) -> torch.Tensor:
 def conv_s2d(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
              in_segments: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Stride-1 same-padded conv over an s2d tensor, exact against the dense
-    conv. ``kernel`` is the canonical (Cout, Cin, k, k) kernel, transformed
-    here; ``bias`` None adds none."""
-    kt = transform_kernel(kernel, in_segments).to(x.dtype)
+    conv. ``kernel`` is the canonical (Cout, Cin, k, k) kernel, cast to x's
+    dtype and transformed here; ``bias`` None adds none."""
+    kt = transform_kernel(kernel.to(x.dtype), in_segments)
     b = None if bias is None else s2d_bias(bias).to(x.dtype)
     return _nhwc(F.conv2d(_nchw(x), kt, b, padding=kt.shape[-1] // 2))
 

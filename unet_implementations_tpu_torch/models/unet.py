@@ -18,6 +18,7 @@ from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models.blocks import (
     ConvBlock,
     UpBlock,
+    conv2d,
     kaiming_conv,
     nchw,
     nhwc,
@@ -39,9 +40,12 @@ class UNet(nn.Module):
     """Encoder stages with skips, a bottleneck stage, bilinear decoders with
     skip concat, and a 1x1 segmentation head.
 
-    Convs hold ``dtype`` weights; InstanceNorm affines stay float32. The
-    model is built on the CPU from ``generator`` (a fresh seed-0 generator
-    when None); move it with ``.to(device)``.
+    Every parameter is float32, as in the JAX model; ``dtype`` is the
+    compute dtype, to which each conv casts its weight and bias at the call
+    (the InstanceNorm affines stay float32 in the norm). The model is built
+    on the CPU from ``generator`` (a fresh seed-0 generator when None); move
+    it with ``.to(device)``. In training mode its channel dropout draws from
+    the generator ``forward`` is given.
 
     ``s2d_level0`` runs the full-resolution level (encoder_0, the last
     decoder, the head) in space-to-depth layout, and
@@ -80,24 +84,28 @@ class UNet(nn.Module):
         encoders = []
         for i in range(n):
             encoders.append(ConvBlock(cin, features_per_stage[i], strides[i],
-                                      encoder_dropout_rates[i], dtype, generator))
+                                      encoder_dropout_rates[i], generator))
             cin = features_per_stage[i]
         self.encoder_stages = nn.ModuleList(encoders)
         decoders = []
         for d in range(n - 1):
             feats = features_per_stage[n - 2 - d]
-            decoders.append(UpBlock(cin, feats, feats, decoder_dropout_rates[d], dtype,
-                                    generator))
+            decoders.append(UpBlock(cin, feats, feats, decoder_dropout_rates[d], generator))
             cin = feats
         self.decoder_stages = nn.ModuleList(decoders)
-        self.segmentation_output = kaiming_conv(cin, num_classes, 1, 1, dtype, generator)
+        self.segmentation_output = kaiming_conv(cin, num_classes, 1, 1, generator)
 
     @property
     def n_stages(self) -> int:
         return len(self.features_per_stage)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits.
+
+        ``generator`` (on x's device) drives channel dropout in training
+        mode; a training forward through a block with a dropout rate above
+        0 raises without one."""
         n = self.n_stages
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         # The JAX model's rules: the s2d level needs even sizes and a
@@ -111,11 +119,11 @@ class UNet(nn.Module):
             s2d_stage = use_s2d and i == 0
             if s2d_stage:
                 x = nchw(space_to_depth(nhwc(x)))
-            x = stage(x, s2d=s2d_stage, s2d_input_first=feed_s2d and i == 1)
+            x = stage(x, s2d=s2d_stage, s2d_input_first=feed_s2d and i == 1, generator=generator)
             skips.append(x)  # skip 0 stays s2d for the last decoder
             if s2d_stage and not feed_s2d:
                 x = nchw(depth_to_space(nhwc(x)))
-        x = self.encoder_stages[-1](x)
+        x = self.encoder_stages[-1](x, generator=generator)
         for d, decoder in enumerate(self.decoder_stages):
             skip_idx = n - 2 - d
             skip = skips[skip_idx]
@@ -128,14 +136,14 @@ class UNet(nn.Module):
                         and skip.shape[2] % 2 == 0 and skip.shape[3] % 2 == 0)
             if s2d_wrap:
                 skip = nchw(space_to_depth(nhwc(skip)))
-            x = decoder(x, skip, s2d=s2d_stage or s2d_wrap)
+            x = decoder(x, skip, s2d=s2d_stage or s2d_wrap, generator=generator)
             if s2d_wrap:
                 x = nchw(depth_to_space(nhwc(x)))
         head = self.segmentation_output
         if use_s2d:
             out = depth_to_space(conv_s2d(nhwc(x), head.weight, head.bias))
         else:
-            out = nhwc(head(x))
+            out = nhwc(conv2d(x, head))
         return out.to(torch.float32)
 
 

@@ -1,1 +1,2 @@
-"""Plain tensor operations of the port: normalization and resizing."""
+"""Plain tensor operations of the port: normalization, resizing, the
+segmentation losses and the metrics."""

@@ -1,12 +1,20 @@
-"""Where the device time of a forward goes, by kernel, from ``torch.profiler``.
+"""Where the device time of a forward and of a train step goes, by kernel,
+from ``torch.profiler``.
 
     python -m unet_implementations_tpu_torch.utils.profiling
 
 Profiles a few forwards of ``unet_6stage`` at b128 512² bf16 on the card
 (random weights from a seed) after a warm-up, in the dense layout and then
 in the space-to-depth one, and prints for each the device time of each
-kernel, the time by kind (convolution, the port's kernels, concat, other),
-and the device's busy share of the profiled window. Needs a CUDA card.
+kernel, the time by kind (convolution, the port's kernels, concat,
+reductions, the optimizer, other), and the device's busy share
+of the profiled window. Then the same for a few b32 train steps per layout
+(SGD-Nesterov, seeded synthetic uint8 batches on the card), with the step
+split into forward + loss, backward and optimizer by CUDA events. Needs a
+CUDA card.
+
+The backward of K1 and K2 is plain torch (as JAX's is XLA), so in a train
+step it shows among the reductions and "other" (elementwise) kinds.
 
 K3 runs K1's statistics, finalize and apply kernels for its two norms, so in
 the s2d layout those count under K1's kinds; only K3's conv kernel is a kind
@@ -20,10 +28,16 @@ from collections import defaultdict
 
 import torch
 
+from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
 from unet_implementations_tpu_torch.models.unet import S2D_LAYOUT, unet_6stage
+from unet_implementations_tpu_torch.ops.losses import segmentation_loss
+from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.training.steps import make_segmentation_train_step
+from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
 
-# The measured serving configuration.
+# The measured serving configuration, and the train step's batch.
 BATCH = 128
+TRAIN_BATCH = 32
 DTYPE = torch.bfloat16
 
 LAYOUTS = {"dense": {}, "s2d": S2D_LAYOUT}
@@ -38,9 +52,12 @@ KINDS = (
     ("K2b upsample into s2d", (("upsample2x_kernel", "true>"),)),
     ("K2a upsample", (("upsample2x_kernel",),)),
     ("K3 s2d tail conv", (("s2d_conv_kernel",),)),
+    ("K4 winograd s2d conv", (("winograd_s2d_kernel",),)),
     ("convolution", tuple((k,) for k in ("conv", "cudnn", "xmma", "gemm", "implicit",
                                          "cutlass", "wgrad", "dgrad"))),
     ("concat", (("CatArray",), ("cat_",))),
+    ("optimizer (SGD)", (("multi_tensor_apply",),)),
+    ("reductions", (("reduce_kernel",),)),
 )
 
 
@@ -51,24 +68,7 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def profile_forward(batch: int, dtype: torch.dtype, layout: str = "dense", iters: int = 3,
-                    seed: int = 0) -> dict:
-    model = unet_6stage(dtype=dtype, device="cuda", generator=torch.Generator().manual_seed(seed),
-                        **LAYOUTS[layout])
-    model.eval()
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((batch, 512, 512, 3), generator=g, device="cuda").to(dtype)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        for _ in range(2):
-            model(x)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+def _by_kernel(prof, iters: int) -> dict:
     per_kernel = defaultdict(float)
     for evt in prof.key_averages():
         device_us = getattr(evt, "self_device_time_total", None)
@@ -76,31 +76,96 @@ def profile_forward(batch: int, dtype: torch.dtype, layout: str = "dense", iters
             device_us = getattr(evt, "self_cuda_time_total", 0.0)
         if device_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[evt.key] += device_us / 1e3 / iters
+    return dict(per_kernel)
+
+
+def _summary(per_kernel: dict, wall_ms: float, **meta) -> dict:
     by_kind = defaultdict(float)
     for name, ms in per_kernel.items():
         by_kind[kind_of(name)] += ms
     busy = sum(per_kernel.values())
-    return {"batch": batch, "dtype": str(dtype), "layout": layout, "wall_ms_per_forward": wall_ms / iters,
-            "device_ms_per_forward": busy, "busy_share": busy / (wall_ms / iters),
-            "by_kind": dict(by_kind), "per_kernel": dict(per_kernel)}
+    return {**meta, "wall_ms": wall_ms, "device_ms": busy, "busy_share": busy / wall_ms,
+            "by_kind": dict(by_kind), "per_kernel": per_kernel}
+
+
+def _profile(fn, iters: int) -> tuple:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    return _by_kernel(prof, iters), wall_ms
+
+
+def profile_forward(batch: int, dtype: torch.dtype, layout: str = "dense", iters: int = 3,
+                    seed: int = 0) -> dict:
+    model = unet_6stage(dtype=dtype, device="cuda", generator=torch.Generator().manual_seed(seed),
+                        **LAYOUTS[layout])
+    model.eval()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, 512, 512, 3), generator=g, device="cuda").to(dtype)
+    with torch.inference_mode():
+        per_kernel, wall_ms = _profile(lambda: model(x), iters)
+    return _summary(per_kernel, wall_ms, what="forward", batch=batch, dtype=str(dtype),
+                    layout=layout)
+
+
+def profile_train_step(batch: int, dtype: torch.dtype, layout: str = "dense", iters: int = 3,
+                       seed: int = 0) -> dict:
+    """A few train steps (after two warm-up steps) under the profiler, and one
+    more split into its phases by CUDA events: forward + loss, backward,
+    optimizer step."""
+    model = unet_6stage(dtype=dtype, device="cuda", generator=torch.Generator().manual_seed(seed),
+                        **LAYOUTS[layout])
+    optimizer = sgd_nesterov(model.parameters())
+    step = make_segmentation_train_step(model, optimizer)
+    data = {k: torch.from_numpy(v).to("cuda")
+            for k, v in as_uint8(synthetic_batch(seed, batch, 512)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    per_kernel, wall_ms = _profile(lambda: step(data, gen), iters)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    events[0].record()
+    loss = segmentation_loss(model(normalize_image(data["image"]), generator=gen), data["mask"])
+    events[1].record()
+    loss.backward()
+    events[2].record()
+    optimizer.step()
+    events[3].record()
+    torch.cuda.synchronize()
+    phases = {name: events[i].elapsed_time(events[i + 1])
+              for i, name in enumerate(("forward + loss", "backward", "optimizer"))}
+    return {**_summary(per_kernel, wall_ms, what="train step", batch=batch, dtype=str(dtype),
+                       layout=layout), "phases_ms": phases}
+
+
+def _print(r: dict) -> None:
+    print(f"device {torch.cuda.get_device_name(0)}; {r['layout']} {r['what']} b{r['batch']} 512² "
+          f"{r['dtype']}: {r['wall_ms']:.3f} ms (host clock, profiler on), device busy "
+          f"{r['device_ms']:.3f} ms = {r['busy_share']:.1%}")
+    for name, ms in r.get("phases_ms", {}).items():
+        print(f"  phase {name:<24} {ms:9.3f} ms (CUDA events, profiler off)")
+    for kind, ms in sorted(r["by_kind"].items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:<30} {ms:9.3f} ms  {ms / r['device_ms']:6.1%}")
+    print(f"top kernels (ms per {r['what']}):")
+    for name, ms in sorted(r["per_kernel"].items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms:9.3f}  {name[:110]}")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
-    for layout in LAYOUTS:
-        r = profile_forward(BATCH, DTYPE, layout)
-        print(f"device {torch.cuda.get_device_name(0)}; {layout} b{r['batch']} 512² "
-              f"{r['dtype']}: {r['wall_ms_per_forward']:.3f} ms per forward (host clock, "
-              f"profiler on), device busy {r['device_ms_per_forward']:.3f} ms = "
-              f"{r['busy_share']:.1%}")
-        for kind, ms in sorted(r["by_kind"].items(), key=lambda kv: -kv[1]):
-            print(f"  {kind:<30} {ms:9.3f} ms  {ms / r['device_ms_per_forward']:6.1%}")
-        print("top kernels (ms per forward):")
-        for name, ms in sorted(r["per_kernel"].items(), key=lambda kv: -kv[1])[:15]:
-            print(f"  {ms:9.3f}  {name[:110]}")
-        del r
-        torch.cuda.empty_cache()
+    for profile, batch in ((profile_forward, BATCH), (profile_train_step, TRAIN_BATCH)):
+        for layout in LAYOUTS:
+            _print(profile(batch, DTYPE, layout))
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
