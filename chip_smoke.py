@@ -38,8 +38,11 @@ Phases (any failure makes the script exit non-zero without a result line):
    conv_0), in both U layouts: forward and, through autograd, dx, dW and db
    against the plain version and the direct conv in float32 (TF32 off), and
    in bf16 against the float32 direct conv; one launch per forward and one
-   more per backward; times of the forward and of dx against the bound and
-   cuDNN's ``F.conv2d`` of the same shape.
+   more per backward; times of the forward and of dx (the kernel alone, on
+   U packed beforehand) against the bound and cuDNN's ``F.conv2d`` of the
+   same shape. The bf16 kernel's nvcc report (registers, shared memory,
+   spills) is printed; it must spill nothing, and with the unfolded U every
+   bf16 call, forward and dx, must be faster than its plain version.
 7. The train step of each layout: ``unet_6stage`` at full width, 512², bf16
    compute with float32 parameters, from the reference ``.pth`` of phase 3,
    SGD-Nesterov at the JAX defaults, seeded synthetic uint8 batches. Launch
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -189,6 +193,12 @@ K3_BF16_OUTLIER_SHARE = 1e-4
 # version (as JAX) rounds after each add, so both are held to the float32
 # direct conv: the kernel's rel-L2 within E2E_BF16_SLACK of the plain one's.
 K4_F32_TOL = 1e-4
+# And in bf16 the kernel's rel-L2 to the float32 direct conv, y and dx, at
+# most this: a transform in float32 rounded once reads 4.28e-3 to 4.32e-3 at
+# these shapes (PERF.md), the plain version about 5e-3.
+K4_BF16_REL_L2 = 4.8e-3
+# The bf16 kernel, as its mangled name shows in nvcc's report.
+K4_BF16_KERNEL = "winograd_s2d_wgmma_kernel"
 # The train step at b8 in float32 (TF32 off, deterministic cuDNN). The loss
 # with the kernels against the plain versions: TRAIN_F32_LOSS_REL. Gradients
 # are compared per group: each parameter alone, except that a conv followed
@@ -953,10 +963,12 @@ def check_k4(conv: str, side: int, cin: int, cout: int, kernel: str, dtype, seed
     else:
         errs = {"y": (rel_l2(y, y_r), rel_l2(y_p, y_r)), "dx": (rel_l2(xk.grad, xr.grad),
                                                              rel_l2(dx_p, xr.grad))}
-        ok = all(k_ <= p_ * (1 + E2E_BF16_SLACK) for k_, p_ in errs.values())
+        ok = all(k_ <= p_ * (1 + E2E_BF16_SLACK) and k_ <= K4_BF16_REL_L2
+                 for k_, p_ in errs.values())
         detail = ", ".join(f"{k} rel-L2 to f32 direct kernel/plain {a:.4e}/{p_:.4e}"
                            for k, (a, p_) in errs.items())
-        detail += (f" (slack {E2E_BF16_SLACK:g}); dW, db rel-L2 to f32 direct "
+        detail += (f" (slack {E2E_BF16_SLACK:g}, at most {K4_BF16_REL_L2:g}); dW, db rel-L2 "
+                   "to f32 direct "
                    f"{rel_l2(wk.grad, wr.grad):.4e}, {rel_l2(bk.grad, br.grad):.4e}")
     if not ok:
         raise AssertionError(f"{label} disagrees: {detail}")
@@ -976,17 +988,40 @@ def k4_bound_ms(n_tiles: int, cin: int, cout: int, kernel: str) -> tuple[float, 
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def ptxas_report(kernel: str) -> list[str]:
+    """nvcc's ``-Xptxas -v`` lines for every instantiation of ``kernel`` in
+    the build this process made ([] when it loaded a cached library)."""
+    lines, keep = [], False
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("ptxas info" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
 @phase(f"6. K4 winograd_conv_s2d: kernel against plain version and direct conv (b{K4_BATCH})")
 def phase_k4():
+    report_lines = ptxas_report(K4_BF16_KERNEL)
+    for line in report_lines:
+        log(f"   {line}")
+    if not report_lines:
+        log(f"   no nvcc report for {K4_BF16_KERNEL}: the library was loaded from an earlier build")
+    spills = [line for line in report_lines
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
+    if spills:
+        raise AssertionError(f"{K4_BF16_KERNEL} spills registers: {spills}")
     with deterministic():
         for i, (conv, side, cin, cout) in enumerate(K4_CONVS):
             for kernel in K4_MODES:
                 for dt in (torch.float32, torch.bfloat16):
                     log(check_k4(conv, side, cin, cout, kernel, dt, seed=SEED + 10 * i))
                     torch.cuda.empty_cache()
-    # Times of the kernel launch (U precomputed), its plain version and
-    # cuDNN's F.conv2d + bias of the same shape (bf16, channels_last), for
-    # the forward and for dx (the kernel on the cotangent, Cout -> Cin).
+    # Times of the kernel launch (U transformed and packed beforehand), its
+    # plain version (on the unpacked U) and cuDNN's F.conv2d + bias of the
+    # same shape (bf16, channels_last), for the forward and for dx (the
+    # kernel on the cotangent, Cout -> Cin).
+    slower = []
     for kernel in K4_MODES:
         row = [0.0, 0.0, 0.0, 0.0]
         for i, (conv, side, cin, cout) in enumerate(K4_CONVS):
@@ -998,18 +1033,23 @@ def phase_k4():
                 xs = x if what == "forward" else k4_inputs(side, ci, co, torch.bfloat16,
                                                            seed=SEED + 10 * i + 1)[0]
                 u = k4_u(wt, kernel, torch.bfloat16)
+                packed = k4.pack_weights(u)
                 bias = b if what == "forward" else torch.zeros(co, device="cuda")
                 nbytes = xs.numel() * xs.element_size()
-                inputs = [(xs, u, bias)] + [(torch.randn_like(xs, dtype=torch.float32).to(
-                    torch.bfloat16), u, bias) for _ in range(1, n_copies(nbytes))]
+                inputs = [(xs, u, packed, bias)] + [(torch.randn_like(
+                    xs, dtype=torch.float32).to(torch.bfloat16), u, packed, bias)
+                    for _ in range(1, n_copies(nbytes))]
                 bound = k4_bound_ms(n_tiles, ci, co, kernel)
                 wd = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
                 bd = bias.to(torch.bfloat16)
                 dense = [dense_nchw(a[0]).contiguous(memory_format=torch.channels_last)
                          for a in inputs]
                 t = time_kernel(f"{kernel} {what} {conv} {tuple(xs.shape)} {ci}->{co}",
-                                lambda a: k4._cuda_winograd_s2d(*a),
-                                lambda a: k4._torch_winograd_s2d(*a), inputs, bound)
+                                lambda a: k4._cuda_winograd_s2d(a[0], a[2], a[3]),
+                                lambda a: k4._torch_winograd_s2d(a[0], a[1], a[3]), inputs,
+                                bound)
+                if not K4_MODES[kernel] and t[0] >= t[1]:
+                    slower.append(f"{what} {conv}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms")
                 tl = cuda_times(lambda d: F.conv2d(d, wd, bd, padding=1), dense, iters=10)
                 log(f"   cuDNN F.conv2d + bias {tuple(dense[0].shape)} {ci}->{co} bf16 "
                     f"channels_last: {spread(tl)}")
@@ -1023,6 +1063,8 @@ def phase_k4():
         report["rows"][kernel] = row
         log(f"{kernel} per b{K4_BATCH} set of the four convs' forwards: kernel {row[0]:.3f} ms, "
             f"plain {row[1]:.3f} ms, bound {row[2]:.3f} ms, cuDNN {row[3]:.3f} ms")
+    if slower:
+        raise AssertionError(f"K4 bf16 calls not faster than the plain version: {slower}")
 
 
 def grad_groups(model) -> dict:

@@ -200,9 +200,9 @@ def test_upsample_grad_bitwise(fn):
     assert torch.equal(grads[0], grads[1])
 
 
-def _wino_case(n, s, cin, cout, dtype, seed=0):
+def _wino_case(n, height, width, cin, cout, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((n, s // 2, s // 2, 4 * cin), generator=g, device="cuda").to(dtype)
+    x = torch.randn((n, height // 2, width // 2, 4 * cin), generator=g, device="cuda").to(dtype)
     w = torch.randn((cout, cin, 3, 3), generator=g, device="cuda") * (2 / (9 * cin)) ** 0.5
     b = torch.randn(cout, generator=g, device="cuda")
     return x, w, b
@@ -215,7 +215,13 @@ def _direct_s2d(x, w, b):
 
 @pytest.mark.parametrize("folded", [False, True], ids=["unfolded", "folded"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 16, 128, 128), (1, 32, 256, 128), (1, 16, 128, 384)])
+# Dense (N, H, W, Cin) and Cout. (1, 20, 28): 140 tiles, not a multiple of
+# the bf16 kernel's 64; Cin 1024 -> 512 and 512 -> 1024 are decoder_0's
+# forward and dx; Cin 256 is 16 chunks of 16 channels, eight turns of its
+# 2-stage ring (Cin 128 four).
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 32, 32, 256, 128),
+                                   (1, 16, 16, 128, 384), (1, 20, 28, 128, 128),
+                                   (1, 16, 16, 1024, 512), (1, 16, 16, 512, 1024)])
 def test_winograd(shape, dtype, folded, monkeypatch):
     _need_cuda()
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -243,7 +249,7 @@ def test_winograd(shape, dtype, folded, monkeypatch):
 def test_winograd_grads(monkeypatch):
     _need_cuda()
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    x, w, b = _wino_case(2, 16, 128, 256, torch.float32, seed=1)
+    x, w, b = _wino_case(2, 16, 16, 128, 256, torch.float32, seed=1)
     args = [t.clone().requires_grad_() for t in (x, w, b)]
     ref_args = [t.clone().requires_grad_() for t in (x, w, b)]
     before = winograd.winograd_conv_s2d.launches

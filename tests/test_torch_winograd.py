@@ -59,6 +59,49 @@ class TestWeightTransforms:
                                    rtol=1e-6, atol=1e-6)
 
 
+class TestPacking:
+    """``pack_weights``: the U the bf16 kernel copies, one contiguous run per
+    (column block of N = 128 output channels, 64 folded; chunk of 16 input
+    channels), each in wgmma's no-swizzle core-matrix order."""
+
+    @staticmethod
+    def _u(folded, cin, cout):
+        w = _oihw(_case(8, 1, 8, cin, cout)[1])
+        return (wino.transform_weights_folded if folded else wino.transform_weights)(w)
+
+    @pytest.mark.parametrize("cout", [128, 1024])
+    @pytest.mark.parametrize("cin", [128, 1024])
+    @pytest.mark.parametrize("folded", [False, True], ids=["unfolded", "folded"])
+    def test_unpacks_to_the_transform(self, folded, cin, cout):
+        u = self._u(folded, cin, cout)
+        packed = wino.pack_weights(u)
+        mats, n = (24, 64) if folded else (16, 128)
+        assert packed.shape == (cout // n, cin // 16, mats, 2, n // 8, 8, 8)
+        assert packed.is_contiguous() and packed.dtype == u.dtype
+        # The inverse of the packing's permutation restores U exactly.
+        unpacked = packed.permute(2, 1, 3, 6, 0, 4, 5).reshape(u.shape)
+        assert torch.equal(unpacked, u)
+
+        # Run (cb, ch) sits where the kernel reads it: at (cb·Cin/16 + ch) ·
+        # mats·16·N elements; inside it, matrix m at m·16·N, then the core
+        # matrices of 8 input by 8 output channels, 8·N elements apart in K
+        # and 64 apart in N, each row of 8 input channels contiguous.
+        flat = packed.reshape(-1)
+        mat = u.reshape(mats, cin, cout)  # matrix m = 3·(2b+r) + idx folded
+        nchunks, run = cin // 16, mats * 16 * n
+        m, k, c = torch.meshgrid(torch.arange(mats), torch.arange(16), torch.arange(n),
+                                 indexing="ij")
+        within = m * 16 * n + (k // 8) * 8 * n + (c // 8) * 64 + (c % 8) * 8 + k % 8
+        for cb, ch in {(0, 0), (0, nchunks - 1), (cout // n - 1, 1),
+                       (cout // n - 1, nchunks - 1)}:
+            got = flat[(cb * nchunks + ch) * run + within]
+            assert torch.equal(got, mat[m, 16 * ch + k, n * cb + c])
+
+    def test_refuses_shapes_the_kernel_does_not_take(self):
+        with pytest.raises(ValueError, match="multiple"):
+            wino.pack_weights(torch.zeros(16, 128, 96))
+
+
 class TestPlainVersion:
     """``_torch_winograd_s2d`` at the dense (1, 16, 16, 128) case of
     ``tests/test_winograd.py``, against ``winograd_conv_s2d(interpret=True)``
@@ -166,5 +209,7 @@ class TestEligibility:
 def test_profiling_kind():
     from unet_implementations_tpu_torch.utils.profiling import kind_of
 
-    name = "void unet::(anonymous namespace)::winograd_s2d_kernel<__nv_bfloat16, false>(x)"
-    assert kind_of(name) == "K4 winograd s2d conv"
+    for name in ("void unet::(anonymous namespace)::wg::winograd_s2d_wgmma_kernel<false>(x)",
+                 "void unet::(anonymous namespace)::wg::winograd_s2d_wgmma_kernel<true>(x)",
+                 "void unet::(anonymous namespace)::f32::winograd_s2d_f32_kernel<false>(x)"):
+        assert kind_of(name) == "K4 winograd s2d conv"

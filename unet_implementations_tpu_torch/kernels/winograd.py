@@ -32,6 +32,11 @@ refuses). The kernel computes the input transform in float32 and rounds it
 once to the dtype, where JAX rounds after each add in bf16; in float32 the
 two agree to the order of the sums.
 
+In bf16 the kernel is a warp-specialised wgmma loop that copies each chunk
+of U into shared memory with one bulk copy: ``pack_weights`` lays U out for
+it, once per call, beside the weight transform. The float32 kernel reads U
+as it is.
+
 Bound: the larger of the bytes (one read of x, one write of y) and the 16
 products' operations at the bf16 tensor-core rate; see the source.
 """
@@ -53,6 +58,11 @@ _G = np.array([[1.0, 0.0, 0.0], [0.5, 0.5, 0.5], [0.5, -0.5, 0.5], [0.0, 0.0, 1.
 # Fold the Aᵀ rows into the products' K dimension (8 products, K = 3·Cin).
 # Off, as in the JAX package (winograd.py:362).
 _FOLDED = False
+
+# The bf16 kernel's blocks: 128 output channels (64 with the folded U) by
+# chunks of 16 input channels (wgmma's K).
+_COLS = {False: 128, True: 64}
+_CHUNK = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -76,6 +86,29 @@ def transform_weights_folded(kernel: torch.Tensor) -> torch.Tensor:
         rows.append(torch.cat([u[0, b], u[1, b], u[2, b]], dim=0))
         rows.append(torch.cat([u[1, b], -u[2, b], -u[3, b]], dim=0))
     return torch.stack(rows)  # [2b + r]
+
+
+def pack_weights(u: torch.Tensor) -> torch.Tensor:
+    """U (16, Cin, Cout), or folded (8, 3·Cin, Cout), in the order the bf16
+    kernel copies it: (Cout/N, Cin/16, mats, 2, N/8, 8, 8), N = 128 (folded
+    64) output channels a block.
+
+    U is taken as ``mats`` (Cin, Cout) matrices (folded: matrix 3·(2b+r) +
+    idx is rows idx·Cin .. of UF[2b+r]), so 16 or 24 of them. Element [cb,
+    ch, m, k8, n8, nr, kr] is matrix m at input channel 16·ch + 8·k8 + kr and
+    output channel N·cb + 8·n8 + nr: each (column block cb, chunk ch) is one
+    contiguous run, at offset (cb·Cin/16 + ch)·mats·16·N, of wgmma's
+    no-swizzle core matrices (8 output channels × 8 input channels, K-major).
+    """
+    folded = u.shape[0] == 8
+    mats = 24 if folded else 16
+    cin, cout = u.shape[1] // (3 if folded else 1), u.shape[2]
+    kc, n = _CHUNK, _COLS[folded]
+    if cin % kc or cout % n:
+        raise ValueError(f"pack_weights needs Cin a multiple of {kc} and Cout of {n}, "
+                         f"got {cin} and {cout}")
+    p = u.reshape(mats, cin // kc, kc // 8, 8, cout // n, n // 8, 8)
+    return p.permute(4, 1, 0, 2, 5, 6, 3).contiguous()
 
 
 def eligible(dense_shape, kernel_shape, stride: int) -> bool:
@@ -156,12 +189,21 @@ def _torch_winograd_s2d(x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor) ->
 
 
 def _cuda_winograd_s2d(x: torch.Tensor, u: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The kernel on U as it reads it: bf16 ``pack_weights(U)``, float32 U."""
     n, gh, gw, c4 = x.shape
-    cin, cout = c4 // 4, u.shape[-1]
-    folded = u.shape[0] == 8
+    cin = c4 // 4
     if x.dtype not in _build.DTYPE_CODES or u.dtype != x.dtype:
         raise TypeError(f"winograd_conv_s2d takes float32 or bfloat16 x and U of its dtype, "
                         f"got {x.dtype} and {u.dtype}")
+    if x.dtype == torch.bfloat16:
+        folded = u.ndim == 7 and u.shape[2] == 24
+        if u.ndim != 7 or u.shape[1] * _CHUNK != cin:
+            raise ValueError(f"the bf16 kernel takes U from pack_weights for Cin {cin}, "
+                             f"got {tuple(u.shape)}")
+        cout = u.shape[0] * _COLS[folded]
+    else:
+        folded = u.shape[0] == 8
+        cout = u.shape[-1]
     x, u = x.contiguous(), u.contiguous()
     bias = bias.to(torch.float32).contiguous()
     y = torch.empty((n, gh, gw, 4 * cout), dtype=x.dtype, device=x.device)
@@ -192,7 +234,7 @@ def _forward_s2d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> t
     if not eligible((n, 2 * gh, 2 * gw, c4 // 4), tuple(kernel.shape), 1):
         raise ValueError(f"winograd_conv_s2d: the dense shape {(n, 2 * gh, 2 * gw, c4 // 4)} "
                          f"with a {tuple(kernel.shape)} kernel is not eligible")
-    return _cuda_winograd_s2d(x, u, bias)
+    return _cuda_winograd_s2d(x, pack_weights(u) if x.dtype == torch.bfloat16 else u, bias)
 
 
 class _WinogradConvS2d(torch.autograd.Function):

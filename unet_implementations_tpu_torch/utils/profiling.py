@@ -52,7 +52,7 @@ KINDS = (
     ("K2b upsample into s2d", (("upsample2x_kernel", "true>"),)),
     ("K2a upsample", (("upsample2x_kernel",),)),
     ("K3 s2d tail conv", (("s2d_conv_kernel",),)),
-    ("K4 winograd s2d conv", (("winograd_s2d_kernel",),)),
+    ("K4 winograd s2d conv", (("winograd_s2d_",),)),
     ("convolution", tuple((k,) for k in ("conv", "cudnn", "xmma", "gemm", "implicit",
                                          "cutlass", "wgrad", "dgrad"))),
     ("concat", (("CatArray",), ("cat_",))),
