@@ -6,16 +6,18 @@ paths on one card.
 
 Two layouts of the model are served and trained: dense, and the JAX model's
 space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
-0 and decoder_3 in s2d). Six kernels: K1 (InstanceNorm+LeakyReLU), K2a (2x
-upsample, dense), K2b (2x upsample into s2d), K3 (the fused s2d block tail)
-and K4/K4f (the Winograd s2d conv, with the unfolded and the folded U).
+0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
+K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
+K3 (the fused s2d block tail) and K4/K4f (the Winograd s2d conv, with the
+unfolded and the folded U).
 
 Phases (any failure makes the script exit non-zero without a result line):
 
 1. Card and build: the card's name and power limit, then nvcc's register,
    shared-memory and spill report for every kernel.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the 512² forward of a batch of 8 gives it.
+   the 512² forward of a batch of 8 gives it; K1bwd at the shapes the b8
+   train step gives it, in both layouts.
 3. The slice, in each layout: ``unet_6stage`` in bf16 from a seeded
    generator, saved as a reference-schema ``.pth``, reloaded through
    ``load_reference_checkpoint``, and three batches of 8 images answered by
@@ -31,8 +33,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    version and the single PyTorch call that computes the same function
    (where there is one), at the b128 main-path shapes, beside the kernel's
    bound. Each kernel output timed there is first held to its plain
-   version. Also cuDNN's time for the dense-equivalent of K3's conv, as
-   context.
+   version. K1's forward is also timed pass by pass (statistics, apply), and
+   K1bwd at the 22 shapes of a b32 dense train step. Also cuDNN's time for
+   the dense-equivalent of K3's conv, as context.
 6. K4 through its differentiable entry point ``winograd_conv_s2d``, at b32
    on the eligible convs of ``unet_6stage`` (encoder_2..4 conv_1, decoder_0
    conv_0), in both U layouts: forward and, through autograd, dx, dW and db
@@ -46,8 +49,9 @@ Phases (any failure makes the script exit non-zero without a result line):
 7. The train step of each layout: ``unet_6stage`` at full width, 512², bf16
    compute with float32 parameters, from the reference ``.pth`` of phase 3,
    SGD-Nesterov at the JAX defaults, seeded synthetic uint8 batches. Launch
-   counts per step (K1/K2a/K2b/K3: 22/5/0/0 dense, 22/3/2/0 s2d, where
-   training takes no fused tail; 0 with the plain versions); at b8 one step
+   counts per step (K1/K2a/K2b/K3/K1bwd: 22/5/0/0/22 dense, 22/3/2/0/22 s2d,
+   where training takes no fused tail; 0 with the plain versions), and the
+   layouts of the cotangents K1bwd receives in one step; at b8 one step
    with the kernels against one with the plain versions (float32 and bf16,
    the same weights and dropout seed), and in float32 against one whose K1
    outputs are the kernel's values with the plain version's gradient; 10
@@ -125,15 +129,20 @@ K2_INPUTS = [(16, 512), (32, 512), (64, 256), (128, 128), (256, 64)]
 K2B_INPUTS = [(128, 128), (256, 64)]
 K3_CALLS = [("encoder_0", 256, 32), ("decoder_3", 128, 64), ("decoder_4", 256, 32)]
 LAYOUTS = {"dense": {}, "s2d": S2D_LAYOUT}
-KERNELS = ("K1", "K2a", "K2b", "K3", "K4", "K4f")
+KERNELS = ("K1", "K1bwd", "K2a", "K2b", "K3", "K4", "K4f")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # Kernel launches of one forward with the kernels, and with the plain versions.
 PER_FORWARD = {"dense": {**NO_LAUNCHES, "K1": sum(K1_CALLS), "K2a": len(K2_INPUTS)},
                "s2d": {**NO_LAUNCHES, "K1": sum(K1_CALLS) - 2 * len(K3_CALLS),
                        "K2a": len(K2_INPUTS) - 2, "K2b": len(K2B_INPUTS), "K3": len(K3_CALLS)}}
-# A train step takes no fused tail: every s2d block runs its module path.
-PER_STEP = {"dense": PER_FORWARD["dense"],
-            "s2d": {**PER_FORWARD["s2d"], "K1": sum(K1_CALLS), "K3": 0}}
+# A train step takes no fused tail: every s2d block runs its module path, and
+# each of its 22 norms runs K1's backward.
+PER_STEP = {"dense": {**PER_FORWARD["dense"], "K1bwd": sum(K1_CALLS)},
+            "s2d": {**PER_FORWARD["s2d"], "K1": sum(K1_CALLS), "K3": 0,
+                    "K1bwd": sum(K1_CALLS)}}
+# The s2d norms of a train step (side, channels 4C, group 4): level 0's and
+# decoder_3's.
+K1_S2D_NORMS = [(IMG // 2, 4 * DEFAULT_FEATURES[0]), (IMG // 4, 4 * DEFAULT_FEATURES[1])]
 # K4 (phase 6): the eligible 3x3 convs of unet_6stage at b32, (conv, dense
 # side, Cin, Cout); Cin and Cout multiples of 128.
 K4_BATCH = 32
@@ -156,6 +165,12 @@ SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
 # matters only near zero, where an ulp is tiny).
 K1_F32_TOL = 1e-4
 K1_BF16_ULPS = 1.0
+# K1bwd against the plain backward on the same inputs and statistics: dx,
+# dscale and dbias within K1_F32_TOL of their largest magnitude in float32
+# (sum orders, and the kernel's factored sums: it adds dpre and multiplies by
+# scale once per channel, where the plain version adds dpre·scale rounded per
+# element); in bf16, dx within K1_BF16_ULPS plus K1_F32_TOL (the float32
+# difference may tip the rounding), dscale and dbias (float32) as in float32.
 # Forward bounds (phases 3-5). The forward in float32 (TF32 off,
 # deterministic cuDNN) differs between kernels and plain versions only by
 # K1's sum order, so its logits agree to E2E_F32_REL_L2 and its argmax to
@@ -218,8 +233,8 @@ K4_BF16_KERNEL = "winograd_s2d_wgmma_kernel"
 # step whose K1 outputs and statistics are the kernel's values,
 # differentiated as the plain version (autograd through its ops): the same
 # forward and the same slopes, so the two differ only by the backward's
-# arithmetic (K1's formula against autograd of the plain ops, K2's transpose
-# against autograd of the plain lerps).
+# arithmetic (K1's backward kernel against autograd of the plain ops, K2's
+# transpose against autograd of the plain lerps).
 #
 # In bf16 the step with the kernels must be no further from the float32
 # plain step than the bf16 plain step is, within E2E_BF16_SLACK.
@@ -269,6 +284,7 @@ WRAPPERS = {"K1": k1.fused_instance_norm, "K2a": k2.upsample2x_nhwc_fast,
 
 def launches() -> dict:
     counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts["K1bwd"] = k1.fused_instance_norm.backward_launches
     counts["K4"] = k4.winograd_conv_s2d.launches
     counts["K4f"] = k4.winograd_conv_s2d.launches_folded
     return counts
@@ -277,6 +293,7 @@ def launches() -> dict:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    k1.fused_instance_norm.backward_launches = 0
     k4.winograd_conv_s2d.launches = 0
     k4.winograd_conv_s2d.launches_folded = 0
 
@@ -409,6 +426,42 @@ def check_k1(x, scale, bias, group: int = 1) -> str:
 
 def one_launch(kernel: str) -> dict:
     return {**NO_LAUNCHES, kernel: 1}
+
+
+def k1_bwd_inputs(b: int, side: int, c: int, dtype, group: int = 1, seed: int = SEED):
+    """x, scale, bias, the forward's mean and rstd (from the kernel), and dy."""
+    x, scale, bias = k1_inputs(b, side, c, dtype, group, seed)
+    with torch.no_grad():
+        _, mean, rstd = k1._cuda_forward(x, scale, bias, 1e-5, 0.01, group)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    return x, scale, bias, mean, rstd, dy
+
+
+def check_k1_bwd(args, group: int = 1) -> str:
+    """K1bwd against the plain backward on the same inputs and statistics;
+    fails beyond the tolerances (K1_F32_TOL of the max; K1_BF16_ULPS + K1_F32_TOL
+    for bf16 dx)."""
+    x = args[0]
+    got = counted(lambda: k1._cuda_backward(*args, 0.01, group), one_launch("K1bwd"))
+    want = k1._torch_backward(*args, 0.01, group)
+    errs = {name: rel_of_max(g, w) for name, g, w in zip(("dx", "dscale", "dbias"), got, want)}
+    report["err"]["K1bwd"] = max(report["err"]["K1bwd"],
+                                 float((got[0].float() - want[0].float()).abs().max()))
+    ok = all(errs[k] <= K1_F32_TOL for k in ("dscale", "dbias"))
+    detail = ", ".join(f"{k} {v:.2e} of max" for k, v in errs.items())
+    if x.dtype == torch.float32:
+        ok = ok and errs["dx"] <= K1_F32_TOL
+        detail += f" (tol {K1_F32_TOL:g})"
+    else:
+        ulps = bf16_ulps(got[0], want[0], K1_F32_TOL)
+        ok = ok and ulps <= K1_BF16_ULPS
+        detail += (f"; dx max {bf16_ulps(got[0], want[0]):.0f} bf16 ulp, beyond {K1_F32_TOL:g}: "
+                   f"{ulps:.0f} ulp (tol 1 ulp + {K1_F32_TOL:g}; dscale, dbias {K1_F32_TOL:g})")
+    label = f"K1bwd {tuple(x.shape)} {str(x.dtype)[6:]} group {group}"
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version: {detail}")
+    return f"{label}: {detail} ok"
 
 
 def check_k2(x, s2d: bool = False) -> str:
@@ -581,6 +634,16 @@ def k1_bound_ms(x: torch.Tensor) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def k1_bwd_bound_ms(x: torch.Tensor, group: int = 1) -> tuple[float, str]:
+    """Bytes: x and dy read and dx written once, the float32 statistics,
+    affines and parameter gradients. Operations: xhat and the pre-activation
+    (4), dpre (1), the two sums (3) and dx (5) per element."""
+    n, b, c = x.numel(), x.shape[0], x.shape[-1]
+    by_bytes = bytes_ms(3 * n * x.element_size() + 4 * (2 * b * c + 4 * (c // group)))
+    by_ops = 13 * n / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def k2_bound_ms(x: torch.Tensor) -> tuple[float, str]:
     n = x.numel()
     by_bytes = bytes_ms(5 * n * x.element_size())
@@ -627,6 +690,14 @@ def phase_kernels():
                 log(check_k1(*k1_inputs(b, side, c, dt)))
         # Level 0 in the space-to-depth layout.
         log(check_k1(*k1_inputs(b, IMG // 2, 4 * DEFAULT_FEATURES[0], torch.bfloat16, 4), 4))
+        # K1bwd at the b8 train step's shapes: each dense level, and the s2d norms.
+        for side, c in LEVELS:
+            for dt in (torch.bfloat16, torch.float32):
+                log(check_k1_bwd(k1_bwd_inputs(b, side, c, dt)))
+        for side, c in K1_S2D_NORMS:
+            for dt in (torch.bfloat16, torch.float32):
+                log(check_k1_bwd(k1_bwd_inputs(b, side, c, dt, 4), 4))
+        torch.cuda.empty_cache()
         for side, c in K2_INPUTS:
             log(check_k2(k2_input(b, side, c, seed=side)))
         for side, c in K2B_INPUTS:
@@ -789,10 +860,12 @@ def phase_times():
     # ms, plain, bound, library per forward; and K1's bound split into its
     # statistics pass (one read of x) and its apply pass (a read of x and a
     # write of y). K1 and K2a per dense forward, K2b and K3 per s2d forward.
-    rows = {"K1": [0.0, 0.0, 0.0, None], "K2a": [0.0, 0.0, 0.0, 0.0],
-            "K2b": [0.0, 0.0, 0.0, None], "K3": [0.0, 0.0, 0.0, None]}
+    rows = {"K1": [0.0, 0.0, 0.0, None], "K1bwd": [0.0, 0.0, 0.0, None],
+            "K2a": [0.0, 0.0, 0.0, 0.0], "K2b": [0.0, 0.0, 0.0, None],
+            "K3": [0.0, 0.0, 0.0, None]}
     bound_by = {}
     k1_split = [0.0, 0.0]
+    k1_passes = [0.0, 0.0]  # statistics, apply: ms per forward
     with torch.inference_mode():
         for level, ((side, c), calls) in enumerate(zip(LEVELS, K1_CALLS)):
             inputs = [k1_inputs(batch, side, c, torch.bfloat16)]
@@ -810,7 +883,24 @@ def phase_times():
             bound_by["K1"] = bound[1]
             k1_split[0] += calls * bytes_ms(nbytes)
             k1_split[1] += calls * bytes_ms(2 * nbytes)
-            del inputs, x
+            # Each pass alone, on buffers made once (the apply pass reads the
+            # mean and rstd the statistics pass left).
+            buffers = k1.forward_buffers(x)
+
+            def one_pass(passes, buffers=buffers):
+                return lambda inp: k1.launch_forward(inp[0], inp[1], inp[2], buffers, 1e-5, 0.01,
+                                                     1, passes)
+
+            one_pass(k1.STATS)(inputs[0])
+            t_stats = cuda_times(one_pass(k1.STATS), inputs, iters=10)
+            t_apply = cuda_times(one_pass(k1.APPLY), inputs, iters=10)
+            k1_passes[0] += calls * statistics.median(t_stats)
+            k1_passes[1] += calls * statistics.median(t_apply)
+            log(f"   statistics pass {spread(t_stats)}, bound {bytes_ms(nbytes):.4f} ms; apply "
+                f"pass {spread(t_apply)}, bound {bytes_ms(2 * nbytes):.4f} ms")
+            del inputs, x, buffers
+        log(f"K1 per b{batch} dense forward by pass: statistics {k1_passes[0]:.3f} ms (bound "
+            f"{k1_split[0]:.3f}), apply {k1_passes[1]:.3f} ms (bound {k1_split[1]:.3f})")
         for side, c in K2_INPUTS:
             x = k2_input(batch, side, c, seed=side)
             log(check_k2(x))
@@ -877,13 +967,37 @@ def phase_times():
                     rows["K3"][j] += row[j]
         log("K3: no single PyTorch call computes IN+LeakyReLU -> conv -> IN+LeakyReLU, so "
             "library_ms is null.")
+        # K1bwd at the 22 shapes of a b32 dense train step, timed last: its
+        # plain version's float32 temporaries (about 10 GB at b32) change
+        # where the caching allocator places the inputs timed after them.
+        for level, ((side, c), calls) in enumerate(zip(LEVELS, K1_CALLS)):
+            seed = SEED + 20 + 10 * level
+            inputs = [k1_bwd_inputs(TRAIN_BATCH, side, c, torch.bfloat16, seed=seed)]
+            log(check_k1_bwd(inputs[0]))
+            x = inputs[0][0]
+            inputs += [k1_bwd_inputs(TRAIN_BATCH, side, c, torch.bfloat16, seed=seed + i)
+                       for i in range(1, n_copies(2 * x.numel() * x.element_size()))]
+            bound = k1_bwd_bound_ms(x)
+            row = time_kernel(f"K1bwd level {level} {tuple(x.shape)} x{calls}",
+                              lambda a: k1._cuda_backward(*a, 0.01, 1),
+                              lambda a: k1._torch_backward(*a, 0.01, 1), inputs, bound)
+            for i in range(3):
+                rows["K1bwd"][i] += calls * row[i]
+            bound_by["K1bwd"] = bound[1]
+            del inputs, x
+            torch.cuda.empty_cache()
+        log("K1bwd: no single PyTorch call computes the InstanceNorm+LeakyReLU backward "
+            "(library_ms null).")
+        log(f"K1bwd per b{TRAIN_BATCH} dense train step (sum over its 22 calls of the medians): "
+            f"kernel {rows['K1bwd'][0]:.3f} ms, plain {rows['K1bwd'][1]:.3f} ms, bound "
+            f"{rows['K1bwd'][2]:.3f} ms")
     report["rows"].update(rows)
     report["bound_by"].update(bound_by)
     log("K1 has no single PyTorch call computing InstanceNorm+LeakyReLU (library_ms null).")
     log(f"per b{batch} forward (sum over the main-path calls of the medians; K1, K2a dense, "
         "K2b, K3 s2d): "
         + "; ".join(f"{k}: kernel {v[0]:.3f} ms, plain {v[1]:.3f} ms, bound {v[2]:.3f} ms"
-                    for k, v in rows.items()))
+                    for k, v in rows.items() if k != "K1bwd"))
     log(f"K1 bound by pass per b{batch} forward: statistics (read x) {k1_split[0]:.3f} ms, "
         f"apply (read x, write y) {k1_split[1]:.3f} ms")
 
@@ -1183,6 +1297,23 @@ def check_train_step(layout: str, state: dict, batch: dict) -> dict:
             "bf16 loss err": (dl_k, dl_p)}
 
 
+@contextmanager
+def dy_layouts(seen: list):
+    """Records (shape, strides, contiguous) of each cotangent K1bwd receives:
+    the kernel takes dy contiguous, and copies any other."""
+    launch = k1._cuda_backward
+
+    def spy(x, scale, bias, mean, rstd, dy, *rest):
+        seen.append((tuple(dy.shape), tuple(dy.stride()), dy.is_contiguous()))
+        return launch(x, scale, bias, mean, rstd, dy, *rest)
+
+    k1._cuda_backward = spy
+    try:
+        yield
+    finally:
+        k1._cuda_backward = launch
+
+
 def train_layout(layout: str, path: Path) -> None:
     served = convert.load_reference_checkpoint(path, device="cuda", dtype=torch.bfloat16,
                                                **LAYOUTS[layout])
@@ -1197,9 +1328,13 @@ def train_layout(layout: str, path: Path) -> None:
     model = train_model(layout, state, torch.bfloat16)
     step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    losses = []
-    for _ in range(TRAIN_STEPS_DOWN):
-        losses.append(counted_path(lambda: float(step(check, gen)), PER_STEP[layout]))
+    losses, seen = [], []
+    for i in range(TRAIN_STEPS_DOWN):
+        with dy_layouts(seen) if i == 0 else nullcontext():
+            losses.append(counted_path(lambda: float(step(check, gen)), PER_STEP[layout]))
+    copied = [(shape, stride) for shape, stride, contiguous in seen if not contiguous]
+    log(f"{layout} K1bwd cotangents of one b{CHECK_BATCH} step: {len(seen)}, "
+        f"{len(seen) - len(copied)} contiguous; not contiguous (copied first): {copied}")
     log(f"{layout} {TRAIN_STEPS_DOWN} steps on one b{CHECK_BATCH} batch: losses "
         + " ".join(f"{v:.4f}" for v in losses))
     report["train"][layout]["losses"] = losses
@@ -1264,6 +1399,9 @@ def kernels_line() -> dict:
         ("K1 fused_instance_norm (InstanceNorm+LeakyReLU fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/instance_norm.cu",
          "unet_implementations_tpu/kernels/instance_norm.py:80", "K1"),
+        ("K1bwd fused_instance_norm backward (InstanceNorm+LeakyReLU bwd)",
+         "unet_implementations_tpu_torch/kernels/csrc/instance_norm.cu",
+         "unet_implementations_tpu/kernels/instance_norm.py:186", "K1bwd"),
         ("K2a upsample2x_nhwc_fast (2x bilinear, dense fwd)",
          "unet_implementations_tpu_torch/kernels/csrc/upsample.cu",
          "unet_implementations_tpu/kernels/upsample.py:118", "K2a"),

@@ -22,8 +22,12 @@ as close to the float32 computation as the plain version (max and mean
 of the largest magnitude, forward and gradients, against the plain version
 and the direct conv; bfloat16 no further from the float32 direct conv than
 the plain version, +25% on relative L2. The reasons are set out in
-``chip_smoke.py``. The backward of K1 and K2 is plain torch on both devices:
-gradients through the kernels are held to the CPU's.
+``chip_smoke.py``. K1's backward kernel against ``_torch_backward`` on the
+same inputs and statistics: float32 dx, dscale and dbias to 1e-4 of their
+largest magnitude (sum orders, and its factored sums: Σdpre times scale where
+the plain version sums dpre·scale); bfloat16 dx within one bf16 ulp plus
+1e-4, dscale and dbias (float32) to 1e-4 of their largest magnitude. K2's
+backward is plain torch on both devices: its gradients are held to the CPU's.
 """
 
 import numpy as np
@@ -43,7 +47,7 @@ from unet_implementations_tpu_torch.models.s2d import (
     space_to_depth,
     upsample2x_into_s2d,
 )
-from unet_implementations_tpu_torch.models.unet import UNet
+from unet_implementations_tpu_torch.models.unet import S2D_LAYOUT, UNet, unet_6stage
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training import steps, train_state
@@ -179,11 +183,101 @@ def test_instance_norm_grad(group):
     for device in ("cpu", "cuda"):
         args = [t.to(device).detach().requires_grad_() for t in (x, scale, bias)]
         before = torch_in.fused_instance_norm.launches
+        before_bwd = torch_in.fused_instance_norm.backward_launches
         torch_in.fused_instance_norm(*args, 1e-5, 0.01, group).backward(dy.to(device))
         assert torch_in.fused_instance_norm.launches - before == (device == "cuda")
+        assert torch_in.fused_instance_norm.backward_launches - before_bwd == (device == "cuda")
         grads.append([a.grad.cpu() for a in args])
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _k1_backward_case(shape, group, dtype, seed=5):
+    """x, scale, bias, the kernel forward's mean and rstd, and dy."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=shape) * 2 + 0.5).to("cuda", dtype)
+    c = shape[-1] // group
+    scale = torch.from_numpy(rng.normal(size=c) * 0.5 + 1.0).to("cuda", torch.float32)
+    bias = torch.from_numpy(rng.normal(size=c) * 0.3).to("cuda", torch.float32)
+    dy = torch.from_numpy(rng.normal(size=shape)).to("cuda", dtype)
+    with torch.no_grad():
+        _, mean, rstd = torch_in._cuda_forward(x, scale, bias, 1e-5, 0.01, group)
+    return x, scale, bias, mean, rstd, dy
+
+
+def _of_max(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+# (2, 7, 9, 6): C not a multiple of a 16-byte vector, the scalar path;
+# (1, 100, 100, 32): H·W = 10000 is not a multiple of the 1024-pixel chunk;
+# (2, 20, 20, 96) with group 4: C = 24 per q block.
+@pytest.mark.parametrize("shape,group", [((2, 64, 64, 32), 1), ((2, 16, 16, 512), 1),
+                                         ((2, 7, 9, 6), 1), ((1, 100, 100, 32), 1),
+                                         ((2, 33, 31, 24), 1), ((2, 32, 32, 64), 4),
+                                         ((2, 20, 20, 96), 4)])
+def test_instance_norm_backward(dtype, shape, group):
+    _need_cuda()
+    x, scale, bias, mean, rstd, dy = _k1_backward_case(shape, group, DTYPES[dtype])
+    before = torch_in.fused_instance_norm.backward_launches
+    got = torch_in._cuda_backward(x, scale, bias, mean, rstd, dy, 0.01, group)
+    assert torch_in.fused_instance_norm.backward_launches == before + 1
+    want = torch_in._torch_backward(x, scale, bias, mean, rstd, dy, 0.01, group)
+    assert got[0].dtype == x.dtype and got[0].shape == x.shape
+    assert got[1].shape == got[2].shape == (shape[-1] // group,)
+    for name, g, w in zip(("dscale", "dbias"), got[1:], want[1:]):
+        assert g.dtype == torch.float32 and _of_max(g, w) <= 1e-4, name
+    if dtype == "f32":
+        assert _of_max(got[0], want[0]) <= 1e-4
+    else:
+        dx, dx_want = (v.float().cpu().numpy() for v in (got[0], want[0]))
+        assert bf16_ulps(dx, dx_want, 1e-4).max() <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_instance_norm_backward_noncontiguous_dy(dtype):
+    """A dy that is not contiguous (a slice of a concat's gradient, the
+    broadcast cotangent of a sum) gives what its contiguous copy gives."""
+    _need_cuda()
+    x, scale, bias, mean, rstd, _ = _k1_backward_case((2, 24, 20, 32), 1, DTYPES[dtype])
+    wide = torch.randn((2, 24, 20, 96), device="cuda").to(x.dtype)
+    dy = wide[..., 32:64]
+    args = (x, scale, bias, mean, rstd)
+    strided = torch_in._cuda_backward(*args, dy, 0.01, 1)
+    dense = torch_in._cuda_backward(*args, dy.contiguous(), 0.01, 1)
+    for a, b in zip(strided, dense):
+        assert torch.equal(a, b)
+    ones = torch.ones((), device="cuda", dtype=x.dtype).expand_as(x)
+    for a, b in zip(torch_in._cuda_backward(*args, ones, 0.01, 1),
+                    torch_in._cuda_backward(*args, ones.contiguous(), 0.01, 1)):
+        assert torch.equal(a, b)
+
+
+def test_s2d_eval_with_grad_runs_the_module_path():
+    """An s2d model in eval mode with grad enabled (as Grad-CAM runs it)
+    takes no fused tail: the backward runs, through K1's backward kernel."""
+    _need_cuda()
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda", **S2D_LAYOUT).eval()
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 64, 64, 3))).float().cuda()
+    k3, k1_bwd = torch_region.fused_s2d_tail.launches, torch_in.fused_instance_norm.backward_launches
+    model(x).sum().backward()
+    assert torch_region.fused_s2d_tail.launches == k3
+    assert torch_in.fused_instance_norm.backward_launches - k1_bwd == 22
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+def test_s2d_eval_at_a_width_k3_does_not_take():
+    _need_cuda()
+    model = UNet(features_per_stage=(48, 64, 64), strides=(1, 2, 2), s2d_level0=True,
+                 dtype=torch.bfloat16).cuda().eval()
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(1, 64, 64, 3))).float().cuda()
+    k3 = torch_region.fused_s2d_tail.launches
+    with torch.no_grad():
+        out = model(x)
+    assert torch_region.fused_s2d_tail.launches == k3
+    assert out.shape == (1, 64, 64, 3) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("fn", [upsample2x_nhwc_fast, upsample2x_into_s2d_fast])
@@ -273,8 +367,8 @@ def test_winograd_refuses_ineligible():
 def test_train_step_runs_the_kernels(layout):
     """A train step of a narrow 6-stage model launches K1 and K2 (22/5 dense,
     22/3/2 s2d: training takes no fused tail, so the s2d blocks run K1 for
-    both their norms) and no K3 on the card, none on the CPU, and its loss is
-    finite."""
+    both their norms), no K3, and 22 K1 backwards on the card, none on the
+    CPU, and its loss is finite."""
     _need_cuda()
     flags = {"s2d_level0": True, "s2d_low_channel_decoders": True} if layout == "s2d" else {}
     batch = as_uint8(synthetic_batch(0, 2, 64))
@@ -286,11 +380,16 @@ def test_train_step_runs_the_kernels(layout):
             model.parameters()))
         wrappers = (torch_in.fused_instance_norm, upsample2x_nhwc_fast, upsample2x_into_s2d_fast,
                     torch_region.fused_s2d_tail)
-        before = [w.launches for w in wrappers]
+
+        def read():
+            return ([w.launches for w in wrappers]
+                    + [torch_in.fused_instance_norm.backward_launches])
+
+        before = read()
         losses[device] = float(step(batch, torch.Generator(device).manual_seed(0)))
-        counts[device] = [w.launches - b for w, b in zip(wrappers, before)]
-    want = [22, 5, 0, 0] if layout == "dense" else [22, 3, 2, 0]
-    assert counts == {"cpu": [0, 0, 0, 0], "cuda": want}
+        counts[device] = [a - b for a, b in zip(read(), before)]
+    want = [22, 5, 0, 0, 22] if layout == "dense" else [22, 3, 2, 0, 22]
+    assert counts == {"cpu": [0, 0, 0, 0, 0], "cuda": want}
     assert np.isfinite(losses["cuda"])
 
 

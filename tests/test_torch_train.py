@@ -87,6 +87,123 @@ class TestInstanceNormBackward:
         torch_in.fused_instance_norm(x, s, b).sum().backward()
         assert x.grad.dtype == torch.bfloat16 and s.grad.dtype == torch.float32
 
+    def test_cpu_backward_counts_no_launch(self):
+        x = torch.randn(1, 4, 4, 8, requires_grad=True)
+        before = (torch_in.fused_instance_norm.launches,
+                  torch_in.fused_instance_norm.backward_launches)
+        torch_in.fused_instance_norm(x, torch.ones(8), torch.zeros(8)).sum().backward()
+        assert (torch_in.fused_instance_norm.launches,
+                torch_in.fused_instance_norm.backward_launches) == before
+
+
+def _factored_backward(x, scale, bias, mean, rstd, dy, slope, group, chunk_px):
+    """numpy rendering of the backward kernel's algebra
+    (``csrc/instance_norm.cu``): per (image, chunk, channel) partials of dpre
+    and dpre·xhat; per image those pooled over the chunks and the group's q
+    blocks; m1 = scale·Σdpre / n and m2 = scale·Σ(dpre·xhat) / n;
+    dx = (dpre·scale − m1 − xhat·m2)·rstd; dbias and dscale the pooled sums
+    added over the images."""
+    b, h, w, c = x.shape
+    hw, cg = h * w, c // group
+    xf = x.reshape(b, hw, c).astype(np.float32)
+    g = dy.reshape(b, hw, c).astype(np.float32)
+    s_full, b_full = np.tile(scale, group), np.tile(bias, group)
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    pre = xhat * s_full + b_full
+    dpre = np.where(pre >= 0, g, g * np.float32(slope))
+    nchunk = -(-hw // chunk_px)
+    partials = np.zeros((b, nchunk, 2, c), np.float32)
+    for k in range(nchunk):
+        part = slice(k * chunk_px, (k + 1) * chunk_px)
+        partials[:, k, 0] = dpre[:, part].sum(1)
+        partials[:, k, 1] = (dpre[:, part] * xhat[:, part]).sum(1)
+    pooled = partials.sum(1).reshape(b, 2, group, cg).sum(2)  # (b, 2, cg), q-major
+    n = np.float32(hw * group)
+    m1 = np.tile(scale * pooled[:, 0] / n, group)  # (b, c)
+    m2 = np.tile(scale * pooled[:, 1] / n, group)
+    dx = (dpre * s_full - m1[:, None] - xhat * m2[:, None]) * rstd[:, None]
+    return dx.reshape(x.shape), pooled[:, 1].sum(0), pooled[:, 0].sum(0)
+
+
+class TestInstanceNormBackwardKernel:
+    """The CUDA backward's factored algebra (in numpy), and what its wrapper
+    refuses; the kernel itself is held to ``_torch_backward`` on the card
+    (``tests/test_torch_cuda.py``)."""
+
+    @pytest.mark.parametrize("chunk_px", [None, 7], ids=["module-chunks", "7-pixel-chunks"])
+    @pytest.mark.parametrize("group", [1, 4])
+    def test_factored_matches_jax_bwd_impl(self, group, chunk_px):
+        rng = np.random.default_rng(10 + group)
+        x = (rng.normal(size=(3, 6, 10, 16)) * 2 + 0.5).astype(np.float32)
+        c = 16 // group
+        scale = (rng.normal(size=c) * 0.5 + 1.0).astype(np.float32)
+        bias = (rng.normal(size=c) * 0.3).astype(np.float32)
+        dy = rng.normal(size=x.shape).astype(np.float32)
+        _, mean, rstd = torch_in._torch_forward(torch.from_numpy(x), torch.from_numpy(scale),
+                                                torch.from_numpy(bias), 1e-5, 0.01, group)
+        mean, rstd = mean.numpy(), rstd.numpy()
+        if chunk_px is None:
+            chunk_px = torch_in.chunking(60, 16, 4)[0]
+        got = _factored_backward(x, scale, bias, mean, rstd, dy, 0.01, group, chunk_px)
+        want = jax_in._bwd_impl(1e-5, 0.01, group, tuple(jnp.asarray(v) for v in (
+            x, scale, bias, mean, rstd)), jnp.asarray(dy))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert _rel(g, w) <= 1e-5
+
+    def test_refuses_what_the_kernel_does_not_take(self):
+        x = torch.zeros(1, 4, 4, 8)
+        s, b = torch.ones(8), torch.zeros(8)
+        m, r = torch.zeros(1, 8), torch.ones(1, 8)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            torch_in._cuda_backward(x.half(), s, b, m, r, x.half(), 0.01, 1)
+        with pytest.raises(ValueError, match="dy must be"):
+            torch_in._cuda_backward(x, s, b, m, r, torch.zeros(1, 4, 4, 4), 0.01, 1)
+        with pytest.raises(ValueError, match="dy must be"):
+            torch_in._cuda_backward(x, s, b, m, r, x.to(torch.bfloat16), 0.01, 1)
+        with pytest.raises(ValueError, match="mean must be"):
+            torch_in._cuda_backward(x, s, b, torch.zeros(8), r, x, 0.01, 1)
+        with pytest.raises(ValueError, match="rstd must be"):
+            torch_in._cuda_backward(x, s, b, m, r.double(), x, 0.01, 1)
+        with pytest.raises(ValueError, match="C/group"):
+            torch_in._cuda_backward(x, s, b, m, r, x, 0.01, 3)
+        with pytest.raises(ValueError, match="C/group"):
+            torch_in._cuda_backward(x, torch.ones(4), b, m, r, x, 0.01, 1)
+
+    def test_profiling_kind_and_sources(self):
+        """utils/profiling.py files K1bwd's kernels under a kind of their own,
+        and sums the device time of each backward node and of the casts."""
+        from types import SimpleNamespace
+
+        from unet_implementations_tpu_torch.utils import profiling
+
+        ns = "void unet::(anonymous namespace)::"
+        for name in ("in_bwd_reduce_kernel<__nv_bfloat16, 8>(x)",
+                     "in_bwd_apply_kernel<float, 4>(x)", "in_bwd_params_kernel(x)"):
+            assert profiling.kind_of(ns + name) == "K1bwd instance norm backward"
+        assert profiling.kind_of(ns + "in_apply_kernel<__nv_bfloat16, 8>(x)") == \
+            "K1b instance norm apply"
+        assert profiling.kind_of(ns + "in_stats_kernel<float, 4, true>(x)") == \
+            "K1a instance norm statistics"
+
+        events = [SimpleNamespace(key=profiling.NODE_PREFIX + "_Upsample2xBackward",
+                                  device_time_total=3000.0),
+                  SimpleNamespace(key=profiling.NODE_PREFIX + "_Upsample2xBackward",
+                                  device_time_total=1000.0),
+                  SimpleNamespace(key="aten::_to_copy", device_time_total=500.0),
+                  SimpleNamespace(key="aten::mul", device_time_total=9000.0)]
+        prof = SimpleNamespace(key_averages=lambda: events)
+        assert profiling._by_source(prof, 2) == {"_Upsample2xBackward": 2.0,
+                                                 "aten::_to_copy": 0.25}
+
+    @pytest.mark.parametrize("hw,c,itemsize", [(512 * 512, 32, 2), (16 * 16, 512, 2),
+                                               (7 * 9, 6, 4), (1, 8, 4), (1000, 3, 2)])
+    def test_chunking_covers_the_image(self, hw, c, itemsize):
+        chunk_px, nchunk = torch_in.chunking(hw, c, itemsize)
+        assert chunk_px * nchunk >= hw > chunk_px * (nchunk - 1)
+        assert nchunk <= torch_in._MAX_CHUNKS
+        assert chunk_px * c * itemsize >= min(torch_in._MIN_CHUNK_BYTES, hw * c * itemsize)
+
 
 class TestUpsampleBackward:
     @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -1,6 +1,7 @@
-// The three passes of K1 (instance_norm.cu) as launchers, for the other
-// kernels of this library that normalize with the same code: the s2d block
-// tail (s2d_region.cu) runs them with group = 4 around its conv.
+// K1's passes (instance_norm.cu) as launchers, for the other kernels of this
+// library that normalize with the same code: the s2d block tail
+// (s2d_region.cu) runs them with group = 4 around its conv. K1's own forward
+// folds the finalize into its statistics pass instead.
 //
 // x, y: (B, H*W, C) contiguous, `dtype` a DType code. partials: (B, nchunk,
 // 2, C) float32, [.., 0, :] the sums of x and [.., 1, :] those of x*x.

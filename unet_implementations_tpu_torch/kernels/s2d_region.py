@@ -26,7 +26,10 @@ differ from the plain version by one ulp of the dtype.
 
 On a CPU tensor ``fused_s2d_tail`` runs the plain version; on a CUDA tensor
 it launches the kernel or raises (C must be 8, 16, 32 or 64). Forward only: a
-CUDA call that autograd would record raises.
+CUDA call that autograd would record raises. ``region_applicable`` says
+whether a call is one the kernel takes, as the JAX ``region_applicable``
+does: a block takes the fused tail only then, and runs its module path
+otherwise.
 """
 
 from __future__ import annotations
@@ -129,6 +132,18 @@ def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope)
     _build.check(code, "unet_s2d_tail_fwd")
     fused_s2d_tail.launches += 1
     return out
+
+
+def region_applicable(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """Whether ``fused_s2d_tail(x, *params)`` is a call the kernel takes: x is
+    (B, H′, W′, 4C) float32 or bfloat16 with C in ``CHANNELS``, and autograd
+    would not record it (grad mode is off, or neither x nor a parameter
+    requires grad)."""
+    if x.ndim != 4 or x.shape[-1] % 4 or x.shape[-1] // 4 not in CHANNELS:
+        return False
+    if x.dtype not in _build.DTYPE_CODES:
+        return False
+    return not torch.is_grad_enabled() or not any(t.requires_grad for t in (x, *params))
 
 
 def fused_s2d_tail(

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_implementations_tpu_torch.kernels.instance_norm import fused_instance_norm
-from unet_implementations_tpu_torch.kernels.s2d_region import fused_s2d_tail
+from unet_implementations_tpu_torch.kernels.s2d_region import fused_s2d_tail, region_applicable
 from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_into_s2d_fast,
     upsample2x_nhwc_fast,
@@ -147,8 +147,10 @@ class ConvBlock(nn.Module):
     - ``s2d``: ``x`` is an s2d tensor, or with ``s2d_segments_first`` a tuple
       of s2d tensors whose logical channel-concat conv_0 takes without
       materializing it (segments: their dense channel counts); the output is
-      s2d. In eval mode conv_0 is followed by the fused tail (K3), which
-      takes no gradient: training runs the module path;
+      s2d. In eval mode conv_0 is followed by the fused tail (K3) where
+      ``region_applicable`` allows it: a width K3 takes, and a call autograd
+      would not record (K3 has no backward). Otherwise, and in training, the
+      block runs its module path;
     - ``s2d_input_first``: conv_0 is the stride-2 conv taking an s2d tensor,
       with a dense half-resolution output; the rest of the block is dense.
     """
@@ -204,8 +206,9 @@ class ConvBlock(nn.Module):
             # The fused tail (K3): IN -> lrelu -> conv_1 -> IN -> lrelu.
             # Dropout is off in eval mode; conv_1's bias cancels in IN2.
             (_, norm0), (conv1, norm1) = self._unit(0), self._unit(1)
-            return nchw(fused_s2d_tail(nhwc(x), norm0.weight, norm0.bias, conv1.weight,
-                                       norm1.weight, norm1.bias, EPS, NEGATIVE_SLOPE))
+            tail = (nhwc(x), norm0.weight, norm0.bias, conv1.weight, norm1.weight, norm1.bias)
+            if region_applicable(*tail):
+                return nchw(fused_s2d_tail(*tail, EPS, NEGATIVE_SLOPE))
         group = 4 if s2d else 1
         for i in range(N_CONVS):
             conv, norm = self._unit(i)

@@ -10,11 +10,15 @@ kernel, the time by kind (convolution, the port's kernels, concat,
 reductions, the optimizer, other), and the device's busy share
 of the profiled window. Then the same for a few b32 train steps per layout
 (SGD-Nesterov, seeded synthetic uint8 batches on the card), with the step
-split into forward + loss, backward and optimizer by CUDA events. Needs a
-CUDA card.
+split into forward + loss, backward and optimizer by CUDA events, and the
+device time of the backward split by autograd node (the engine's own
+``autograd::engine::evaluate_function`` ranges: K1's backward kernel, K2's
+transpose, the casts' backward, cuDNN's, ...) beside the device time of every
+cast (``aten::_to_copy``, forward and backward). Needs a CUDA card.
 
-The backward of K1 and K2 is plain torch (as JAX's is XLA), so in a train
-step it shows among the reductions and "other" (elementwise) kinds.
+K1's backward is a kernel (K1bwd); K2's backward is plain torch (as JAX's is
+XLA), so in a train step it shows among the "other" (elementwise) kinds, and
+under its autograd node.
 
 K3 runs K1's statistics, finalize and apply kernels for its two norms, so in
 the s2d layout those count under K1's kinds; only K3's conv kernel is a kind
@@ -47,6 +51,7 @@ LAYOUTS = {"dense": {}, "s2d": S2D_LAYOUT}
 # (statistics with its finalize, then apply) are kinds of their own; K2's
 # template flag tells its s2d output (K2b) from its dense one (K2a).
 KINDS = (
+    ("K1bwd instance norm backward", (("in_bwd_",),)),
     ("K1a instance norm statistics", (("in_stats_kernel",), ("in_finalize_kernel",))),
     ("K1b instance norm apply", (("in_apply_kernel",),)),
     ("K2b upsample into s2d", (("upsample2x_kernel", "true>"),)),
@@ -66,6 +71,28 @@ def kind_of(name: str) -> str:
         if any(all(k in name for k in keys) for keys in alternatives):
             return kind
     return "other"
+
+
+# The autograd engine's range around each backward node it runs.
+NODE_PREFIX = "autograd::engine::evaluate_function: "
+# The ops whose device time (with their children's) is reported beside the
+# nodes: every dtype cast.
+OPS = ("aten::_to_copy",)
+
+
+def _device_total_us(evt) -> float:
+    us = getattr(evt, "device_time_total", None)
+    return getattr(evt, "cuda_time_total", 0.0) if us is None else us
+
+
+def _by_source(prof, iters: int) -> dict:
+    """Device ms per step of each backward node's range and of each of OPS,
+    the kernels launched inside them included."""
+    out = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.key.startswith(NODE_PREFIX) or evt.key in OPS:
+            out[evt.key.removeprefix(NODE_PREFIX)] += _device_total_us(evt) / 1e3 / iters
+    return dict(out)
 
 
 def _by_kernel(prof, iters: int) -> dict:
@@ -99,7 +126,7 @@ def _profile(fn, iters: int) -> tuple:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    return _by_kernel(prof, iters), wall_ms
+    return _by_kernel(prof, iters), wall_ms, _by_source(prof, iters)
 
 
 def profile_forward(batch: int, dtype: torch.dtype, layout: str = "dense", iters: int = 3,
@@ -110,7 +137,7 @@ def profile_forward(batch: int, dtype: torch.dtype, layout: str = "dense", iters
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((batch, 512, 512, 3), generator=g, device="cuda").to(dtype)
     with torch.inference_mode():
-        per_kernel, wall_ms = _profile(lambda: model(x), iters)
+        per_kernel, wall_ms, _ = _profile(lambda: model(x), iters)
     return _summary(per_kernel, wall_ms, what="forward", batch=batch, dtype=str(dtype),
                     layout=layout)
 
@@ -127,7 +154,7 @@ def profile_train_step(batch: int, dtype: torch.dtype, layout: str = "dense", it
     data = {k: torch.from_numpy(v).to("cuda")
             for k, v in as_uint8(synthetic_batch(seed, batch, 512)).items()}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    per_kernel, wall_ms = _profile(lambda: step(data, gen), iters)
+    per_kernel, wall_ms, by_source = _profile(lambda: step(data, gen), iters)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     model.train()
     optimizer.zero_grad(set_to_none=True)
@@ -143,7 +170,7 @@ def profile_train_step(batch: int, dtype: torch.dtype, layout: str = "dense", it
     phases = {name: events[i].elapsed_time(events[i + 1])
               for i, name in enumerate(("forward + loss", "backward", "optimizer"))}
     return {**_summary(per_kernel, wall_ms, what="train step", batch=batch, dtype=str(dtype),
-                       layout=layout), "phases_ms": phases}
+                       layout=layout), "phases_ms": phases, "by_source": by_source}
 
 
 def _print(r: dict) -> None:
@@ -154,6 +181,11 @@ def _print(r: dict) -> None:
         print(f"  phase {name:<24} {ms:9.3f} ms (CUDA events, profiler off)")
     for kind, ms in sorted(r["by_kind"].items(), key=lambda kv: -kv[1]):
         print(f"  {kind:<30} {ms:9.3f} ms  {ms / r['device_ms']:6.1%}")
+    if r.get("by_source"):
+        print("device time by backward node, and of every cast (ms per step):")
+        for name, ms in sorted(r["by_source"].items(), key=lambda kv: -kv[1]):
+            if ms > 0:
+                print(f"  {ms:9.3f}  {name[:100]}")
     print(f"top kernels (ms per {r['what']}):")
     for name, ms in sorted(r["per_kernel"].items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f}  {name[:110]}")
