@@ -14,10 +14,12 @@ unfolded and the folded U).
 Phases (any failure makes the script exit non-zero without a result line):
 
 1. Card and build: the card's name and power limit, then nvcc's register,
-   shared-memory and spill report for every kernel.
+   shared-memory and spill report for every kernel; K3's bf16 conv kernel
+   must spill nothing.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the 512² forward of a batch of 8 gives it; K1bwd at the shapes the b8
-   train step gives it, in both layouts.
+   train step gives it, in both layouts. A second bf16 call of K3 must
+   repeat the first bit for bit.
 3. The slice, in each layout: ``unet_6stage`` in bf16 from a seeded
    generator, saved as a reference-schema ``.pth``, reloaded through
    ``load_reference_checkpoint``, and three batches of 8 images answered by
@@ -34,8 +36,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    (where there is one), at the b128 main-path shapes, beside the kernel's
    bound. Each kernel output timed there is first held to its plain
    version. K1's forward is also timed pass by pass (statistics, apply), and
-   K1bwd at the 22 shapes of a b32 dense train step. Also cuDNN's time for
-   the dense-equivalent of K3's conv, as context.
+   K1bwd at the 22 shapes of a b32 dense train step. K3's conv launch is
+   also timed alone, beside its bound and cuDNN's time for the
+   dense-equivalent conv (not the same function: context).
 6. K4 through its differentiable entry point ``winograd_conv_s2d``, at b32
    on the eligible convs of ``unet_6stage`` (encoder_2..4 conv_1, decoder_0
    conv_0), in both U layouts: forward and, through autograd, dx, dW and db
@@ -212,8 +215,9 @@ K4_F32_TOL = 1e-4
 # most this: a transform in float32 rounded once reads 4.28e-3 to 4.32e-3 at
 # these shapes (PERF.md), the plain version about 5e-3.
 K4_BF16_REL_L2 = 4.8e-3
-# The bf16 kernel, as its mangled name shows in nvcc's report.
+# The bf16 kernels, as their mangled names show in nvcc's report.
 K4_BF16_KERNEL = "winograd_s2d_wgmma_kernel"
+K3_BF16_KERNEL = "s2d_conv_wgmma_kernel"
 # The train step at b8 in float32 (TF32 off, deterministic cuDNN). The loss
 # with the kernels against the plain versions: TRAIN_F32_LOSS_REL. Gradients
 # are compared per group: each parameter alone, except that a conv followed
@@ -507,6 +511,10 @@ def check_k3(args, label: str) -> str:
                   f"against float32, kernel/plain: max {max_k:.4e}/{max_p:.4e}, mean "
                   f"{mean_k:.4e}/{mean_p:.4e} (slack {E2E_BF16_SLACK:g})")
         del ref, e_k, e_p, ulps
+        # No atomics anywhere in the tail: a second call repeats bit for bit.
+        repeats = torch.equal(got, k3.fused_s2d_tail(*args))
+        ok = ok and repeats
+        detail += f"; a second call {'repeats bit for bit' if repeats else 'DIFFERS'}"
     label = f"K3 {label} {tuple(x.shape)} {str(x.dtype)[6:]}"
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version: {detail}")
@@ -666,6 +674,32 @@ def k3_bound_ms(x: torch.Tensor) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def k3_conv_bound_ms(x: torch.Tensor) -> tuple[float, str]:
+    """K3's conv launch alone: one read of x and one write of its output, or
+    its multiply-adds at the bf16 tensor rate."""
+    n = x.numel()
+    by_bytes = bytes_ms(2 * n * x.element_size())
+    by_ops = 2 * n * 9 * (x.shape[-1] // 4) / BF16_TENSOR_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def time_k3_conv(args) -> list[float]:
+    """Times of K3's conv launch alone (``conv_only``), on IN1's statistics
+    that one full launch left in the buffers; fails unless it writes what the
+    full launch's conv wrote."""
+    x = args[0]
+    w = k3.kernel_weights(args[3], x.dtype)
+    buffers = k3.tail_buffers(x)
+    k3.launch_tail(x, *args[1:3], w, *args[4:], buffers, 1e-5, 0.01)
+    full = buffers["y_conv"].clone()
+    buffers["y_conv"].zero_()
+    t = cuda_times(lambda a: k3.launch_tail(a, *args[1:3], w, *args[4:], buffers, 1e-5, 0.01,
+                                            conv_only=True), [x], iters=10)
+    if not torch.equal(full, buffers["y_conv"]):
+        raise AssertionError("K3's conv launch alone wrote another y_conv than the full launch")
+    return t
+
+
 @phase("1. card and build")
 def phase_build():
     report["card"] = nvidia_smi_card()
@@ -679,6 +713,8 @@ def phase_build():
         if line.startswith("[nvcc") or "ptxas info" in line and (
                 "Used" in line or "spill" in line or "Compiling entry" in line):
             log(f"   {line.strip()}")
+    log(f"{K3_BF16_KERNEL} (K3's bf16 conv):")
+    check_no_spills(K3_BF16_KERNEL)
 
 
 @phase(f"2. kernels against their plain versions (b{SERVE_BATCH}, main-path shapes)")
@@ -941,6 +977,7 @@ def phase_times():
             "c-major, channel c*4 + q), so library_ms is null.")
         with deterministic():
             timed = {}
+            k3_conv = {}  # per (side, c): conv alone, cuDNN's dense conv, conv bound (ms)
             for i, (block, side, c) in enumerate(K3_CALLS):
                 if (side, c) in timed:  # the same shape as an earlier call
                     row = timed[(side, c)]
@@ -962,11 +999,25 @@ def phase_times():
                     td = cuda_times(lambda inp: F.conv2d(inp, wd, padding=1), [xd], iters=10)
                     log(f"   context: cuDNN F.conv2d of the dense-equivalent conv_1 "
                         f"{tuple(xd.shape)} {c}->{c} 3x3 bf16 channels_last: {spread(td)}")
-                    del args, xd, wd
+                    del xd, wd
+                    tc = time_k3_conv(args)
+                    cbound = k3_conv_bound_ms(args[0])
+                    k3_conv[(side, c)] = [statistics.median(tc), statistics.median(td), cbound[0]]
+                    log(f"   K3's conv launch alone: {spread(tc)}, bound {cbound[0]:.4f} ms "
+                        f"({cbound[1]}), {cbound[0] / statistics.median(tc):.1%} of bound; "
+                        f"cuDNN's dense-equivalent conv {statistics.median(td):.4f} ms; whole K3 "
+                        f"{row[0]:.4f} ms, bound {bound[0]:.4f} ms")
+                    del args
                 for j in range(3):
                     rows["K3"][j] += row[j]
         log("K3: no single PyTorch call computes IN+LeakyReLU -> conv -> IN+LeakyReLU, so "
             "library_ms is null.")
+        conv_sum = [sum(k3_conv[(side, c)][j] for _, side, c in K3_CALLS) for j in range(3)]
+        report["k3_conv"] = conv_sum
+        log(f"K3 per b{batch} s2d forward (its {len(K3_CALLS)} calls): conv launch alone "
+            f"{conv_sum[0]:.3f} ms (bound {conv_sum[2]:.3f} ms), cuDNN's dense-equivalent conv "
+            f"{conv_sum[1]:.3f} ms, whole K3 {rows['K3'][0]:.3f} ms (bound "
+            f"{rows['K3'][2]:.3f} ms)")
         # K1bwd at the 22 shapes of a b32 dense train step, timed last: its
         # plain version's float32 temporaries (about 10 GB at b32) change
         # where the caching allocator places the inputs timed after them.
@@ -1114,17 +1165,22 @@ def ptxas_report(kernel: str) -> list[str]:
     return lines
 
 
-@phase(f"6. K4 winograd_conv_s2d: kernel against plain version and direct conv (b{K4_BATCH})")
-def phase_k4():
-    report_lines = ptxas_report(K4_BF16_KERNEL)
+def check_no_spills(kernel: str) -> None:
+    """Log nvcc's report for ``kernel`` and fail if it spills registers."""
+    report_lines = ptxas_report(kernel)
     for line in report_lines:
         log(f"   {line}")
     if not report_lines:
-        log(f"   no nvcc report for {K4_BF16_KERNEL}: the library was loaded from an earlier build")
+        log(f"   no nvcc report for {kernel}: the library was loaded from an earlier build")
     spills = [line for line in report_lines
               if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
     if spills:
-        raise AssertionError(f"{K4_BF16_KERNEL} spills registers: {spills}")
+        raise AssertionError(f"{kernel} spills registers: {spills}")
+
+
+@phase(f"6. K4 winograd_conv_s2d: kernel against plain version and direct conv (b{K4_BATCH})")
+def phase_k4():
+    check_no_spills(K4_BF16_KERNEL)
     with deterministic():
         for i, (conv, side, cin, cout) in enumerate(K4_CONVS):
             for kernel in K4_MODES:

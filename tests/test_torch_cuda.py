@@ -116,6 +116,42 @@ def test_upsample_s2d_bitwise(dtype, shape):
     assert upsample2x_into_s2d_fast.launches == before + 1
 
 
+def _tail_args(shape, dtype, seed=3, tap=None):
+    """x and the tail's parameters; with ``tap``, conv_1's kernel is zero but
+    at that tap (ky * 3 + kx)."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1] // 4
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    w = rng.normal(size=(c, c, 3, 3)) * np.sqrt(2 / (9 * c))
+    if tap is not None:
+        w *= (np.arange(9) == tap).reshape(3, 3)
+    return (t(rng.normal(size=shape), DTYPES[dtype]), t(rng.uniform(0.5, 1.5, c)),
+            t(rng.normal(size=c) * 0.1), t(w), t(rng.uniform(0.5, 1.5, c)),
+            t(rng.normal(size=c) * 0.1))
+
+
+def _check_tail(args, slope=0.01):
+    """One launch of K3 against its plain version (tolerances: module doc)."""
+    x = args[0]
+    before = torch_region.fused_s2d_tail.launches
+    with torch.no_grad():
+        got = torch_region.fused_s2d_tail(*args, 1e-5, slope)
+        want, carried = torch_region._torch_tail(*args, 1e-5, slope, carried_ulp=True)
+        ref = torch_region._torch_tail(x.float(), *args[1:], 1e-5, slope)
+    assert torch_region.fused_s2d_tail.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    got, want, carried, ref = (v.float().cpu().numpy() for v in (got, want, carried, ref))
+    if x.dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert (bf16_ulps(got, want, 1e-4 + carried) > 2.0).mean() <= 1e-4
+        e_k, e_p = np.abs(got - ref), np.abs(want - ref)
+        assert e_k.max() <= 1.25 * e_p.max() and e_k.mean() <= 1.25 * e_p.mean()
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(2, 16, 128, 32), (2, 32, 32, 128), (2, 16, 16, 256),
                                    (1, 9, 13, 64)])
@@ -123,30 +159,47 @@ def test_s2d_tail(dtype, shape, monkeypatch):
     _need_cuda()
     # The plain version's conv is cuDNN's: float32 without TF32, as the kernel.
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    rng = np.random.default_rng(3)
-    c = shape[-1] // 4
+    _check_tail(_tail_args(shape, dtype))
 
-    def t(a, dt=torch.float32):
-        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
 
-    x = t(rng.normal(size=shape), DTYPES[dtype])
-    args = (x, t(rng.uniform(0.5, 1.5, c)), t(rng.normal(size=c) * 0.1),
-            t(rng.normal(size=(c, c, 3, 3)) * np.sqrt(2 / (9 * c))),
-            t(rng.uniform(0.5, 1.5, c)), t(rng.normal(size=c) * 0.1))
-    before = torch_region.fused_s2d_tail.launches
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32), (16, 64, 64, 128), (32, 32, 32, 256)])
+def test_s2d_tail_c8_and_several_items_per_block(dtype, shape, monkeypatch):
+    """C = 8 (padded to 16 in bf16); and batches whose bands outnumber the
+    persistent blocks (512 bands at C = 32 and 64), so each block walks
+    several items and the ring wraps many times."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    _check_tail(_tail_args(shape, dtype, seed=4))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64, 128), (2, 16, 16, 256)])
+def test_s2d_tail_slope_above_one(shape, monkeypatch):
+    """The bf16 conv takes LeakyReLU as max(t, t * slope) only for 0 <= slope
+    <= 1; a slope of 1.5 takes its sign-bit select."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    _check_tail(_tail_args(shape, "bf16", seed=7), slope=1.5)
+
+
+@pytest.mark.parametrize("tap", range(9))
+def test_s2d_tail_one_tap(tap):
+    """conv_1's kernel at one tap only: the bf16 conv's A operand for that
+    tap is the stage at a shifted start address, and a wrong shift, stride or
+    leading byte offset of the descriptor moves every output."""
+    _need_cuda()
+    _check_tail(_tail_args((2, 16, 48, 128), "bf16", seed=5, tap=tap))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 128, 32), (4, 32, 32, 256), (1, 9, 13, 64)])
+def test_s2d_tail_bf16_repeats_bitwise(shape):
+    """No atomics: two bf16 calls on the same input are bit for bit equal."""
+    _need_cuda()
+    args = _tail_args(shape, "bf16", seed=6)
     with torch.no_grad():
-        got = torch_region.fused_s2d_tail(*args)
-        want, carried = torch_region._torch_tail(*args, 1e-5, 0.01, carried_ulp=True)
-        ref = torch_region._torch_tail(x.float(), *args[1:], 1e-5, 0.01)
-    assert torch_region.fused_s2d_tail.launches == before + 1
-    assert got.dtype == x.dtype and got.shape == x.shape
-    got, want, carried, ref = (v.float().cpu().numpy() for v in (got, want, carried, ref))
-    if dtype == "f32":
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    else:
-        assert (bf16_ulps(got, want, 1e-4 + carried) > 2.0).mean() <= 1e-4
-        e_k, e_p = np.abs(got - ref), np.abs(want - ref)
-        assert e_k.max() <= 1.25 * e_p.max() and e_k.mean() <= 1.25 * e_p.mean()
+        a = torch_region.fused_s2d_tail(*args)
+        b = torch_region.fused_s2d_tail(*args)
+    assert torch.equal(a, b)
 
 
 def test_s2d_tail_refuses_unsupported_channels():

@@ -241,7 +241,8 @@ def test_profiling_kinds():
     ns = "void unet::(anonymous namespace)::"
     assert kind_of(ns + "upsample2x_kernel<__nv_bfloat16, 8, true>(x)") == "K2b upsample into s2d"
     assert kind_of(ns + "upsample2x_kernel<__nv_bfloat16, 8, false>(x)") == "K2a upsample"
-    assert kind_of(ns + "s2d_conv_kernel<__nv_bfloat16, 32>(x)") == "K3 s2d tail conv"
+    assert kind_of(ns + "s2d_conv_kernel<32>(x)") == "K3 s2d tail conv"
+    assert kind_of(ns + "wg::s2d_conv_wgmma_kernel<64>(x)") == "K3 s2d tail conv"
     assert kind_of(ns + "in_finalize_kernel(x)") == "K1a instance norm statistics"
     assert kind_of("sm90_xmma_fprop_implicit_gemm_bf16") == "convolution"
     assert kind_of("elementwise_kernel<CUDAFunctor_add>") == "other"

@@ -90,7 +90,7 @@
 // 128 registers unfolded / folded, no spills).
 #include <climits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace unet {
 namespace {
@@ -360,66 +360,6 @@ struct Cfg {
   static_assert(kSmem <= 232448, "more shared memory than a block may have");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra LAB_DONE;\n"
-      "bra LAB_WAIT;\n"
-      "LAB_DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One contiguous copy of `bytes` from device memory into shared memory,
-// completing on the barrier `bar` (which expects the bytes).
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, no swizzle: start address, leading (K) and
-// stride (M/N) byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // This warp's 16 rows (16*warp ..) of a 64 x 16 bf16 matrix in the
 // no-swizzle core-matrix layout at `addr`, as wgmma's register A fragment.
 __device__ __forceinline__ void load_a(uint32_t (&f)[4], uint32_t addr, int warp, int lane) {
@@ -431,14 +371,6 @@ __device__ __forceinline__ void load_a(uint32_t (&f)[4], uint32_t addr, int warp
                : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
                : "r"(row)
                : "memory");
-}
-
-// Keep the compiler from moving accumulator registers across an in-flight
-// wgmma.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x N, float32) += SIGN * A (64 x 16, bf16) * B (16 x N, bf16): A from
@@ -478,17 +410,6 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], const uint32_t (
           "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(SIGN));
   }
-}
-
-__device__ __forceinline__ uint32_t& word(uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// Two float32 values rounded to bf16, `lo` in the lower half.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
 }
 
 // Bits of the producer's `valid` word: the tile exists; the window row above
@@ -686,26 +607,6 @@ __device__ __forceinline__ void products(float (&y)[4][Cfg<FOLDED>::kNc / 2], ui
       wgmma_commit();
     }
   wgmma_wait<0>();
-}
-
-// Lane l of each quad holds v[j], the word of column block j (its 2 of the
-// block's 8 channels); afterwards it holds block l's 4 words, in order.
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
-  const int l = threadIdx.x & 3;
-#pragma unroll
-  for (int step = 1; step <= 2; step *= 2) {
-#pragma unroll
-    for (int lo = 0; lo < 4; ++lo) {
-      if (lo & step) continue;
-      const uint32_t send = (l & step) ? v[lo] : v[lo + step];
-      const uint32_t recv = __shfl_xor_sync(0xFFFFFFFFu, send, step);
-      if (l & step) {
-        v[lo] = recv;
-      } else {
-        v[lo + step] = recv;
-      }
-    }
-  }
 }
 
 template <bool FOLDED>

@@ -13,10 +13,14 @@ decoder_4).
 The TPU kernel kept one image in VMEM; an SM's 227 KB does not hold one. The
 CUDA entry point runs K1's statistics passes for IN1, a hand-written 3×3 conv
 in the full-resolution geometry that normalizes and activates its input as it
-loads it and sums Σy, Σy² of its rounded output per tile (bf16 on the tensor
-cores, float32 on the CUDA cores), then K1's finalize and apply passes for
-IN2. Bound: bytes, one read of x and one write of y; the design moves about
-four times that (see the source).
+loads it and sums Σy, Σy² of its rounded output, then K1's finalize and apply
+passes for IN2. In bf16 the conv is a persistent, warp-specialised wgmma
+kernel: a producer warpgroup fills a shared-memory ring with the normalized,
+activated halo tile of each 4-row × 64-column segment, and two consumer
+warpgroups multiply it, at nine shifted views, by conv_1's kernel, which
+``pack_weights`` lays out for one bulk copy into shared memory. In float32
+(the 1e-4 correctness mode) the conv runs on the CUDA cores. Bound: bytes,
+one read of x and one write of y (see the source).
 
 The plain version ``_torch_tail`` follows the JAX ``jnp_tail`` op for op:
 IN1 rounded to the dtype, LeakyReLU in the dtype, the conv's output rounded
@@ -43,14 +47,19 @@ from unet_implementations_tpu_torch.models.s2d import conv_s2d, instance_norm_s2
 
 # Original channel counts the CUDA kernel takes.
 CHANNELS = (8, 16, 32, 64)
-# Full-resolution rows of one block of the conv kernel (kTileH in the source).
-_STRIP_ROWS = 8
+# IN2's rows of partials per image (csrc/s2d_region.cu): the bf16 conv writes
+# kPartialRows = 4 per band of kRows = 4 full-resolution rows, the float32
+# conv one per strip of kTileH = 8 rows.
+_BAND_ROWS, _ROWS_PER_BAND, _STRIP_ROWS = 4, 4, 8
+# Input channels of one wgmma k-step, and the least width the bf16 kernel
+# multiplies (C = 8 is padded to it with zeros).
+_K_STEP = 16
 # Bytes of x a block of IN1's statistics pass reduces (as K1).
 _STATS_CHUNK_BYTES = 64 * 1024
 
 _ARGTYPES = [ctypes.c_void_p] * 14 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -59,6 +68,37 @@ def _lrelu_in_dtype(y: torch.Tensor, negative_slope: float) -> torch.Tensor:
     rounded to y's dtype and the product to y's dtype."""
     slope = torch.tensor(negative_slope, dtype=y.dtype, device=y.device)
     return torch.where(y >= 0, y, y * slope)
+
+
+def activated_input(x, scale1, bias1, eps, negative_slope):
+    """``lrelu(IN1(x))`` as the plain version computes it: the norm rounded to
+    x's dtype, the activation in that dtype. The conv's input."""
+    return _lrelu_in_dtype(instance_norm_s2d(x, scale1, bias1, eps, out_dtype=x.dtype),
+                           negative_slope)
+
+
+def pack_weights(weight2: torch.Tensor) -> torch.Tensor:
+    """conv_1's (C, C, 3, 3) kernel in the order the bf16 conv copies it into
+    shared memory: (9, CP/16, 2, CP/8, 8, 8) with CP = max(C, 16), zero where
+    an input or output channel is C or more.
+
+    Element [tap, kc, k8, n8, nr, kr] is ``weight2[8·n8 + nr, 16·kc + 8·k8 +
+    kr, tap // 3, tap % 3]``: the GEMM's B with K = 9·CP rows (tap-major) and
+    N = CP columns, as wgmma's no-swizzle K-major core matrices (8 output
+    channels × 8 input channels, 128 bytes). The block of one (tap, k-step)
+    is CP·32 bytes; its two k8 halves are CP·16 bytes apart (the leading byte
+    offset), its core matrices along N 128 bytes (the stride byte offset).
+    """
+    c = weight2.shape[0]
+    if weight2.ndim != 4 or tuple(weight2.shape) != (c, c, 3, 3) or c not in CHANNELS:
+        raise ValueError(f"pack_weights takes a (C, C, 3, 3) kernel with C in {CHANNELS}, "
+                         f"got {tuple(weight2.shape)}")
+    cp = max(c, _K_STEP)
+    w = weight2.new_zeros((cp, cp, 3, 3))
+    w[:c, :c] = weight2
+    # (co, ci, ky, kx) -> (tap, kc, k8, kr, n8, nr) -> (tap, kc, k8, n8, nr, kr)
+    p = w.permute(2, 3, 1, 0).reshape(9, cp // _K_STEP, 2, 8, cp // 8, 8)
+    return p.permute(0, 1, 2, 4, 5, 3).contiguous()
 
 
 def _torch_tail(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope,
@@ -75,8 +115,7 @@ def _torch_tail(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope,
     that sums the conv in another order may round a conv output the other
     way; this is what that costs.
     """
-    y = instance_norm_s2d(x, scale1, bias1, eps, out_dtype=x.dtype)
-    y = _lrelu_in_dtype(y, negative_slope)
+    y = activated_input(x, scale1, bias1, eps, negative_slope)
     conv = conv_s2d(y, weight2.to(y.dtype), None)
     y = instance_norm_s2d(conv, scale2, bias2, eps, out_dtype=x.dtype)
     out = _lrelu_in_dtype(y, negative_slope)
@@ -95,7 +134,7 @@ def _torch_tail(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope,
     return out, torch.where(full, carried, carried * negative_slope)
 
 
-def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope):
+def _check(x, scale1, bias1, weight2, scale2, bias2) -> None:
     b, hp, wp, c4 = x.shape
     c = c4 // 4
     if x.dtype not in _build.DTYPE_CODES:
@@ -107,29 +146,67 @@ def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope)
     for t in (scale1, bias1, scale2, bias2):
         if tuple(t.shape) != (c,):
             raise ValueError(f"norm affines must have {c} entries, got {tuple(t.shape)}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("fused_s2d_tail needs x at a 16-byte aligned address")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("fused_s2d_tail needs x contiguous at a 16-byte aligned address")
+
+
+def kernel_weights(weight2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """conv_1's kernel as the conv launch takes it: packed (``pack_weights``)
+    in bf16, (3, 3, C_in, C_out) in float32."""
+    if dtype == torch.bfloat16:
+        return pack_weights(weight2.to(dtype))
+    return weight2.to(dtype).permute(2, 3, 1, 0).contiguous()
+
+
+def _partial_rows(dtype: torch.dtype, hp: int) -> int:
+    """IN2's rows of partials per image (``nrows2`` in the source)."""
+    if dtype == torch.bfloat16:
+        return _ROWS_PER_BAND * -(-2 * hp // _BAND_ROWS)
+    return -(-2 * hp // _STRIP_ROWS)
+
+
+def tail_buffers(x: torch.Tensor) -> dict:
+    """The outputs and float32 scratch of one launch on ``x``."""
+    b, hp, wp, c4 = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
-    w = weight2.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # (3, 3, C_in, C_out)
-    affines = [t.to(torch.float32).contiguous() for t in (scale1, bias1, scale2, bias2)]
-    hw = hp * wp
     chunk_px = max(1, _STATS_CHUNK_BYTES // (c4 * x.element_size()))
-    nchunk = -(-hw // chunk_px)
-    nstrips = -(-2 * hp // _STRIP_ROWS)
-    y_conv = torch.empty_like(x)
-    out = torch.empty_like(x)
-    partials1 = torch.empty((b, nchunk, 2, c4), **f32)
-    partials2 = torch.empty((b, nstrips, 2, c4), **f32)
-    stats = [torch.empty((b, c4), **f32) for _ in range(4)]  # mean1, rstd1, mean2, rstd2
+    nchunk = -(-hp * wp // chunk_px)
+    return {"chunk_px": chunk_px, "nchunk": nchunk,
+            "y_conv": torch.empty_like(x), "out": torch.empty_like(x),
+            "partials1": torch.empty((b, nchunk, 2, c4), **f32),
+            "partials2": torch.empty((b, _partial_rows(x.dtype, hp), 2, c4), **f32),
+            # mean1, rstd1, mean2, rstd2
+            "stats": [torch.empty((b, c4), **f32) for _ in range(4)]}
+
+
+def launch_tail(x, scale1, bias1, w, scale2, bias2, buffers: dict, eps: float,
+                negative_slope: float, conv_only: bool = False) -> torch.Tensor:
+    """One launch of the CUDA entry point on checked inputs, ``w`` from
+    ``kernel_weights``; returns ``buffers["out"]``. With ``conv_only`` only
+    the conv runs, on IN1's statistics that an earlier full launch left in
+    ``buffers`` (its output is ``buffers["y_conv"]``): for timing the conv
+    alone. Counts no launch."""
+    b, hp, wp, c4 = x.shape
+    affines = [t.to(torch.float32).contiguous() for t in (scale1, bias1, scale2, bias2)]
+    stats = buffers["stats"]
     fn = _build.kernel_function("unet_s2d_tail_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in affines),
-                  y_conv.data_ptr(), out.data_ptr(), partials1.data_ptr(), stats[0].data_ptr(),
-                  stats[1].data_ptr(), partials2.data_ptr(), stats[2].data_ptr(),
-                  stats[3].data_ptr(), _build.DTYPE_CODES[x.dtype], b, hp, wp, c, chunk_px,
-                  nchunk, nstrips, eps, negative_slope, _build.stream_of(x))
+                  buffers["y_conv"].data_ptr(), buffers["out"].data_ptr(),
+                  buffers["partials1"].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                  buffers["partials2"].data_ptr(), stats[2].data_ptr(), stats[3].data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], b, hp, wp, c4 // 4, buffers["chunk_px"],
+                  buffers["nchunk"], buffers["partials2"].shape[1], eps, negative_slope,
+                  int(conv_only), _build.stream_of(x))
     _build.check(code, "unet_s2d_tail_fwd")
+    return buffers["out"]
+
+
+def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope):
+    x = x.contiguous()
+    _check(x, scale1, bias1, weight2, scale2, bias2)
+    out = launch_tail(x, scale1, bias1, kernel_weights(weight2, x.dtype), scale2, bias2,
+                      tail_buffers(x), eps, negative_slope)
     fused_s2d_tail.launches += 1
     return out
 

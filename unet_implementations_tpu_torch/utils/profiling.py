@@ -21,8 +21,8 @@ XLA), so in a train step it shows among the "other" (elementwise) kinds, and
 under its autograd node.
 
 K3 runs K1's statistics, finalize and apply kernels for its two norms, so in
-the s2d layout those count under K1's kinds; only K3's conv kernel is a kind
-of its own.
+the s2d layout those count under K1's kinds; only K3's conv kernel
+(``s2d_conv_wgmma_kernel`` in bf16) is a kind of its own.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ KINDS = (
     ("K1b instance norm apply", (("in_apply_kernel",),)),
     ("K2b upsample into s2d", (("upsample2x_kernel", "true>"),)),
     ("K2a upsample", (("upsample2x_kernel",),)),
-    ("K3 s2d tail conv", (("s2d_conv_kernel",),)),
+    ("K3 s2d tail conv", (("s2d_conv_",),)),
     ("K4 winograd s2d conv", (("winograd_s2d_",),)),
     ("convolution", tuple((k,) for k in ("conv", "cudnn", "xmma", "gemm", "implicit",
                                          "cutlass", "wgrad", "dgrad"))),
