@@ -4,7 +4,8 @@ paths on one card.
 
     python3 chip_smoke.py
 
-Two layouts of the model are served and trained: dense, and the JAX model's
+Two layouts of the model are served and trained (the recipe of phase 8 runs
+the default, dense): dense, and the JAX model's
 space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
 0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
 K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
@@ -60,11 +61,30 @@ Phases (any failure makes the script exit non-zero without a result line):
    outputs are the kernel's values with the plain version's gradient; 10
    steps on one b8 batch must lower the loss; then the b32 step time,
    images/s and peak memory, and one b32 eval step.
+8. The recipe, through ``cli.main`` in this process: a dataset in the
+   reference directory schema (256 train, 64 val, 64 test images of 512²
+   from ``synthetic_sample``, original sizes 200-500) served from a warm
+   decode cache that the loader's own functions write, since the card has no
+   cv2 (the file decode is covered by the CPU tests). ``our_unet train`` for
+   2 epochs at b32 (bf16, dense): launch counts K1/K2a/K1bwd 22/5/22 per step
+   and 22/5/0 per validation forward, K2b and K3 none; the CSV header, two
+   rows, learning rates 0.0050000 and poly_lr(5e-3, 2)(1), finite values, a
+   lower train loss in epoch 2; ``checkpoints/epoch_{1,2}/`` and
+   ``best_model/`` with ``model.pth`` and ``meta.json``, the latter loading
+   strictly through ``load_reference_checkpoint``. A resume from epoch_2 for
+   a third epoch keeps rows 1-2 as they were. ``our_unet evaluate`` of
+   ``best_model`` in float32 with the kernels (22/5 per test forward) and
+   with the plain versions (none): the JAX package's keys, every scalar
+   within 2e-3; then in bf16, every scalar finite. cv2 is never imported.
+   Printed, not gated: epoch 2's time per step beside phase 7's b32 dense
+   step (whole, and after the epoch's first batch), the loader's share of
+   it, validation ms per batch, the evaluate command's wall time, and one
+   b32 batch's copy to the card from pageable and from pinned memory.
 
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6 and 7).
+runs of the main paths (phases 3, 6, 7 and 8).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -81,6 +101,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -88,7 +109,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
+from unet_implementations_tpu_torch import cli
+from unet_implementations_tpu_torch.data import loader
+from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch, synthetic_sample
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.kernels import instance_norm as k1
 from unet_implementations_tpu_torch.kernels import s2d_region as k3
@@ -107,8 +130,10 @@ from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training.steps import (
     make_segmentation_eval_step,
     make_segmentation_train_step,
+    to_device,
 )
-from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
+from unet_implementations_tpu_torch.training.loop import SEG_CSV_HEADER
+from unet_implementations_tpu_torch.training.train_state import poly_lr, sgd_nesterov
 
 SEED = 0
 IMG = 512
@@ -157,6 +182,21 @@ CHECK_BATCH = 8
 TRAIN_BATCH = 32
 TRAIN_STEPS_DOWN = 10
 TIMED_STEPS, WARMUP_STEPS = 5, 2
+# The recipe (phase 8): images per split and their label directory, the
+# batch, and the epochs of the first run (the resume adds one). Original
+# sizes are drawn per image and side from RECIPE_DIMS.
+RECIPE_SPLITS = {"Train": ("resized_label", 256), "Val": ("processed_labels", 64),
+                 "Test": ("processed_labels", 64)}
+RECIPE_BATCH = 32
+RECIPE_EPOCHS = 2
+RECIPE_DIMS = (200, 500)
+# The float32 evaluate with the kernels against the one with the plain
+# versions: every scalar of evaluation_results.json within this (absolute).
+RECIPE_EVAL_ATOL = 2e-3
+# The keys of the JAX package's evaluation_results.json.
+EVAL_CLASSES = ("background", "cat", "dog")
+EVAL_CLASS_KEYS = ("dice", "iou", "precision", "recall")
+EVAL_KEYS = ("pixel_accuracy", "mean_iou", *EVAL_CLASSES, "mean_foreground_dice")
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
          (300, 300), (181, 257)]
@@ -1448,6 +1488,198 @@ def phase_train():
             torch.cuda.empty_cache()
 
 
+def recipe_item(split_seed: tuple, i: int) -> dict:
+    """One cached item: a 512² synthetic sample as uint8 pixels, its
+    {0, 1, 2, 255} mask, and an original size drawn from RECIPE_DIMS."""
+    rng = np.random.default_rng([*split_seed, i])
+    image, mask = synthetic_sample(rng, IMG)
+    dims = rng.integers(RECIPE_DIMS[0], RECIPE_DIMS[1] + 1, 2).astype(np.int32)
+    return {"image": as_uint8({"image": image})["image"], "mask": mask.astype(np.uint8),
+            "original_dims": dims}
+
+
+def write_recipe_data(data: Path, cache: Path) -> None:
+    """The reference directory schema under ``data``, with stand-in image and
+    mask files, and a warm decode cache under ``cache`` written with the
+    loader's own functions: the datasets read the cache and decode no file
+    (the card has no cv2)."""
+    for k, (split, (labels, n)) in enumerate(RECIPE_SPLITS.items()):
+        images_dir, masks_dir = data / split / "resized", data / split / labels
+        images_dir.mkdir(parents=True)
+        masks_dir.mkdir(parents=True)
+        for i in range(n):
+            (images_dir / f"{split.lower()}_{i:04d}.jpg").write_bytes(b"stand-in")
+            (masks_dir / f"{split.lower()}_{i:04d}.png").write_bytes(b"stand-in")
+        files = sorted(images_dir.glob("*.jpg"))
+        size = (IMG, IMG)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            items = pool.map(lambda i: recipe_item((SEED + 8, k), i), range(n))
+            loader.write_cache(loader.cache_path(cache, images_dir, masks_dir, size),
+                               loader.cache_identity(files, size, True), items, n, size, True)
+
+
+def eval_scalars(results: dict) -> dict:
+    """The scalars of an evaluation_results.json, by dotted name; fails
+    unless its keys are the JAX package's."""
+    if tuple(results) != EVAL_KEYS or any(tuple(results[c]) != EVAL_CLASS_KEYS
+                                          for c in EVAL_CLASSES):
+        raise AssertionError(f"evaluation_results.json keys {list(results)}")
+    out = {k: results[k] for k in ("pixel_accuracy", "mean_iou", "mean_foreground_dice")}
+    for c in EVAL_CLASSES:
+        out.update({f"{c}.{k}": results[c][k] for k in EVAL_CLASS_KEYS})
+    return out
+
+
+def batch_copy_ms() -> dict:
+    """Host-to-card time of one recipe batch from pageable memory and
+    through ``to_device`` (pinned), each the median of 5 after one warm-up."""
+    batch = {"image": np.zeros((RECIPE_BATCH, IMG, IMG, 3), np.uint8),
+             "mask": np.zeros((RECIPE_BATCH, IMG, IMG), np.int32)}
+    ways = {"pageable": lambda a: torch.from_numpy(a).to("cuda", non_blocking=True),
+            "pinned": lambda a: to_device(a, torch.device("cuda"))}
+    out = {}
+    for name, move in ways.items():
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved = [move(a) for a in batch.values()]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            del moved
+        out[name] = statistics.median(ms[1:])
+    return out
+
+
+@phase(f"8. the recipe: cli our_unet train -> resume -> evaluate, unet_6stage "
+       f"b{RECIPE_BATCH} 512² bf16")
+def phase_recipe():
+    if "cv2" in sys.modules:
+        raise AssertionError("cv2 was imported before the recipe ran")
+    n_train, n_val, n_test = (n for _, n in RECIPE_SPLITS.values())
+    steps, val_fwd = n_train // RECIPE_BATCH, -(-n_val // RECIPE_BATCH)
+    test_fwd = -(-n_test // RECIPE_BATCH)
+
+    def per_epoch(epochs: int) -> dict:
+        step, fwd = PER_STEP["dense"], PER_FORWARD["dense"]
+        return {k: epochs * (steps * step[k] + val_fwd * fwd[k]) for k in KERNELS}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, cache, out = Path(tmp) / "data", Path(tmp) / "cache", Path(tmp) / "run"
+        t0 = time.perf_counter()
+        write_recipe_data(data, cache)
+        log(f"dataset: {n_train}/{n_val}/{n_test} images of {IMG}² (original sizes "
+            f"{RECIPE_DIMS[0]}-{RECIPE_DIMS[1]}) in a warm decode cache "
+            f"({time.perf_counter() - t0:.1f} s); stand-in files, so no decode: "
+            f"the file-decode path is covered by the CPU tests (tests/test_torch_loader.py)")
+        train = ["our_unet", "train", "--data_dir", str(data), "--output_dir", str(out),
+                 "--batch_size", str(RECIPE_BATCH), "--save_every", "1",
+                 "--decode_cache", str(cache)]
+
+        # Train.
+        t0 = time.perf_counter()
+        result = counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS)]),
+                              per_epoch(RECIPE_EPOCHS))
+        train_wall = time.perf_counter() - t0
+        log_file = out / "training_log.csv"
+        lines = log_file.read_text().splitlines()
+        log("\n".join(["training_log.csv:", *lines]))
+        if lines[0] != SEG_CSV_HEADER:
+            raise AssertionError(f"CSV header {lines[0]!r}")
+        rows = [ln.split(",") for ln in lines[1:]]
+        if [r[0] for r in rows] != [str(e + 1) for e in range(RECIPE_EPOCHS)]:
+            raise AssertionError(f"CSV epochs {[r[0] for r in rows]}")
+        want_lr = [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)]
+        if [r[7] for r in rows] != want_lr or want_lr[0] != "0.0050000":
+            raise AssertionError(f"learning rates {[r[7] for r in rows]}, want {want_lr}")
+        losses = [float(v) for r in rows for v in r[1:7]]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"a CSV value is not finite: {rows}")
+        if not float(rows[1][1]) < float(rows[0][1]):
+            raise AssertionError(f"epoch 2's train loss {rows[1][1]} is not below epoch "
+                                 f"1's {rows[0][1]}")
+        ckpts = [out / "checkpoints" / f"epoch_{e + 1}" for e in range(RECIPE_EPOCHS)]
+        for d in [*ckpts, out / "best_model"]:
+            if not ((d / "model.pth").is_file() and (d / "meta.json").is_file()):
+                raise AssertionError(f"{d} lacks model.pth or meta.json")
+        convert.load_reference_checkpoint(out / "best_model" / "model.pth", device="cuda")
+        log(f"checkpoints: {[d.name for d in ckpts]} and best_model; best_model/model.pth "
+            f"loads strictly through load_reference_checkpoint")
+
+        # Resume for one more epoch.
+        counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS + 1),
+                                               "--resume", str(ckpts[-1])]), per_epoch(1))
+        resumed = log_file.read_text().splitlines()
+        if resumed[:RECIPE_EPOCHS + 1] != lines or len(resumed) != RECIPE_EPOCHS + 2 or \
+                not resumed[-1].startswith(f"{RECIPE_EPOCHS + 1},"):
+            raise AssertionError("the resumed CSV:\n" + "\n".join(resumed))
+        log(f"resume from epoch_{RECIPE_EPOCHS}: {resumed[-1]}")
+        torch.cuda.empty_cache()
+
+        # Evaluate: float32 with the kernels and with the plain versions, then bf16.
+        def evaluate(name: str, *flags: str) -> tuple[dict, float]:
+            t0 = time.perf_counter()
+            cli.main(["our_unet", "evaluate", "--model_path", str(out / "best_model"),
+                      "--data_dir", str(data), "--output_dir", str(out / name),
+                      "--batch_size", str(RECIPE_BATCH), "--decode_cache", str(cache),
+                      *flags])
+            wall = time.perf_counter() - t0
+            results = json.loads((out / name / "evaluation_results.json").read_text())
+            return eval_scalars(results), wall
+
+        per_test = times(PER_FORWARD["dense"], test_fwd)
+        f32, f32_wall = counted_path(lambda: evaluate("eval_f32", "--f32"), per_test)
+        with plain_versions():
+            plain, _ = counted(lambda: evaluate("eval_f32_plain", "--f32"), NO_LAUNCHES)
+        bf16, bf16_wall = counted_path(lambda: evaluate("eval_bf16"), per_test)
+        log(f"{'scalar':<22} {'f32 kernels':>12} {'f32 plain':>12} {'bf16 kernels':>12}")
+        for k in f32:
+            log(f"{k:<22} {f32[k]:12.6f} {plain[k]:12.6f} {bf16[k]:12.6f}")
+        # Two NaNs agree: a class that neither run predicts has no precision.
+        far = {k: (f32[k], plain[k]) for k in f32
+               if not (abs(f32[k] - plain[k]) <= RECIPE_EVAL_ATOL
+                       or math.isnan(f32[k]) and math.isnan(plain[k]))}
+        if far:
+            raise AssertionError(f"f32 evaluate, kernels against plain, beyond "
+                                 f"{RECIPE_EVAL_ATOL}: {far}")
+        if not all(math.isfinite(v) for v in bf16.values()):
+            raise AssertionError(f"a bf16 evaluation scalar is not finite: {bf16}")
+
+    if "cv2" in sys.modules:
+        raise AssertionError("the recipe imported cv2")
+    # Times, printed and not gated: the loop's own timers of epoch 2.
+    epoch = result["epochs"][-1]
+    step_ms = epoch["train_s"] / epoch["steps"] * 1e3
+    steady_ms = (epoch["train_s"] - epoch["first_batch_s"]) / epoch["steps"] * 1e3
+    phase7 = report.get("train", {}).get("dense", {}).get("step_ms")
+
+    def beside(ms: float) -> str:
+        return (f"; phase 7's b{TRAIN_BATCH} dense step {phase7:.3f} ms, ratio "
+                f"{ms / phase7:.3f}" if phase7 else "")
+
+    log(f"epoch {epoch['epoch']}: {epoch['steps']} steps, train phase {epoch['train_s']:.3f} s, "
+        f"{step_ms:.3f} ms per step{beside(step_ms)}")
+    log(f"epoch {epoch['epoch']}: first batch after {epoch['first_batch_s'] * 1e3:.3f} ms (the "
+        f"device has no work yet); after it {steady_ms:.3f} ms per step{beside(steady_ms)}")
+    log(f"epoch {epoch['epoch']}: the host waited {epoch['data_s']:.3f} s for the loader = "
+        f"{epoch['data_s'] / epoch['epoch_s']:.1%} of the epoch ({epoch['epoch_s']:.3f} s), "
+        f"{epoch['data_s'] / epoch['train_s']:.1%} of its train phase; step dispatch and "
+        f"waits {epoch['step_s']:.3f} s")
+    copy_ms = batch_copy_ms()
+    log(f"one b{RECIPE_BATCH} batch (uint8 pixels, int32 masks) to the card, host clock with "
+        f"a synchronize, median of 5: pageable {copy_ms['pageable']:.3f} ms, through pinned "
+        f"memory (training.steps.to_device) {copy_ms['pinned']:.3f} ms")
+    log(f"validation: {epoch['val_s'] / epoch['val_batches'] * 1e3:.3f} ms per "
+        f"b{RECIPE_BATCH} batch ({epoch['val_batches']} batches)")
+    log(f"evaluate wall time: {f32_wall:.3f} s f32, {bf16_wall:.3f} s bf16 ({n_test} images); "
+        f"train command {train_wall:.3f} s for {RECIPE_EPOCHS} epochs")
+    report["recipe"] = {"step_ms": step_ms, "steady_step_ms": steady_ms,
+                        "phase7_step_ms": phase7, "copy_ms": copy_ms,
+                        "data_share": epoch["data_s"] / epoch["epoch_s"],
+                        "val_ms_per_batch": epoch["val_s"] / epoch["val_batches"] * 1e3,
+                        "eval_wall_s": bf16_wall}
+
+
 def kernels_line() -> dict:
     rows = report["rows"]
     bound_by = report["bound_by"]
@@ -1479,7 +1711,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6 and 7).
+            # The counted runs of the main paths (phases 3, 6, 7 and 8).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1508,6 +1740,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_k4()
         phase_train()
+        torch.cuda.empty_cache()
+        phase_recipe()
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

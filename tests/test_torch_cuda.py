@@ -472,3 +472,16 @@ def test_predict_arrays_runs_the_s2d_kernels():
     assert [w.launches - b for w, b in zip(wrappers, before)] == [16, 3, 2, 3]
     assert [m.shape for m in masks] == [(30, 40), (64, 64)]
     assert set(np.unique(np.concatenate([m.ravel() for m in masks]))) <= {0, 1, 2}
+
+
+def test_to_device_copies_through_pinned_memory():
+    """A host batch reaches the card unchanged, from numpy and from a tensor,
+    and a tensor already on the card stays where it is."""
+    _need_cuda()
+    device = torch.device("cuda")
+    host = np.random.default_rng(3).integers(0, 256, (2, 8, 8, 3)).astype(np.uint8)
+    for value in (host, torch.from_numpy(host)):
+        moved = steps.to_device(value, device)
+        assert moved.device.type == "cuda" and moved.dtype == torch.uint8
+        np.testing.assert_array_equal(moved.cpu().numpy(), host)
+    assert steps.to_device(moved, device) is moved

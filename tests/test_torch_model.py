@@ -243,7 +243,7 @@ importlib.import_module("chip_smoke")
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "unet_implementations_tpu")
 bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
@@ -251,8 +251,12 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
+    # cv2 is imported only where a file is decoded (the card has none).
+    assert result["cv2"] is False
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
                  "kernels.winograd", "models.s2d", "ops.losses", "ops.metrics",
-                 "training.train_state", "training.steps", "data.synthetic"):
+                 "training.train_state", "training.steps", "data.synthetic",
+                 "data.loader", "training.early_stopping", "training.checkpoint",
+                 "training.loop", "recipes.our_unet", "cli"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

@@ -11,10 +11,13 @@ keeps the reference's module names so each counterpart is easy to find:
 - ``kernels``  — hand-written CUDA C++ kernels for ``sm_90a`` (``csrc/``),
                  built with ``nvcc`` at first use and bound with ``ctypes``;
                  the differentiable ones carry their backward.
-- ``training`` — optimizers, schedules, and the segmentation train and eval
-                 steps.
-- ``data``     — synthetic batches.
-- ``recipes``  — the serving path (``predict_segmentation``).
+- ``training`` — optimizers, schedules, the segmentation train and eval
+                 steps, the epoch loop, checkpoints and early stopping.
+- ``data``     — the dataset loader with its decode cache, and synthetic
+                 batches.
+- ``recipes``  — the ``our_unet`` recipe (train, evaluate), dataset
+                 evaluation and the serving path (``predict_segmentation``).
+- ``cli``      — ``our_unet train|evaluate`` and ``predict``.
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they never

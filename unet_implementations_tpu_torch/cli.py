@@ -1,24 +1,93 @@
 """Command line of the PyTorch port.
 
+    python -m unet_implementations_tpu_torch.cli our_unet train \\
+        --data_dir <processed data> --output_dir <run dir> [flags]
+    python -m unet_implementations_tpu_torch.cli our_unet evaluate \\
+        --model_path <run dir>/best_model --data_dir <processed data> [flags]
     python -m unet_implementations_tpu_torch.cli predict \\
         --model_path model.pth --input <image-or-dir> --output_dir predictions
 
-``--model_path`` is a reference-schema ``.pth``, such as the JAX package's
-``cli export_torch`` writes. The forward runs on CUDA unless ``--device``
-names another device.
+The ``our_unet`` flags are the JAX package's (``unet_implementations_tpu/
+cli.py``). ``--device`` is the torch device (default: CUDA; ``cpu`` runs
+the plain PyTorch path). ``--num_workers`` is an alias of
+``--num_threads``; ``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE``
+for every dataset the command opens. ``--no_mesh``, ``--amp`` and
+``--reduced_complexity`` are accepted and do nothing. Not ported yet, and
+refused: ``--online_augment``, ``--spatial`` > 1, ``--grad_accum`` > 1 and
+``--visualize_samples`` > 0 (so it defaults to 0 here, 3 in JAX).
+
+``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
+``.pth``; that of ``predict`` is a reference ``.pth``, such as the JAX
+package's ``cli export_torch`` writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
 
 import torch
 
 
+def _add_compat_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="alias of --num_threads")
+    p.add_argument("--decode_cache", default=None, metavar="DIR",
+                   help="decode each image and mask once into a uint8 memmap cache under "
+                        "DIR and read from it thereafter; applies to every dataset the "
+                        "command opens, and is rebuilt when the source files change")
+    p.add_argument("--device", default=None,
+                   help="torch device, e.g. cuda:1 or cpu (default: cuda)")
+    p.add_argument("--amp", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--reduced_complexity", action="store_true", help=argparse.SUPPRESS)
+
+
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--num_threads", type=int, default=8)
+    p.add_argument("--save_every", type=int, default=10)
+    p.add_argument("--patience", type=int, default=15)
+    p.add_argument("--resume", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no_mesh", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
+    p.add_argument("--grad_accum", type=int, default=1, help="not ported: only 1")
+    p.add_argument("--online_augment", action="store_true", help="not ported")
+    p.add_argument("--lr", type=float, default=5e-3)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--momentum", type=float, default=0.99)
+    p.add_argument("--weighted_ce", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--static_weights", action="store_true")
+    p.add_argument("--dice_weight", type=float, default=1.0)
+    p.add_argument("--ce_weight", type=float, default=1.0)
+    p.add_argument("--spatial", type=int, default=0, help="not ported: only 0 or 1")
+    _add_compat_flags(p)
+
+
+def _add_eval_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_path", required=True,
+                   help="a checkpoint directory or a reference-schema .pth")
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--output_dir", default="evaluation_results")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--visualize_samples", type=int, default=0, help="not ported: only 0")
+    p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
+    _add_compat_flags(p)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="unet_implementations_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    our = sub.add_parser("our_unet", help="train or evaluate the 6-stage UNet")
+    our_sub = our.add_subparsers(dest="cmd", required=True)
+    _add_train_flags(our_sub.add_parser("train"))
+    _add_eval_flags(our_sub.add_parser("evaluate"))
+
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
     pred.add_argument("--model_path", required=True, help="a reference-schema .pth checkpoint")
     pred.add_argument("--input", required=True, help="an image file or a directory of images")
@@ -31,15 +100,52 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _dtype(args) -> torch.dtype:
+    return torch.float32 if args.f32 else torch.bfloat16
+
+
+def _num_threads(args) -> int:
+    # torch's num_workers=0 means "decode in the main process"; the threaded
+    # loader needs at least one worker, so 0 keeps the default.
+    if args.num_workers is not None and args.num_workers > 0:
+        return args.num_workers
+    return getattr(args, "num_threads", 8)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Run one command; returns what its recipe returns (the training
+    loop's result, the evaluation results, or the number of images
+    predicted)."""
     args = build_parser().parse_args(argv)
+    if getattr(args, "decode_cache", None):
+        os.environ["UNET_TPU_DECODE_CACHE"] = args.decode_cache
+
+    if args.command == "our_unet":
+        from unet_implementations_tpu_torch.recipes import our_unet
+
+        if args.cmd == "train":
+            return our_unet.train(
+                args.data_dir, args.output_dir,
+                batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+                weight_decay=args.weight_decay, momentum=args.momentum,
+                weighted_ce=args.weighted_ce, static_weights=args.static_weights,
+                dice_weight=args.dice_weight, ce_weight=args.ce_weight,
+                patience=args.patience, save_every=args.save_every, resume=args.resume,
+                seed=args.seed, dtype=_dtype(args), device=args.device,
+                num_threads=_num_threads(args), online_augment=args.online_augment,
+                spatial=args.spatial, grad_accum=args.grad_accum,
+            )
+        return our_unet.evaluate(
+            args.model_path, args.data_dir, args.output_dir,
+            batch_size=args.batch_size, dtype=_dtype(args), device=args.device,
+            visualize_samples=args.visualize_samples, num_threads=_num_threads(args),
+        )
     if args.command == "predict":
         from unet_implementations_tpu_torch.recipes.common import predict_segmentation
 
-        predict_segmentation(
+        return predict_segmentation(
             args.model_path, args.input, args.output_dir,
-            batch_size=args.batch_size,
-            dtype=torch.float32 if args.f32 else torch.bfloat16,
+            batch_size=args.batch_size, dtype=_dtype(args),
             overlay=not args.no_overlay, device=args.device,
         )
 

@@ -1,24 +1,46 @@
-"""The serving path: segmentation masks for images.
+"""Shared recipe plumbing: dataset evaluation and the serving path.
 
-Counterpart of ``unet_implementations_tpu/recipes/common.py::
-predict_segmentation``. The forward and the argmax run on the model's
-device; the nearest resize back to each image's original size runs on the
-host with torch/cv2 floor index math, as the reference eval protocol does.
+Counterpart of ``unet_implementations_tpu/recipes/common.py``
+(``check_grad_accum``, ``evaluate_segmentation``, ``predict_segmentation``).
+The forward and the argmax run on the model's device; the nearest resize
+back to each image's original size runs on the host with torch/cv2 floor
+index math, as the reference eval protocol does. ``evaluate_segmentation``
+writes ``evaluation_results.json`` with the reference's schema.
 """
 
 from __future__ import annotations
 
+import json
+from collections import deque
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
+from unet_implementations_tpu_torch.ops.metrics import SegmentationMetrics
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
 IMAGE_SIZE = 512
+# Batches whose forward is dispatched before the oldest one's predictions
+# are read back and resized on the host.
+EVAL_RUN_AHEAD = 2
+
+
+def check_grad_accum(batch_size: int, grad_accum: int) -> None:
+    """Fail fast on an indivisible accumulation split, before the datasets
+    load (the train loops drop the last partial batch, so every training
+    batch is ``batch_size``)."""
+    if grad_accum < 1:
+        raise ValueError(f"--grad_accum must be >= 1, got {grad_accum}")
+    if batch_size % grad_accum:
+        raise ValueError(
+            f"--grad_accum {grad_accum} does not divide --batch_size "
+            f"{batch_size} into equal microbatches"
+        )
 
 
 def resize_nearest_np(arr: np.ndarray, size) -> np.ndarray:
@@ -34,6 +56,77 @@ def resize_nearest_np(arr: np.ndarray, size) -> np.ndarray:
         0, in_w - 1,
     )
     return arr[rows][:, cols]
+
+
+def evaluate_segmentation(
+    predict_fn: Callable[[Dict], torch.Tensor],
+    dataset: PetDataset,
+    batch_size: int = 32,
+    output_dir: Optional[str | Path] = None,
+    num_threads: int = 8,
+    verbose: bool = True,
+) -> Dict:
+    """Dataset-level evaluation at original resolution.
+
+    ``predict_fn(batch) -> (B, 512, 512)`` integer predictions (a tensor on
+    the device, or numpy). Each prediction and its 512² mask are
+    nearest-resized to the image's ``original_dims`` and added to one
+    confusion matrix. The forwards run ahead of the host by
+    ``EVAL_RUN_AHEAD`` batches, so the host's resizes overlap the device's
+    work. Returns the reference's results dict and writes
+    ``evaluation_results.json`` when ``output_dir`` is given.
+    """
+    metrics = SegmentationMetrics(num_classes=3, ignore_index=255)
+
+    def process(batch, preds):
+        preds = preds.cpu().numpy() if isinstance(preds, torch.Tensor) else np.asarray(preds)
+        for pred, mask, dims in zip(preds, batch["mask"], batch["original_dims"]):
+            orig = (int(dims[0]), int(dims[1]))
+            metrics.update(resize_nearest_np(pred.astype(np.uint8), orig),
+                           resize_nearest_np(mask.astype(np.uint8), orig))
+
+    pending = deque()
+    for batch in batch_iterator(dataset, batch_size, shuffle=False, num_threads=num_threads):
+        pending.append((batch, predict_fn(batch)))
+        if len(pending) > EVAL_RUN_AHEAD:
+            process(*pending.popleft())
+    while pending:
+        process(*pending.popleft())
+
+    def cls_result(c):
+        return {
+            "dice": metrics.compute_dice(c),
+            "iou": metrics.compute_iou(c),
+            "precision": metrics.compute_precision(c),
+            "recall": metrics.compute_recall(c),
+        }
+
+    results = {
+        "pixel_accuracy": metrics.compute_pixel_accuracy(),
+        "mean_iou": metrics.compute_mean_iou(),
+        "background": cls_result(0),
+        "cat": cls_result(1),
+        "dog": cls_result(2),
+    }
+    results["mean_foreground_dice"] = float(
+        np.nanmean([results["cat"]["dice"], results["dog"]["dice"]]))
+
+    if verbose:
+        print(f"Pixel Accuracy: {results['pixel_accuracy']:.4f}")
+        print(f"Mean IoU: {results['mean_iou']:.4f}")
+        print(f"Mean Foreground Dice: {results['mean_foreground_dice']:.4f}")
+        for name in ("background", "cat", "dog"):
+            m = results[name]
+            print(f"{name.capitalize():<10} | Precision: {m['precision']:.4f} | "
+                  f"Recall: {m['recall']:.4f} | IoU: {m['iou']:.4f} | "
+                  f"Dice: {m['dice']:.4f}")
+
+    if output_dir is not None:
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        with open(output_dir / "evaluation_results.json", "w") as f:
+            json.dump(results, f, indent=4)
+    return results
 
 
 @torch.inference_mode()

@@ -1,0 +1,245 @@
+"""Our_UNet recipe: the 6-stage UNet trained from scratch on Pet segmentation.
+
+Counterpart of ``unet_implementations_tpu/recipes/our_unet.py``:
+SGD(5e-3, weight decay 1e-4, momentum 0.99, Nesterov) with polynomial LR
+decay, the combined Dice + weighted-CE loss with dynamic / static /
+unweighted class weights, early stopping (patience 15) on mean foreground
+Dice, checkpoints every 10 epochs and on a new best, and the
+original-resolution test evaluation writing ``evaluation_results.json``.
+
+The model is ``unet_6stage`` in the port's default (dense) layout, with
+float32 parameters and bf16 compute unless ``dtype`` says otherwise. Entry
+points run on CUDA unless ``device`` names another device. Not ported yet
+(each raises ``NotImplementedError``): on-device augmentation, spatial and
+gradient-accumulation training, and the evaluation's visualizations.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
+from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
+from unet_implementations_tpu_torch.recipes.common import check_grad_accum, evaluate_segmentation
+from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
+from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
+from unet_implementations_tpu_torch.training.steps import (
+    make_segmentation_eval_step,
+    make_segmentation_train_step,
+    to_device,
+)
+from unet_implementations_tpu_torch.training.train_state import poly_lr, sgd_nesterov
+
+ARCH_CONFIG = {
+    "num_classes": 3,
+    "n_stages": 6,
+    "features_per_stage": [32, 64, 128, 256, 512, 512],
+    "strides": [1, 2, 2, 2, 2, 2],
+    "encoder_dropout_rates": [0.0, 0.0, 0.1, 0.2, 0.3, 0.3],
+    "decoder_dropout_rates": [0.3, 0.2, 0.2, 0.1, 0.0],
+}
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
+
+
+def build_model(dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0) -> UNet:
+    return unet_6stage(dtype=dtype, device=device,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def compute_static_weights(dataset: PetDataset, batch_size: int = 32) -> np.ndarray:
+    """Dataset-wide inverse-frequency class weights, summing to 3. With
+    several processes they are counted over the full file list, so every
+    process trains on the same loss."""
+    if dataset.process_count > 1:
+        dataset = PetDataset(
+            dataset.images_dir, dataset.masks_dir,
+            include_augmented=dataset.aug_masks_dir is not None,
+            target_size=dataset.target_size, normalize=dataset.normalize,
+            emit_uint8=True,
+        )
+    counts = np.zeros(3, np.float64)
+    total = 0.0
+    for batch in batch_iterator(dataset, batch_size, shuffle=False):
+        mask = batch["mask"]
+        valid = mask != 255
+        for c in range(3):
+            counts[c] += ((mask == c) & valid).sum()
+        total += valid.sum()
+    counts = np.maximum(counts, 1.0)
+    weights = total / counts
+    return (weights * (3 / weights.sum())).astype(np.float32)
+
+
+def make_datasets(
+    data_dir: str | Path,
+    include_augmented: bool = True,
+    normalize_train: bool = True,
+    emit_uint8: bool = True,
+):
+    """Train and validation datasets for the training loop. ``emit_uint8``
+    (on for training) leaves the pixels uint8; the steps normalize them on
+    the device."""
+    data_dir = Path(data_dir)
+    train = PetDataset(
+        data_dir / "Train" / "resized",
+        data_dir / "Train" / "resized_label",
+        include_augmented=include_augmented,
+        normalize=normalize_train,
+        emit_uint8=emit_uint8,
+    )
+    val = PetDataset(
+        data_dir / "Val" / "resized",
+        data_dir / "Val" / "processed_labels",
+        include_augmented=False,
+        emit_uint8=emit_uint8,
+    )
+    return train, val
+
+
+def train(
+    data_dir: str | Path,
+    output_dir: str | Path,
+    *,
+    batch_size: int = 32,
+    epochs: int = 100,
+    lr: float = 5e-3,
+    weight_decay: float = 1e-4,
+    momentum: float = 0.99,
+    weighted_ce: bool = True,
+    static_weights: bool = False,
+    dice_weight: float = 1.0,
+    ce_weight: float = 1.0,
+    patience: int = 15,
+    save_every: int = 10,
+    resume: Optional[str] = None,
+    seed: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+    num_threads: int = 8,
+    online_augment: bool = False,
+    spatial: int = 0,
+    grad_accum: int = 1,
+    verbose: bool = True,
+) -> Dict:
+    """Train from scratch (or from ``resume``, a checkpoint directory) and
+    return the loop's result (``best_metric``, ``epochs_run``, ``step`` and
+    each epoch's timers)."""
+    check_grad_accum(batch_size, grad_accum)
+    if online_augment:
+        raise not_ported("--online_augment", 4)
+    if spatial and spatial > 1:
+        raise not_ported("--spatial", 7)
+    if grad_accum > 1:
+        raise not_ported("--grad_accum", 7)
+    device = default_device(device)
+    output_dir = Path(output_dir)
+    write_training_config(output_dir, dict(
+        data_dir=str(data_dir), output_dir=str(output_dir), batch_size=batch_size,
+        epochs=epochs, lr=lr, weight_decay=weight_decay, momentum=momentum,
+        weighted_ce=weighted_ce, static_weights=static_weights,
+        dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
+        save_every=save_every, seed=seed, dtype=str(dtype),
+        online_augment=online_augment, spatial=spatial, grad_accum=grad_accum,
+    ))
+
+    train_ds, val_ds = make_datasets(data_dir)
+    if verbose:
+        print(f"Training dataset size: {len(train_ds)}")
+        print(f"Validation dataset size: {len(val_ds)}")
+
+    model = build_model(dtype, device, seed)
+    optimizer = sgd_nesterov(model.parameters(), lr, weight_decay, momentum)
+
+    sw = None
+    if weighted_ce and static_weights:
+        sw = torch.from_numpy(compute_static_weights(train_ds, batch_size)).to(device)
+        if verbose:
+            print(f"Computed class weights: {sw.cpu().numpy()}")
+    loss_kw = dict(weight_ce=ce_weight, weight_dice=dice_weight,
+                   dynamic_weights=weighted_ce and not static_weights, static_weights=sw)
+    train_step = make_segmentation_train_step(model, optimizer, **loss_kw)
+    eval_step = make_segmentation_eval_step(model, **loss_kw)
+
+    start_epoch, best, es_state, step = 0, None, None, 0
+    if resume:
+        meta = restore_checkpoint(resume, model, optimizer)
+        start_epoch = meta.get("epoch", 0)
+        best = meta.get("best_metric")
+        es_state = meta.get("early_stopping")
+        step = meta["step"]
+        if verbose:
+            print(f"Resumed from epoch {start_epoch}")
+
+    def train_batches(epoch):
+        return batch_iterator(train_ds, batch_size, shuffle=True, seed=seed * 1000 + epoch,
+                              drop_last=True, num_threads=num_threads)
+
+    def val_batches():
+        return batch_iterator(val_ds, batch_size, num_threads=num_threads)
+
+    return train_loop(
+        model, optimizer,
+        train_step=train_step,
+        eval_step=eval_step,
+        train_batches=train_batches,
+        val_batches=val_batches,
+        lr_schedule=poly_lr(lr, epochs),
+        epochs=epochs,
+        output_dir=output_dir,
+        task="segmentation",
+        dropout_seed=seed + 1,
+        step=step,
+        save_every=save_every,
+        patience=patience,
+        start_epoch=start_epoch,
+        best_metric=best,
+        early_stopping_state=es_state,
+        arch_config=ARCH_CONFIG,
+        verbose=verbose,
+    )
+
+
+def evaluate(
+    model_path: str | Path,
+    data_dir: str | Path,
+    output_dir: str | Path,
+    *,
+    batch_size: int = 32,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+    visualize_samples: int = 0,
+    num_threads: int = 8,
+    verbose: bool = True,
+) -> Dict:
+    """Evaluate a checkpoint directory, or a reference ``.pth`` (such as
+    the JAX package's ``cli export_torch`` writes), on ``Test/`` at each
+    image's original resolution."""
+    if visualize_samples > 0:
+        raise not_ported("--visualize_samples", 8)
+    device = default_device(device)
+    model = restore_params(model_path, build_model(dtype, device)).eval()
+
+    test_ds = PetDataset(
+        Path(data_dir) / "Test" / "resized",
+        Path(data_dir) / "Test" / "processed_labels",
+        include_augmented=False,
+    )
+    if verbose:
+        print(f"Test dataset size: {len(test_ds)} images")
+
+    @torch.inference_mode()
+    def predict_fn(batch):
+        images = to_device(batch["image"], device).to(dtype)
+        return torch.argmax(model(images), dim=-1).to(torch.int32)
+
+    return evaluate_segmentation(predict_fn, test_ds, batch_size, output_dir,
+                                 num_threads=num_threads, verbose=verbose)

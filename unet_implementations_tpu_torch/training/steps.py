@@ -5,8 +5,9 @@ Counterpart of ``unet_implementations_tpu/training/steps.py`` (its lines
 the port runs eagerly and updates the model and its optimizer in place.
 
 A batch is ``{"image": (B, H, W, 3) uint8 or float, "mask": (B, H, W) int}``,
-numpy arrays or tensors; it moves to the model's device, where uint8 pixels
-are ImageNet-normalized in the step (``ops.normalize``), as in JAX.
+numpy arrays or tensors; it moves to the model's device (through pinned
+memory, ``to_device``), where uint8 pixels are ImageNet-normalized in the
+step (``ops.normalize``), as in JAX.
 
 The train step runs the forward in training mode, with channel dropout drawn
 from the ``torch.Generator`` it is given (on the model's device), then
@@ -29,10 +30,20 @@ from unet_implementations_tpu_torch.ops.metrics import batch_dice_scores, confus
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 
 
+def to_device(value, device: torch.device) -> torch.Tensor:
+    """A host array (or a tensor) on ``device``. From the host to a CUDA
+    device it goes through page-locked memory: a copy from pageable memory
+    holds the stream for the whole staged transfer, so the device would wait
+    for it on every batch; from pinned memory the copy runs at the link's
+    rate and the host does not wait."""
+    tensor = torch.as_tensor(value)
+    if device.type == "cuda" and tensor.device.type == "cpu":
+        tensor = tensor.pin_memory()
+    return tensor.to(device, non_blocking=True)
+
+
 def _on_device(batch: Dict, device: torch.device):
-    image = torch.as_tensor(batch["image"]).to(device, non_blocking=True)
-    mask = torch.as_tensor(batch["mask"]).to(device, non_blocking=True)
-    return normalize_image(image), mask
+    return normalize_image(to_device(batch["image"], device)), to_device(batch["mask"], device)
 
 
 def make_segmentation_train_step(
