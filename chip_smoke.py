@@ -4,8 +4,11 @@ paths on one card.
 
     python3 chip_smoke.py
 
-Two layouts of the model are served and trained (the recipe of phase 8 runs
-the default, dense): dense, and the JAX model's
+Two models: the segmentation UNet (``unet_6stage``) and the autoencoder
+(``autoencoder_6stage``, phase 9), whose encoder the transfer recipe grafts
+onto the UNet and freezes. Two layouts of the model are served and trained
+(the recipes of phases 8 and 9 run the default, dense): dense, and the JAX
+model's
 space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
 0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
 K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
@@ -80,11 +83,35 @@ Phases (any failure makes the script exit non-zero without a result line):
    step (whole, and after the epoch's first batch), the loader's share of
    it, validation ms per batch, the evaluate command's wall time, and one
    b32 batch's copy to the card from pageable and from pinned memory.
+9. The AE_pretrained path, dense, bf16 with float32 parameters. The AE train
+   step (``autoencoder_6stage``, MSE, Adam-L2): launch counts K1/K2a/K1bwd
+   22/5/22; at b8 the loss and gradients against the plain versions at
+   phase 7's gates; 10 b8 steps must lower the MSE; the b32 time and peak
+   memory. The transfer step (``unet_6stage`` with the encoder grafted from
+   the autoencoder's checkpoint by ``extract_encoder_params`` and frozen by
+   ``with_frozen``, SGD-Nesterov on the rest): 22/5/10 (autograd records
+   nothing in the encoder, so only the 10 decoder norms run K1's backward);
+   after 10 b8 steps the six encoder stages are bit for bit the
+   autoencoder's and every decoder and head weight moved; the b32 time and
+   peak memory. The autoencoder's b8 forward in both layouts (22/5/0/0 and
+   16/3/2/3) against the plain versions at phase 4's rel-L2 bounds, and f32
+   s2d against f32 dense. Then through ``cli.main`` on phase 8's dataset,
+   with reconstruction-mode decode caches written beside its segmentation
+   ones: ``ae_recon train`` 2 epochs at b32 (the AE CSV header, cosine
+   learning rates, finite values, epoch 2's train loss below epoch 1's,
+   ``best_model`` loading strictly as ``arch="ae_recon"``); ``ae_recon
+   evaluate`` in float32 with the kernels and with the plain versions (the
+   JAX package's keys; mse, psnr and ssim within 2e-3 relative) and in bf16
+   (finite); ``ae_transfer train --pretrained_encoder <ae>/best_model`` 2
+   epochs (the segmentation CSV checks, and its ``best_model``'s encoder bit
+   for bit the autoencoder's); ``ae_transfer evaluate``. Printed, not gated:
+   the AE and transfer step times, and both recipes' time per step after
+   their first batch, beside phase 7's b32 dense step.
 
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6, 7 and 8).
+runs of the main paths (phases 3, 6, 7, 8 and 9).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -123,17 +150,35 @@ from unet_implementations_tpu_torch.models.s2d import (
     space_to_depth,
     upsample2x_into_s2d,
 )
-from unet_implementations_tpu_torch.models.unet import DEFAULT_FEATURES, S2D_LAYOUT, unet_6stage
+from unet_implementations_tpu_torch.models.unet import (
+    DEFAULT_FEATURES,
+    S2D_LAYOUT,
+    autoencoder_6stage,
+    encoder_param_names,
+    unet_6stage,
+)
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
+from unet_implementations_tpu_torch.training.checkpoint import (
+    extract_encoder_params,
+    load_checkpoint,
+    save_checkpoint,
+)
 from unet_implementations_tpu_torch.training.steps import (
+    make_reconstruction_train_step,
     make_segmentation_eval_step,
     make_segmentation_train_step,
     to_device,
 )
-from unet_implementations_tpu_torch.training.loop import SEG_CSV_HEADER
-from unet_implementations_tpu_torch.training.train_state import poly_lr, sgd_nesterov
+from unet_implementations_tpu_torch.training.loop import AE_CSV_HEADER, SEG_CSV_HEADER
+from unet_implementations_tpu_torch.training.train_state import (
+    adam_l2,
+    cosine_lr,
+    poly_lr,
+    sgd_nesterov,
+    with_frozen,
+)
 
 SEED = 0
 IMG = 512
@@ -197,6 +242,14 @@ RECIPE_EVAL_ATOL = 2e-3
 EVAL_CLASSES = ("background", "cat", "dog")
 EVAL_CLASS_KEYS = ("dice", "iou", "precision", "recall")
 EVAL_KEYS = ("pixel_accuracy", "mean_iou", *EVAL_CLASSES, "mean_foreground_dice")
+# The AE_pretrained path (phase 9). The transfer step's K1 backwards: one per
+# decoder norm, since autograd records nothing in the frozen encoder.
+TRANSFER_PER_STEP = {**PER_STEP["dense"], "K1bwd": 2 * len(K2_INPUTS)}
+# The float32 ae_recon evaluate with the kernels against the one with the
+# plain versions: mse, psnr and ssim within this (relative).
+AE_EVAL_REL = 2e-3
+# The keys of the JAX package's reconstruction_metrics.json.
+AE_METRIC_KEYS = ("mse", "psnr", "ssim", "num_images")
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
          (300, 300), (181, 257)]
@@ -561,15 +614,19 @@ def check_k3(args, label: str) -> str:
     return f"{label}: {detail} ok"
 
 
-def check_forwards(served, reference, x: torch.Tensor, per_forward: dict) -> dict:
+def check_forwards(served, reference, x: torch.Tensor, per_forward: dict,
+                   agreement: bool = True, path: bool = False) -> dict:
     """The bf16 and float32 models with the kernels and with the plain
     versions on the same input ``x``; fails unless the bounds are met. Returns
-    the rel-L2 and argmax agreement of each pair, and the float32 logits with
-    the kernels."""
+    the rel-L2 and argmax agreement of each pair, and the float32 outputs with
+    the kernels. ``agreement``: gate the argmax agreement too (logits; not
+    for reconstructions). ``path``: the runs with the kernels count in the
+    kernels line."""
+    count = counted_path if path else counted
     with deterministic(), torch.inference_mode():
-        out = {"bf16": counted(lambda: served(x), per_forward),
-               "bf16 again": counted(lambda: served(x), per_forward),
-               "f32": counted(lambda: reference(x), per_forward)}
+        out = {"bf16": count(lambda: served(x), per_forward),
+               "bf16 again": count(lambda: served(x), per_forward),
+               "f32": count(lambda: reference(x), per_forward)}
         with plain_versions():
             out["bf16 plain"] = counted(lambda: served(x), NO_LAUNCHES)
             out["f32 plain"] = counted(lambda: reference(x), NO_LAUNCHES)
@@ -587,9 +644,9 @@ def check_forwards(served, reference, x: torch.Tensor, per_forward: dict) -> dic
         "finite": all(bool(torch.isfinite(v).all()) for v in out.values()),
         "repeat": repeat,
         "f32 rel-L2": f32_r <= E2E_F32_REL_L2,
-        "f32 agreement": f32_a >= E2E_F32_AGREEMENT,
+        "f32 agreement": f32_a >= E2E_F32_AGREEMENT or not agreement,
         "bf16 rel-L2 vs f32": k_r <= p_r * (1 + E2E_BF16_SLACK),
-        "bf16 agreement vs f32": k_a >= p_a - E2E_BF16_AGREEMENT_SLACK,
+        "bf16 agreement vs f32": k_a >= p_a - E2E_BF16_AGREEMENT_SLACK or not agreement,
     }
     log(f"bounds: f32 rel-L2 <= {E2E_F32_REL_L2:g}, agreement >= {E2E_F32_AGREEMENT:g}; "
         f"bf16 rel-L2 to f32 plain <= {p_r * (1 + E2E_BF16_SLACK):.4e}, agreement to f32 "
@@ -605,12 +662,14 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
             float((a.argmax(-1) == b.argmax(-1)).float().mean()))
 
 
-def check_layouts_agree(f32_s2d: torch.Tensor, f32_dense: torch.Tensor, label: str) -> tuple:
+def check_layouts_agree(f32_s2d: torch.Tensor, f32_dense: torch.Tensor, label: str,
+                        agreement: bool = True) -> tuple:
     """The float32 s2d forward against the float32 dense forward on the same
     weights and input: the layout is an exact rewrite, so the bounds of the
-    float32 kernel checks hold."""
+    float32 kernel checks hold (the argmax agreement only with
+    ``agreement``)."""
     r, a = compare(f32_s2d, f32_dense)
-    ok = r <= E2E_F32_REL_L2 and a >= E2E_F32_AGREEMENT
+    ok = r <= E2E_F32_REL_L2 and (a >= E2E_F32_AGREEMENT or not agreement)
     log(f"{label} f32 s2d vs f32 dense (kernels, TF32 off): logits rel-L2 {r:.4e}, argmax "
         f"agreement {a:.6f} (bounds {E2E_F32_REL_L2:g}, {E2E_F32_AGREEMENT:g}): {ok}")
     if not ok:
@@ -1297,8 +1356,18 @@ def group_rel_l2(grads: dict, ref: dict, groups: dict) -> dict:
             for g, names in groups.items()}
 
 
-def train_model(layout: str, state: dict, dtype):
-    model = unet_6stage(dtype=dtype, device="cuda", **LAYOUTS[layout])
+# The two training objectives: the model's constructor, and its train step
+# with the recipe's optimizer at the JAX defaults.
+OBJECTIVES = {
+    "segmentation": (unet_6stage, lambda m: make_segmentation_train_step(
+        m, sgd_nesterov(m.parameters()))),
+    "reconstruction": (autoencoder_6stage, lambda m: make_reconstruction_train_step(
+        m, adam_l2(m.parameters()))),
+}
+
+
+def train_model(layout: str, state: dict, dtype, objective: str = "segmentation"):
+    model = OBJECTIVES[objective][0](dtype=dtype, device="cuda", **LAYOUTS[layout])
     model.load_state_dict(state, strict=True)
     return model
 
@@ -1313,10 +1382,11 @@ STEP_MODES = {"kernels": None, "plain": k1_plain, "kernel values": k1_kernel_val
               "reordered": k1_reordered}
 
 
-def one_step(layout: str, state: dict, dtype, batch: dict, mode: str):
+def one_step(layout: str, state: dict, dtype, batch: dict, mode: str,
+             objective: str = "segmentation"):
     """One train step from ``state`` (counted): the loss and every gradient."""
-    model = train_model(layout, state, dtype)
-    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    model = train_model(layout, state, dtype, objective)
+    step = OBJECTIVES[objective][1](model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     expected = {"kernels": PER_STEP[layout], "kernel values": {
         **NO_LAUNCHES, "K1": PER_STEP[layout]["K1"]}}.get(mode, NO_LAUNCHES)
@@ -1328,11 +1398,14 @@ def one_step(layout: str, state: dict, dtype, batch: dict, mode: str):
     return loss, grads, grad_groups(model)
 
 
-def check_train_step(layout: str, state: dict, batch: dict) -> dict:
-    runs = {(torch.float32, mode): one_step(layout, state, torch.float32, batch, mode)
+def check_train_step(layout: str, state: dict, batch: dict,
+                     objective: str = "segmentation") -> dict:
+    runs = {(torch.float32, mode): one_step(layout, state, torch.float32, batch, mode, objective)
             for mode in STEP_MODES}
-    runs.update({(torch.bfloat16, mode): one_step(layout, state, torch.bfloat16, batch, mode)
+    runs.update({(torch.bfloat16, mode): one_step(layout, state, torch.bfloat16, batch, mode,
+                                                  objective)
                  for mode in ("kernels", "plain")})
+    name = layout if objective == "segmentation" else f"AE {layout}"
     f32, f32_plain = runs[(torch.float32, "kernels")], runs[(torch.float32, "plain")]
     f32_values, f32_reordered = (runs[(torch.float32, "kernel values")],
                                  runs[(torch.float32, "reordered")])
@@ -1356,20 +1429,20 @@ def check_train_step(layout: str, state: dict, batch: dict) -> dict:
     all_k, all_p = all_rel(bf[1], f32_plain[1]), all_rel(bf_plain[1], f32_plain[1])
     dl_k, dl_p = abs(bf[0] - f32_plain[0]), abs(bf_plain[0] - f32_plain[0])
     med = statistics.median
-    log(f"{layout} b{CHECK_BATCH} step losses: f32 {f32[0]:.7f} / plain {f32_plain[0]:.7f} "
+    log(f"{name} b{CHECK_BATCH} step losses: f32 {f32[0]:.7f} / plain {f32_plain[0]:.7f} "
         f"(rel {loss_rel:.3e}) / kernel values {f32_values[0]:.7f} (rel {values_loss_rel:.3e}); "
         f"bf16 {bf[0]:.7f} / plain {bf_plain[0]:.7f}")
-    log(f"{layout} f32 gradients vs the step with the kernel's values and the plain gradient: "
+    log(f"{name} f32 gradients vs the step with the kernel's values and the plain gradient: "
         f"worst group rel-L2 {g32[worst32]:.3e} ({worst32}), median {med(g32.values()):.3e} over "
         f"{len(groups)} groups")
     worst_plain = max(g_plain, key=g_plain.get)
-    log(f"{layout} f32 gradients vs the plain step: all parameters "
+    log(f"{name} f32 gradients vs the plain step: all parameters "
         f"{all_rel(f32[1], f32_plain[1]):.3e}, worst group {g_plain[worst_plain]:.3e} "
         f"({worst_plain}), median {med(g_plain.values()):.3e}; the plain step with K1's sums "
         f"reordered vs the plain step: all parameters "
         f"{all_rel(f32_reordered[1], f32_plain[1]):.3e}, worst group "
         f"{max(g_reord.values()):.3e}, median {med(g_reord.values()):.3e}")
-    log(f"{layout} bf16 gradients to f32 plain, kernels/plain: all parameters {all_k:.4e}/"
+    log(f"{name} bf16 gradients to f32 plain, kernels/plain: all parameters {all_k:.4e}/"
         f"{all_p:.4e}; worst group ratio {ratio[worst_ratio]:.3f} ({worst_ratio}: "
         f"{gk[worst_ratio]:.4e}/{gp[worst_ratio]:.4e}); |loss - f32 plain| {dl_k:.3e}/{dl_p:.3e}")
     checks = {"f32 loss": loss_rel <= TRAIN_F32_LOSS_REL,
@@ -1380,17 +1453,37 @@ def check_train_step(layout: str, state: dict, batch: dict) -> dict:
               "bf16 all grads": all_k <= all_p * (1 + E2E_BF16_SLACK),
               "bf16 loss": dl_k <= dl_p * (1 + E2E_BF16_SLACK),
               "finite": all(math.isfinite(r[0]) for r in runs.values())}
-    log(f"{layout} train-step bounds: f32 loss rel <= {TRAIN_F32_LOSS_REL:g}, f32 grad rel-L2 "
+    log(f"{name} train-step bounds: f32 loss rel <= {TRAIN_F32_LOSS_REL:g}, f32 grad rel-L2 "
         f"<= {TRAIN_F32_GRAD_REL:g} (against the kernel's values with the plain gradient) and "
         f"<= {TRAIN_F32_PLAIN_GRAD_REL:g} (against the plain step), bf16 within "
         f"{E2E_BF16_SLACK:g} of the bf16 plain step: {checks}")
     if not all(checks.values()):
-        raise AssertionError(f"{layout}: the train step with kernels misses its bounds: {checks}")
+        raise AssertionError(f"{name}: the train step with kernels misses its bounds: {checks}")
     return {"f32 loss rel": loss_rel, "f32 worst grad rel-L2": g32[worst32],
             "f32 vs plain worst grad rel-L2": max(g_plain.values()),
             "f32 reordered vs plain worst grad rel-L2": max(g_reord.values()),
             "bf16 worst grad ratio": ratio[worst_ratio], "bf16 all grads": (all_k, all_p),
             "bf16 loss err": (dl_k, dl_p)}
+
+
+def timed_steps(label: str, step, batch: dict, expected: dict) -> tuple[float, float]:
+    """The median of TIMED_STEPS b32 steps by CUDA events after WARMUP_STEPS
+    and the peak memory, every step counted; fails unless the loss of one
+    more step is finite. Returns (median ms, peak GiB)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_times(lambda b: counted_path(lambda: step(b, gen), expected), [batch],
+                    iters=TIMED_STEPS, warmup=WARMUP_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(ms)
+    last = counted_path(lambda: float(step(batch, gen)), expected)
+    log(f"{label} b{TRAIN_BATCH} 512² bf16: {spread(ms)}, "
+        f"{TRAIN_BATCH / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; loss after "
+        f"{WARMUP_STEPS + TIMED_STEPS + 1} steps {last:.4f}")
+    if not math.isfinite(last):
+        raise AssertionError(f"{label}: the b{TRAIN_BATCH} loss is not finite")
+    return med, peak
 
 
 @contextmanager
@@ -1442,20 +1535,7 @@ def train_layout(layout: str, path: Path) -> None:
     # The b32 step: the model loaded from the .pth, a batch already on the card.
     batch = device_batch(as_uint8(synthetic_batch(SEED + 4, TRAIN_BATCH, IMG)))
     step = make_segmentation_train_step(served, sgd_nesterov(served.parameters()))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_times(lambda b: counted_path(lambda: step(b, gen), PER_STEP[layout]), [batch],
-                    iters=TIMED_STEPS, warmup=WARMUP_STEPS)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    med = statistics.median(ms)
-    last = counted_path(lambda: float(step(batch, gen)), PER_STEP[layout])
-    log(f"{layout} train step b{TRAIN_BATCH} 512² bf16: {spread(ms)}, "
-        f"{TRAIN_BATCH / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; loss after "
-        f"{WARMUP_STEPS + TIMED_STEPS + 1} steps {last:.4f}")
-    if not math.isfinite(last):
-        raise AssertionError(f"{layout}: the b{TRAIN_BATCH} loss is not finite")
+    med, peak = timed_steps(f"{layout} train step", step, batch, PER_STEP[layout])
     evaluate = make_segmentation_eval_step(served)
     evaluate(batch)
     torch.cuda.synchronize()
@@ -1496,6 +1576,30 @@ def recipe_item(split_seed: tuple, i: int) -> dict:
     dims = rng.integers(RECIPE_DIMS[0], RECIPE_DIMS[1] + 1, 2).astype(np.int32)
     return {"image": as_uint8({"image": image})["image"], "mask": mask.astype(np.uint8),
             "original_dims": dims}
+
+
+def recipe_data(root: Path) -> tuple[Path, Path]:
+    """``root/data`` and ``root/cache``, written by the first phase that asks
+    (8, or 9 when 8 failed before writing them)."""
+    data, cache = root / "data", root / "cache"
+    if not data.exists():
+        t0 = time.perf_counter()
+        write_recipe_data(data, cache)
+        n_train, n_val, n_test = (n for _, n in RECIPE_SPLITS.values())
+        log(f"dataset: {n_train}/{n_val}/{n_test} images of {IMG}² (original sizes "
+            f"{RECIPE_DIMS[0]}-{RECIPE_DIMS[1]}) in a warm decode cache "
+            f"({time.perf_counter() - t0:.1f} s); stand-in files, so no decode: "
+            f"the file-decode path is covered by the CPU tests (tests/test_torch_loader.py)")
+    return data, cache
+
+
+def per_epoch(per_step: dict, epochs: int) -> dict:
+    """Launches of ``epochs`` recipe epochs: the train steps and the
+    validation forwards (dense)."""
+    steps = RECIPE_SPLITS["Train"][1] // RECIPE_BATCH
+    val_fwd = -(-RECIPE_SPLITS["Val"][1] // RECIPE_BATCH)
+    fwd = PER_FORWARD["dense"]
+    return {k: epochs * (steps * per_step[k] + val_fwd * fwd[k]) for k in KERNELS}
 
 
 def write_recipe_data(data: Path, cache: Path) -> None:
@@ -1553,97 +1657,87 @@ def batch_copy_ms() -> dict:
 
 @phase(f"8. the recipe: cli our_unet train -> resume -> evaluate, unet_6stage "
        f"b{RECIPE_BATCH} 512² bf16")
-def phase_recipe():
+def phase_recipe(root: Path):
     if "cv2" in sys.modules:
         raise AssertionError("cv2 was imported before the recipe ran")
-    n_train, n_val, n_test = (n for _, n in RECIPE_SPLITS.values())
-    steps, val_fwd = n_train // RECIPE_BATCH, -(-n_val // RECIPE_BATCH)
+    n_test = RECIPE_SPLITS["Test"][1]
     test_fwd = -(-n_test // RECIPE_BATCH)
 
-    def per_epoch(epochs: int) -> dict:
-        step, fwd = PER_STEP["dense"], PER_FORWARD["dense"]
-        return {k: epochs * (steps * step[k] + val_fwd * fwd[k]) for k in KERNELS}
+    data, cache = recipe_data(root)
+    out = root / "run"
+    train = ["our_unet", "train", "--data_dir", str(data), "--output_dir", str(out),
+             "--batch_size", str(RECIPE_BATCH), "--save_every", "1",
+             "--decode_cache", str(cache)]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data, cache, out = Path(tmp) / "data", Path(tmp) / "cache", Path(tmp) / "run"
+    # Train.
+    t0 = time.perf_counter()
+    result = counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS)]),
+                          per_epoch(PER_STEP["dense"], RECIPE_EPOCHS))
+    train_wall = time.perf_counter() - t0
+    log_file = out / "training_log.csv"
+    lines = log_file.read_text().splitlines()
+    log("\n".join(["training_log.csv:", *lines]))
+    if lines[0] != SEG_CSV_HEADER:
+        raise AssertionError(f"CSV header {lines[0]!r}")
+    rows = [ln.split(",") for ln in lines[1:]]
+    if [r[0] for r in rows] != [str(e + 1) for e in range(RECIPE_EPOCHS)]:
+        raise AssertionError(f"CSV epochs {[r[0] for r in rows]}")
+    want_lr = [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)]
+    if [r[7] for r in rows] != want_lr or want_lr[0] != "0.0050000":
+        raise AssertionError(f"learning rates {[r[7] for r in rows]}, want {want_lr}")
+    losses = [float(v) for r in rows for v in r[1:7]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a CSV value is not finite: {rows}")
+    if not float(rows[1][1]) < float(rows[0][1]):
+        raise AssertionError(f"epoch 2's train loss {rows[1][1]} is not below epoch "
+                             f"1's {rows[0][1]}")
+    ckpts = [out / "checkpoints" / f"epoch_{e + 1}" for e in range(RECIPE_EPOCHS)]
+    for d in [*ckpts, out / "best_model"]:
+        if not ((d / "model.pth").is_file() and (d / "meta.json").is_file()):
+            raise AssertionError(f"{d} lacks model.pth or meta.json")
+    convert.load_reference_checkpoint(out / "best_model" / "model.pth", device="cuda")
+    log(f"checkpoints: {[d.name for d in ckpts]} and best_model; best_model/model.pth "
+        f"loads strictly through load_reference_checkpoint")
+
+    # Resume for one more epoch.
+    counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS + 1),
+                                           "--resume", str(ckpts[-1])]),
+                 per_epoch(PER_STEP["dense"], 1))
+    resumed = log_file.read_text().splitlines()
+    if resumed[:RECIPE_EPOCHS + 1] != lines or len(resumed) != RECIPE_EPOCHS + 2 or \
+            not resumed[-1].startswith(f"{RECIPE_EPOCHS + 1},"):
+        raise AssertionError("the resumed CSV:\n" + "\n".join(resumed))
+    log(f"resume from epoch_{RECIPE_EPOCHS}: {resumed[-1]}")
+    torch.cuda.empty_cache()
+
+    # Evaluate: float32 with the kernels and with the plain versions, then bf16.
+    def evaluate(name: str, *flags: str) -> tuple[dict, float]:
         t0 = time.perf_counter()
-        write_recipe_data(data, cache)
-        log(f"dataset: {n_train}/{n_val}/{n_test} images of {IMG}² (original sizes "
-            f"{RECIPE_DIMS[0]}-{RECIPE_DIMS[1]}) in a warm decode cache "
-            f"({time.perf_counter() - t0:.1f} s); stand-in files, so no decode: "
-            f"the file-decode path is covered by the CPU tests (tests/test_torch_loader.py)")
-        train = ["our_unet", "train", "--data_dir", str(data), "--output_dir", str(out),
-                 "--batch_size", str(RECIPE_BATCH), "--save_every", "1",
-                 "--decode_cache", str(cache)]
+        cli.main(["our_unet", "evaluate", "--model_path", str(out / "best_model"),
+                  "--data_dir", str(data), "--output_dir", str(out / name),
+                  "--batch_size", str(RECIPE_BATCH), "--decode_cache", str(cache),
+                  *flags])
+        wall = time.perf_counter() - t0
+        results = json.loads((out / name / "evaluation_results.json").read_text())
+        return eval_scalars(results), wall
 
-        # Train.
-        t0 = time.perf_counter()
-        result = counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS)]),
-                              per_epoch(RECIPE_EPOCHS))
-        train_wall = time.perf_counter() - t0
-        log_file = out / "training_log.csv"
-        lines = log_file.read_text().splitlines()
-        log("\n".join(["training_log.csv:", *lines]))
-        if lines[0] != SEG_CSV_HEADER:
-            raise AssertionError(f"CSV header {lines[0]!r}")
-        rows = [ln.split(",") for ln in lines[1:]]
-        if [r[0] for r in rows] != [str(e + 1) for e in range(RECIPE_EPOCHS)]:
-            raise AssertionError(f"CSV epochs {[r[0] for r in rows]}")
-        want_lr = [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)]
-        if [r[7] for r in rows] != want_lr or want_lr[0] != "0.0050000":
-            raise AssertionError(f"learning rates {[r[7] for r in rows]}, want {want_lr}")
-        losses = [float(v) for r in rows for v in r[1:7]]
-        if not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"a CSV value is not finite: {rows}")
-        if not float(rows[1][1]) < float(rows[0][1]):
-            raise AssertionError(f"epoch 2's train loss {rows[1][1]} is not below epoch "
-                                 f"1's {rows[0][1]}")
-        ckpts = [out / "checkpoints" / f"epoch_{e + 1}" for e in range(RECIPE_EPOCHS)]
-        for d in [*ckpts, out / "best_model"]:
-            if not ((d / "model.pth").is_file() and (d / "meta.json").is_file()):
-                raise AssertionError(f"{d} lacks model.pth or meta.json")
-        convert.load_reference_checkpoint(out / "best_model" / "model.pth", device="cuda")
-        log(f"checkpoints: {[d.name for d in ckpts]} and best_model; best_model/model.pth "
-            f"loads strictly through load_reference_checkpoint")
-
-        # Resume for one more epoch.
-        counted_path(lambda: cli.main(train + ["--epochs", str(RECIPE_EPOCHS + 1),
-                                               "--resume", str(ckpts[-1])]), per_epoch(1))
-        resumed = log_file.read_text().splitlines()
-        if resumed[:RECIPE_EPOCHS + 1] != lines or len(resumed) != RECIPE_EPOCHS + 2 or \
-                not resumed[-1].startswith(f"{RECIPE_EPOCHS + 1},"):
-            raise AssertionError("the resumed CSV:\n" + "\n".join(resumed))
-        log(f"resume from epoch_{RECIPE_EPOCHS}: {resumed[-1]}")
-        torch.cuda.empty_cache()
-
-        # Evaluate: float32 with the kernels and with the plain versions, then bf16.
-        def evaluate(name: str, *flags: str) -> tuple[dict, float]:
-            t0 = time.perf_counter()
-            cli.main(["our_unet", "evaluate", "--model_path", str(out / "best_model"),
-                      "--data_dir", str(data), "--output_dir", str(out / name),
-                      "--batch_size", str(RECIPE_BATCH), "--decode_cache", str(cache),
-                      *flags])
-            wall = time.perf_counter() - t0
-            results = json.loads((out / name / "evaluation_results.json").read_text())
-            return eval_scalars(results), wall
-
-        per_test = times(PER_FORWARD["dense"], test_fwd)
-        f32, f32_wall = counted_path(lambda: evaluate("eval_f32", "--f32"), per_test)
-        with plain_versions():
-            plain, _ = counted(lambda: evaluate("eval_f32_plain", "--f32"), NO_LAUNCHES)
-        bf16, bf16_wall = counted_path(lambda: evaluate("eval_bf16"), per_test)
-        log(f"{'scalar':<22} {'f32 kernels':>12} {'f32 plain':>12} {'bf16 kernels':>12}")
-        for k in f32:
-            log(f"{k:<22} {f32[k]:12.6f} {plain[k]:12.6f} {bf16[k]:12.6f}")
-        # Two NaNs agree: a class that neither run predicts has no precision.
-        far = {k: (f32[k], plain[k]) for k in f32
-               if not (abs(f32[k] - plain[k]) <= RECIPE_EVAL_ATOL
-                       or math.isnan(f32[k]) and math.isnan(plain[k]))}
-        if far:
-            raise AssertionError(f"f32 evaluate, kernels against plain, beyond "
-                                 f"{RECIPE_EVAL_ATOL}: {far}")
-        if not all(math.isfinite(v) for v in bf16.values()):
-            raise AssertionError(f"a bf16 evaluation scalar is not finite: {bf16}")
+    per_test = times(PER_FORWARD["dense"], test_fwd)
+    f32, f32_wall = counted_path(lambda: evaluate("eval_f32", "--f32"), per_test)
+    with plain_versions():
+        plain, _ = counted(lambda: evaluate("eval_f32_plain", "--f32"), NO_LAUNCHES)
+    bf16, bf16_wall = counted_path(lambda: evaluate("eval_bf16"), per_test)
+    log(f"{'scalar':<22} {'f32 kernels':>12} {'f32 plain':>12} {'bf16 kernels':>12}")
+    for k in f32:
+        log(f"{k:<22} {f32[k]:12.6f} {plain[k]:12.6f} {bf16[k]:12.6f}")
+    # Two NaNs agree: a class that neither run predicts has no precision.
+    far = {k: (f32[k], plain[k]) for k in f32
+           if not (abs(f32[k] - plain[k]) <= RECIPE_EVAL_ATOL
+                   or math.isnan(f32[k]) and math.isnan(plain[k]))}
+    if far:
+        raise AssertionError(f"f32 evaluate, kernels against plain, beyond "
+                             f"{RECIPE_EVAL_ATOL}: {far}")
+    if not all(math.isfinite(v) for v in bf16.values()):
+        raise AssertionError(f"a bf16 evaluation scalar is not finite: {bf16}")
 
     if "cv2" in sys.modules:
         raise AssertionError("the recipe imported cv2")
@@ -1680,6 +1774,251 @@ def phase_recipe():
                         "eval_wall_s": bf16_wall}
 
 
+def recon_batch(seed: int, batch: int) -> dict:
+    """A reconstruction batch on the card: the uint8 pixels of seeded
+    synthetic images, the target the image (as the loader gives it)."""
+    pixels = torch.from_numpy(as_uint8(synthetic_batch(seed, batch, IMG))["image"]).to("cuda")
+    return {"image": pixels, "target": pixels}
+
+
+def ae_train_steps() -> torch.nn.Module:
+    """The AE train step (dense, bf16, Adam-L2): the b8 checks against the
+    plain versions, 10 steps that must lower the MSE, then the b32 time.
+    Returns the b32-trained autoencoder."""
+    ae = autoencoder_6stage(dtype=torch.bfloat16, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED + 9))
+    state = {k: v.clone() for k, v in ae.state_dict().items()}
+    check = recon_batch(SEED + 10, CHECK_BATCH)
+    report["ae"]["check"] = check_train_step("dense", state, check, "reconstruction")
+    torch.cuda.empty_cache()
+
+    model = train_model("dense", state, torch.bfloat16, "reconstruction")
+    step = OBJECTIVES["reconstruction"][1](model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = [counted_path(lambda: float(step(check, gen)), PER_STEP["dense"])
+              for _ in range(TRAIN_STEPS_DOWN)]
+    log(f"AE {TRAIN_STEPS_DOWN} steps on one b{CHECK_BATCH} batch: MSE "
+        + " ".join(f"{v:.5f}" for v in losses))
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the AE's MSE did not go down: {losses}")
+    del model, step, check
+    torch.cuda.empty_cache()
+
+    batch = recon_batch(SEED + 11, TRAIN_BATCH)
+    med, peak = timed_steps("AE train step", OBJECTIVES["reconstruction"][1](ae), batch,
+                            PER_STEP["dense"])
+    report["ae"].update(step_ms=med, peak_gib=peak)
+    return ae
+
+
+def transfer_steps(ae: torch.nn.Module, tmp: Path) -> None:
+    """The transfer step: ``unet_6stage`` with the encoder grafted from the
+    autoencoder's checkpoint and frozen, SGD-Nesterov on the rest. 10 b8 steps
+    leave the six encoder stages bit for bit and move every decoder; then the
+    b32 time."""
+    save_checkpoint(tmp / "ae", ae, None, 0, 0.0)
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 12))
+    extract_encoder_params(tmp / "ae", model, n_stages=model.n_stages)
+    with_frozen(model, encoder_param_names(model.n_stages))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    encoder = [k for k in before if k.startswith("encoder_stages.")]
+    ae_state = ae.state_dict()
+    if not all(torch.equal(before[k], ae_state[k]) for k in encoder):
+        raise AssertionError("the grafted encoder differs from the autoencoder's")
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    step = make_segmentation_train_step(model, sgd_nesterov(trainable))
+    check = device_batch(as_uint8(synthetic_batch(SEED + 13, CHECK_BATCH, IMG)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = [counted_path(lambda: float(step(check, gen)), TRANSFER_PER_STEP)
+              for _ in range(TRAIN_STEPS_DOWN)]
+    after = model.state_dict()
+    changed = [k for k in encoder if not torch.equal(after[k], before[k])]
+    still = [k for k in before if k not in encoder and k.endswith("weight")
+             and torch.equal(after[k], before[k])]
+    log(f"transfer: {len(encoder)} encoder tensors frozen, {len(trainable)} trainable; "
+        f"{TRAIN_STEPS_DOWN} b{CHECK_BATCH} steps, losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; encoder tensors changed: {len(changed)}; decoder and head weights unchanged: "
+          f"{len(still)}")
+    if changed or still or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"transfer: encoder changed {changed}, unchanged {still}, "
+                             f"losses {losses}")
+    del check
+    torch.cuda.empty_cache()
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 4, TRAIN_BATCH, IMG)))
+    med, peak = timed_steps("transfer train step", step, batch, TRANSFER_PER_STEP)
+    report["ae"].update(transfer_step_ms=med, transfer_peak_gib=peak)
+
+
+def ae_forwards(ae: torch.nn.Module) -> None:
+    """The autoencoder's b8 forward in both layouts, bf16 and float32, with
+    the kernels against the plain versions (phase 4's rel-L2 bounds), and the
+    float32 s2d forward against the dense one."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    pixels = torch.randint(0, 256, (SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    x = normalize_image(pixels, mode="unit")
+    state = ae.state_dict()
+    results = {}
+    for layout in LAYOUTS:
+        log(f"-- AE forward, {layout}")
+        served, reference = (autoencoder_6stage(dtype=dt, device="cuda", **LAYOUTS[layout])
+                             for dt in (torch.bfloat16, torch.float32))
+        for m in (served, reference):
+            m.load_state_dict(state, strict=True)
+            m.eval()
+        results[layout] = check_forwards(served, reference, x, PER_FORWARD[layout],
+                                         agreement=False, path=True)
+        del served, reference
+    report["ae"]["forwards"] = {k: v["pairs"] for k, v in results.items()}
+    report["ae"]["layouts"] = check_layouts_agree(results["s2d"]["f32"],
+                                                  results["dense"]["f32"], "AE b8",
+                                                  agreement=False)
+
+
+def write_recon_caches(data: Path, cache: Path) -> None:
+    """Reconstruction-mode decode caches (no masks: a cache of its own) of the
+    three splits, from the images of phase 8's segmentation caches, with the
+    loader's functions."""
+    size = (IMG, IMG)
+    for split, (labels, n) in RECIPE_SPLITS.items():
+        images_dir = data / split / "resized"
+        seg = loader.open_cache(loader.cache_path(cache, images_dir, data / split / labels, size))
+        items = ({"image": seg["image"][i], "original_dims": seg["original_dims"][i]}
+                 for i in range(n))
+        loader.write_cache(loader.cache_path(cache, images_dir, None, size, mode="reconstruction"),
+                           loader.cache_identity(sorted(images_dir.glob("*.jpg")), size, False,
+                                                 "reconstruction"), items, n, size, False)
+
+
+def check_csv(path: Path, header: str, lr: list, lr_col: int, loss_cols: slice) -> list:
+    """The rows of a training_log.csv; fails unless its header, epochs and
+    learning rates are ``header``, 1..n and ``lr``, its losses finite, and
+    epoch 2's train loss below epoch 1's."""
+    lines = path.read_text().splitlines()
+    log("\n".join([f"{path.parent.name}/training_log.csv:", *lines]))
+    if lines[0] != header:
+        raise AssertionError(f"CSV header {lines[0]!r}")
+    rows = [ln.split(",") for ln in lines[1:]]
+    if [r[0] for r in rows] != [str(e + 1) for e in range(len(lr))]:
+        raise AssertionError(f"CSV epochs {[r[0] for r in rows]}")
+    if [r[lr_col] for r in rows] != lr:
+        raise AssertionError(f"learning rates {[r[lr_col] for r in rows]}, want {lr}")
+    if not all(math.isfinite(float(v)) for r in rows for v in r[loss_cols]):
+        raise AssertionError(f"a CSV value is not finite: {rows}")
+    if not float(rows[1][1]) < float(rows[0][1]):
+        raise AssertionError(f"epoch 2's train loss {rows[1][1]} is not below epoch 1's "
+                             f"{rows[0][1]}")
+    return rows
+
+
+def steady_step_ms(result: dict) -> float:
+    """The last epoch's train phase per step, from its first batch on."""
+    epoch = result["epochs"][-1]
+    return (epoch["train_s"] - epoch["first_batch_s"]) / epoch["steps"] * 1e3
+
+
+def ae_chain(root: Path) -> None:
+    """``cli ae_recon train -> evaluate -> ae_transfer train -> evaluate`` on
+    phase 8's dataset, read from warm reconstruction and segmentation caches."""
+    data, cache = recipe_data(root)
+    write_recon_caches(data, cache)
+    test_fwd = -(-RECIPE_SPLITS["Test"][1] // RECIPE_BATCH)
+    per_test = times(PER_FORWARD["dense"], test_fwd)
+    ae_out, tr_out = root / "ae", root / "transfer"
+    common = ["--data_dir", str(data), "--batch_size", str(RECIPE_BATCH),
+              "--decode_cache", str(cache)]
+    train = ["--save_every", "1", "--epochs", str(RECIPE_EPOCHS), *common]
+
+    result = counted_path(lambda: cli.main(["ae_recon", "train", "--output_dir", str(ae_out),
+                                            *train]),
+                          per_epoch(PER_STEP["dense"], RECIPE_EPOCHS))
+    check_csv(ae_out / "training_log.csv", AE_CSV_HEADER,
+              [f"{cosine_lr(1e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)], 5,
+              slice(1, 5))
+    convert.load_reference_checkpoint(ae_out / "best_model" / "model.pth", device="cuda",
+                                      arch="ae_recon")
+    log("ae_recon best_model/model.pth loads strictly through "
+        "load_reference_checkpoint(arch='ae_recon')")
+    report["ae"]["recipe_steady_ms"] = steady_step_ms(result)
+    torch.cuda.empty_cache()
+
+    def ae_evaluate(name: str, *flags: str) -> dict:
+        cli.main(["ae_recon", "evaluate", "--model_path", str(ae_out / "best_model"),
+                  "--output_dir", str(ae_out / name), *common, *flags])
+        results = json.loads((ae_out / name / "reconstruction_metrics.json").read_text())
+        if tuple(results) != AE_METRIC_KEYS:
+            raise AssertionError(f"reconstruction_metrics.json keys {list(results)}")
+        return results
+
+    f32 = counted_path(lambda: ae_evaluate("eval_f32", "--f32"), per_test)
+    with plain_versions():
+        plain = counted(lambda: ae_evaluate("eval_f32_plain", "--f32"), NO_LAUNCHES)
+    bf16 = counted_path(lambda: ae_evaluate("eval_bf16"), per_test)
+    for k in AE_METRIC_KEYS:
+        log(f"ae_recon evaluate {k:<10}: f32 kernels {f32[k]:.7f}, f32 plain {plain[k]:.7f}, "
+            f"bf16 kernels {bf16[k]:.7f}")
+    far = {k: (f32[k], plain[k]) for k in AE_METRIC_KEYS[:3]
+           if not abs(f32[k] - plain[k]) <= AE_EVAL_REL * abs(plain[k])}
+    if far or f32["num_images"] != RECIPE_SPLITS["Test"][1]:
+        raise AssertionError(f"f32 ae_recon evaluate, kernels against plain, beyond "
+                             f"{AE_EVAL_REL} relative: {far}; {f32['num_images']} images")
+    if not all(math.isfinite(bf16[k]) for k in AE_METRIC_KEYS[:3]):
+        raise AssertionError(f"a bf16 reconstruction metric is not finite: {bf16}")
+    torch.cuda.empty_cache()
+
+    result = counted_path(lambda: cli.main([
+        "ae_transfer", "train", "--output_dir", str(tr_out), "--pretrained_encoder",
+        str(ae_out / "best_model"), *train]), per_epoch(TRANSFER_PER_STEP, RECIPE_EPOCHS))
+    check_csv(tr_out / "training_log.csv", SEG_CSV_HEADER,
+              [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)], 7,
+              slice(1, 7))
+    ae_sd = load_checkpoint(ae_out / "best_model")["model_state_dict"]
+    tr_sd = load_checkpoint(tr_out / "best_model")["model_state_dict"]
+    encoder = [k for k in tr_sd if k.startswith("encoder_stages.")]
+    differ = [k for k in encoder if not torch.equal(tr_sd[k], ae_sd[k])]
+    log(f"ae_transfer best_model: {len(encoder)} encoder tensors, {len(differ)} differ from "
+        f"the ae_recon best_model's")
+    if differ or len(encoder) != 6 * 8:
+        raise AssertionError(f"the transfer's encoder is not the AE's: {differ}")
+    report["ae"]["transfer_recipe_steady_ms"] = steady_step_ms(result)
+    torch.cuda.empty_cache()
+
+    counted_path(lambda: cli.main(["ae_transfer", "evaluate", "--model_path",
+                                   str(tr_out / "best_model"), "--output_dir",
+                                   str(tr_out / "eval"), *common]), per_test)
+    scalars = eval_scalars(json.loads((tr_out / "eval" / "evaluation_results.json").read_text()))
+    log(f"ae_transfer evaluate (bf16): {scalars}")
+    if not all(math.isfinite(v) for v in scalars.values() if not math.isnan(v)):
+        raise AssertionError(f"an ae_transfer evaluation scalar is not finite: {scalars}")
+
+
+@phase(f"9. the AE_pretrained path: autoencoder_6stage and the frozen-encoder transfer "
+       f"(b{CHECK_BATCH} checks, b{TRAIN_BATCH} times), then cli ae_recon -> ae_transfer")
+def phase_ae(root: Path):
+    report["ae"] = {}
+    ae = ae_train_steps()
+    with tempfile.TemporaryDirectory() as tmp:
+        transfer_steps(ae, Path(tmp))
+    torch.cuda.empty_cache()
+    ae_forwards(ae)
+    del ae
+    torch.cuda.empty_cache()
+    ae_chain(root)
+    if "cv2" in sys.modules:
+        raise AssertionError("the AE recipes imported cv2")
+    phase7 = report.get("train", {}).get("dense", {}).get("step_ms")
+    ae = report["ae"]
+    for label, key in (("AE train step", "step_ms"), ("transfer train step", "transfer_step_ms"),
+                       ("ae_recon recipe, epoch 2 after its first batch", "recipe_steady_ms"),
+                       ("ae_transfer recipe, epoch 2 after its first batch",
+                        "transfer_recipe_steady_ms")):
+        ratio = f", ratio {ae[key] / phase7:.3f}" if phase7 else ""
+        log(f"{label}: {ae[key]:.3f} ms per b{TRAIN_BATCH} step; phase 7's b{TRAIN_BATCH} "
+            f"dense step {phase7 if phase7 else float('nan'):.3f} ms{ratio}")
+
+
 def kernels_line() -> dict:
     rows = report["rows"]
     bound_by = report["bound_by"]
@@ -1711,7 +2050,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6, 7 and 8).
+            # The counted runs of the main paths (phases 3, 6, 7, 8 and 9).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1741,7 +2080,10 @@ def main() -> int:
         phase_k4()
         phase_train()
         torch.cuda.empty_cache()
-        phase_recipe()
+        with tempfile.TemporaryDirectory() as recipe_root:
+            phase_recipe(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_ae(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -28,6 +28,8 @@ largest magnitude (sum orders, and its factored sums: Σdpre times scale where
 the plain version sums dpre·scale); bfloat16 dx within one bf16 ulp plus
 1e-4, dscale and dbias (float32) to 1e-4 of their largest magnitude. K2's
 backward is plain torch on both devices: its gradients are held to the CPU's.
+SSIM's blur is elementwise float32, so with TF32 allowed in cuDNN it still
+equals a float64 computation on the CPU to 1e-5.
 """
 
 import numpy as np
@@ -48,6 +50,7 @@ from unet_implementations_tpu_torch.models.s2d import (
     upsample2x_into_s2d,
 )
 from unet_implementations_tpu_torch.models.unet import S2D_LAYOUT, UNet, unet_6stage
+from unet_implementations_tpu_torch.ops.losses import ssim
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training import steps, train_state
@@ -485,3 +488,82 @@ def test_to_device_copies_through_pinned_memory():
         assert moved.device.type == "cuda" and moved.dtype == torch.uint8
         np.testing.assert_array_equal(moved.cpu().numpy(), host)
     assert steps.to_device(moved, device) is moved
+
+
+@pytest.mark.parametrize("size_average", [False, True])
+def test_ssim_ignores_tf32(size_average, monkeypatch):
+    """cuDNN runs float32 convs in TF32 by default; SSIM's blur must not, as
+    JAX's runs at Precision.HIGHEST. With TF32 allowed, the card's SSIM
+    equals a float64 computation on the CPU to 1e-5."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    rng = np.random.default_rng(11)
+    a = rng.random((4, 64, 64, 3))
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1)
+    got = ssim(torch.from_numpy(a).float().cuda(), torch.from_numpy(b).float().cuda(),
+               size_average=size_average).cpu().numpy()
+    want = _ssim_map_f64(a, b)
+    want = want.mean() if size_average else want.mean(axis=(1, 2, 3))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _ssim_map_f64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The SSIM map of NHWC images in float64 on the CPU: the 11x11 sigma-1.5
+    Gaussian window as one zero-padded depthwise conv."""
+    coords = torch.arange(11, dtype=torch.float64) - 5.0
+    g = torch.exp(-(coords ** 2) / (2 * 1.5 ** 2))
+    g = g / g.sum()
+    win = torch.outer(g, g).view(1, 1, 11, 11).repeat(3, 1, 1, 1)
+
+    def blur(x):
+        return torch.nn.functional.conv2d(x, win, padding=5, groups=3)
+
+    at, bt = (torch.from_numpy(v).permute(0, 3, 1, 2) for v in (a, b))
+    mu_a, mu_b = blur(at), blur(bt)
+    var_a, var_b = blur(at * at) - mu_a ** 2, blur(bt * bt) - mu_b ** 2
+    cov = blur(at * bt) - mu_a * mu_b
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    m = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))
+    return m.permute(0, 2, 3, 1).numpy()
+
+
+def _narrow(head="segmentation"):
+    return UNet(features_per_stage=(8, 32, 16, 16, 16, 16), head=head)
+
+
+def _step_counts(step, batch, device):
+    wrappers = (torch_in.fused_instance_norm, upsample2x_nhwc_fast)
+
+    def read():
+        return [w.launches for w in wrappers] + [torch_in.fused_instance_norm.backward_launches]
+
+    before = read()
+    loss = float(step(batch, torch.Generator(device).manual_seed(0)))
+    return [a - b for a, b in zip(read(), before)], loss
+
+
+def test_reconstruction_and_transfer_steps_run_the_kernels():
+    """An autoencoder train step launches K1/K2a/K1bwd 22/5/22, like the
+    segmentation step. With the encoder frozen and the input taking no
+    gradient, autograd records nothing in the encoder: the transfer step
+    launches K1bwd for the 10 decoder norms only, and leaves the encoder
+    unchanged."""
+    _need_cuda()
+    pixels = as_uint8(synthetic_batch(0, 2, 64))["image"]
+    ae = _narrow("reconstruction").cuda()
+    counts, loss = _step_counts(steps.make_reconstruction_train_step(
+        ae, train_state.adam_l2(ae.parameters())), {"image": pixels, "target": pixels}, "cuda")
+    assert counts == [22, 5, 22] and np.isfinite(loss)
+
+    model = _narrow().cuda()
+    encoder = {k: v for k, v in ae.state_dict().items() if k.startswith("encoder_stages.")}
+    model.load_state_dict(encoder, strict=False)
+    train_state.with_frozen(model, ["encoder_stages"])
+    step = steps.make_segmentation_train_step(model, train_state.sgd_nesterov(
+        [p for p in model.parameters() if p.requires_grad]))
+    counts, loss = _step_counts(step, as_uint8(synthetic_batch(1, 2, 64)), "cuda")
+    assert counts == [22, 5, 10] and np.isfinite(loss)
+    for k, v in encoder.items():
+        assert torch.equal(model.state_dict()[k], v), k

@@ -258,5 +258,6 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
                  "kernels.winograd", "models.s2d", "ops.losses", "ops.metrics",
                  "training.train_state", "training.steps", "data.synthetic",
                  "data.loader", "training.early_stopping", "training.checkpoint",
-                 "training.loop", "recipes.our_unet", "cli"):
+                 "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",
+                 "recipes.ae_transfer", "cli"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

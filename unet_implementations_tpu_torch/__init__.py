@@ -3,21 +3,26 @@
 A second package beside the JAX reference ``unet_implementations_tpu``. It
 keeps the reference's module names so each counterpart is easy to find:
 
-- ``models``   — the 6-stage segmentation UNet as ``nn.Module``s, and the
+- ``models``   — the 6-stage UNet as ``nn.Module``s, with the segmentation
+                 or the reconstruction head (the autoencoder), the VGG16
+                 feature extractor of the perceptual loss, and the
                  JAX-params / reference-``.pth`` converters.
-- ``ops``      — ImageNet normalization, the bilinear resize primitives (the
+- ``ops``      — pixel normalization, the bilinear resize primitives (the
                  plain versions the kernels are held to), the segmentation
-                 losses and the metrics.
+                 and reconstruction losses and the metrics.
 - ``kernels``  — hand-written CUDA C++ kernels for ``sm_90a`` (``csrc/``),
                  built with ``nvcc`` at first use and bound with ``ctypes``;
                  the differentiable ones carry their backward.
-- ``training`` — optimizers, schedules, the segmentation train and eval
-                 steps, the epoch loop, checkpoints and early stopping.
-- ``data``     — the dataset loader with its decode cache, and synthetic
-                 batches.
-- ``recipes``  — the ``our_unet`` recipe (train, evaluate), dataset
-                 evaluation and the serving path (``predict_segmentation``).
-- ``cli``      — ``our_unet train|evaluate`` and ``predict``.
+- ``training`` — optimizers, schedules, the segmentation and reconstruction
+                 train and eval steps, the epoch loop, checkpoints and early
+                 stopping.
+- ``data``     — the dataset loader (segmentation and reconstruction modes)
+                 with its decode cache, and synthetic batches.
+- ``recipes``  — the ``our_unet``, ``ae_recon`` and ``ae_transfer`` recipes
+                 (train, evaluate), dataset evaluation and the serving path
+                 (``predict_segmentation``).
+- ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate`` and
+                 ``predict``.
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they never

@@ -4,17 +4,22 @@
         --data_dir <processed data> --output_dir <run dir> [flags]
     python -m unet_implementations_tpu_torch.cli our_unet evaluate \\
         --model_path <run dir>/best_model --data_dir <processed data> [flags]
+    python -m unet_implementations_tpu_torch.cli ae_recon train|evaluate ...
+    python -m unet_implementations_tpu_torch.cli ae_transfer train \\
+        --pretrained_encoder <ae run dir>/best_model ...
+    python -m unet_implementations_tpu_torch.cli ae_transfer evaluate ...
     python -m unet_implementations_tpu_torch.cli predict \\
         --model_path model.pth --input <image-or-dir> --output_dir predictions
 
-The ``our_unet`` flags are the JAX package's (``unet_implementations_tpu/
-cli.py``). ``--device`` is the torch device (default: CUDA; ``cpu`` runs
-the plain PyTorch path). ``--num_workers`` is an alias of
-``--num_threads``; ``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE``
-for every dataset the command opens. ``--no_mesh``, ``--amp`` and
-``--reduced_complexity`` are accepted and do nothing. Not ported yet, and
-refused: ``--online_augment``, ``--spatial`` > 1, ``--grad_accum`` > 1 and
-``--visualize_samples`` > 0 (so it defaults to 0 here, 3 in JAX).
+The flags of ``our_unet``, ``ae_recon`` and ``ae_transfer`` are the JAX
+package's (``unet_implementations_tpu/cli.py``), with its defaults.
+``--device`` is the torch device (default: CUDA; ``cpu`` runs the plain
+PyTorch path). ``--num_workers`` is an alias of ``--num_threads``;
+``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE`` for every dataset the
+command opens. ``--no_mesh``, ``--amp`` and ``--reduced_complexity`` are
+accepted and do nothing. Not ported yet, and refused: ``--online_augment``,
+``--spatial`` > 1, ``--grad_accum`` > 1, ``--visualize_samples`` > 0 (so it
+defaults to 0 here, 3 in JAX) and ``--analyze_latent_space``.
 
 ``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
 ``.pth``; that of ``predict`` is a reference ``.pth``, such as the JAX
@@ -43,7 +48,7 @@ def _add_compat_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reduced_complexity", action="store_true", help=argparse.SUPPRESS)
 
 
-def _add_train_flags(p: argparse.ArgumentParser) -> None:
+def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", required=True)
     p.add_argument("--batch_size", type=int, default=32)
@@ -56,6 +61,10 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_mesh", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
     p.add_argument("--grad_accum", type=int, default=1, help="not ported: only 1")
+    _add_compat_flags(p)
+
+
+def _add_seg_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--online_augment", action="store_true", help="not ported")
     p.add_argument("--lr", type=float, default=5e-3)
     p.add_argument("--weight_decay", type=float, default=1e-4)
@@ -64,8 +73,6 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--static_weights", action="store_true")
     p.add_argument("--dice_weight", type=float, default=1.0)
     p.add_argument("--ce_weight", type=float, default=1.0)
-    p.add_argument("--spatial", type=int, default=0, help="not ported: only 0 or 1")
-    _add_compat_flags(p)
 
 
 def _add_eval_flags(p: argparse.ArgumentParser) -> None:
@@ -85,8 +92,34 @@ def build_parser() -> argparse.ArgumentParser:
 
     our = sub.add_parser("our_unet", help="train or evaluate the 6-stage UNet")
     our_sub = our.add_subparsers(dest="cmd", required=True)
-    _add_train_flags(our_sub.add_parser("train"))
+    t = our_sub.add_parser("train")
+    _add_common_train_flags(t)
+    _add_seg_train_flags(t)
+    t.add_argument("--spatial", type=int, default=0, help="not ported: only 0 or 1")
     _add_eval_flags(our_sub.add_parser("evaluate"))
+
+    ae = sub.add_parser("ae_recon", help="train or evaluate the reconstruction autoencoder")
+    ae_sub = ae.add_subparsers(dest="cmd", required=True)
+    t = ae_sub.add_parser("train")
+    _add_common_train_flags(t)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--weight_decay", type=float, default=1e-5)
+    t.add_argument("--mse_weight", type=float, default=1.0)
+    t.add_argument("--perceptual_weight", type=float, default=0.0)
+    t.add_argument("--ssim_weight", type=float, default=0.0)
+    e = ae_sub.add_parser("evaluate")
+    _add_eval_flags(e)
+    e.add_argument("--analyze_latent_space", action="store_true", help="not ported")
+
+    tr = sub.add_parser("ae_transfer",
+                        help="train or evaluate the UNet on a frozen autoencoder encoder")
+    tr_sub = tr.add_subparsers(dest="cmd", required=True)
+    t = tr_sub.add_parser("train")
+    _add_common_train_flags(t)
+    _add_seg_train_flags(t)
+    t.add_argument("--pretrained_encoder", required=True,
+                   help="the ae_recon best_model checkpoint (a directory or its model.pth)")
+    _add_eval_flags(tr_sub.add_parser("evaluate"))
 
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
     pred.add_argument("--model_path", required=True, help="a reference-schema .pth checkpoint")
@@ -112,6 +145,19 @@ def _num_threads(args) -> int:
     return getattr(args, "num_threads", 8)
 
 
+def _seg_train_kwargs(args) -> dict:
+    return dict(
+        batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+        weight_decay=args.weight_decay, momentum=args.momentum,
+        weighted_ce=args.weighted_ce, static_weights=args.static_weights,
+        dice_weight=args.dice_weight, ce_weight=args.ce_weight,
+        patience=args.patience, save_every=args.save_every, resume=args.resume,
+        seed=args.seed, dtype=_dtype(args), device=args.device,
+        num_threads=_num_threads(args), online_augment=args.online_augment,
+        grad_accum=args.grad_accum,
+    )
+
+
 def main(argv: Optional[Sequence[str]] = None):
     """Run one command; returns what its recipe returns (the training
     loop's result, the evaluation results, or the number of images
@@ -120,24 +166,38 @@ def main(argv: Optional[Sequence[str]] = None):
     if getattr(args, "decode_cache", None):
         os.environ["UNET_TPU_DECODE_CACHE"] = args.decode_cache
 
-    if args.command == "our_unet":
-        from unet_implementations_tpu_torch.recipes import our_unet
+    if args.command in ("our_unet", "ae_transfer"):
+        from unet_implementations_tpu_torch.recipes import ae_transfer, our_unet
 
         if args.cmd == "train":
-            return our_unet.train(
-                args.data_dir, args.output_dir,
-                batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
-                weight_decay=args.weight_decay, momentum=args.momentum,
-                weighted_ce=args.weighted_ce, static_weights=args.static_weights,
-                dice_weight=args.dice_weight, ce_weight=args.ce_weight,
-                patience=args.patience, save_every=args.save_every, resume=args.resume,
-                seed=args.seed, dtype=_dtype(args), device=args.device,
-                num_threads=_num_threads(args), online_augment=args.online_augment,
-                spatial=args.spatial, grad_accum=args.grad_accum,
-            )
+            kwargs = _seg_train_kwargs(args)
+            if args.command == "our_unet":
+                return our_unet.train(args.data_dir, args.output_dir, spatial=args.spatial,
+                                      **kwargs)
+            return ae_transfer.train(args.data_dir, args.output_dir,
+                                     pretrained_encoder=args.pretrained_encoder, **kwargs)
         return our_unet.evaluate(
             args.model_path, args.data_dir, args.output_dir,
             batch_size=args.batch_size, dtype=_dtype(args), device=args.device,
+            visualize_samples=args.visualize_samples, num_threads=_num_threads(args),
+        )
+    if args.command == "ae_recon":
+        from unet_implementations_tpu_torch.recipes import ae_recon
+
+        if args.cmd == "train":
+            return ae_recon.train(
+                args.data_dir, args.output_dir,
+                batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+                weight_decay=args.weight_decay, mse_weight=args.mse_weight,
+                perceptual_weight=args.perceptual_weight, ssim_weight=args.ssim_weight,
+                patience=args.patience, save_every=args.save_every, resume=args.resume,
+                seed=args.seed, dtype=_dtype(args), device=args.device,
+                num_threads=_num_threads(args), grad_accum=args.grad_accum,
+            )
+        return ae_recon.evaluate(
+            args.model_path, args.data_dir, args.output_dir,
+            batch_size=args.batch_size, dtype=_dtype(args), device=args.device,
+            analyze_latent_space=args.analyze_latent_space,
             visualize_samples=args.visualize_samples, num_threads=_num_threads(args),
         )
     if args.command == "predict":

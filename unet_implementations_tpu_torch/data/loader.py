@@ -1,8 +1,8 @@
 """Host-side dataset and threaded prefetching batch loader.
 
 The port's own copy of ``unet_implementations_tpu/data/loader.py`` in its
-segmentation mode. It yields NHWC numpy batches; the train and eval steps
-move them to the device:
+segmentation and reconstruction modes. It yields NHWC numpy batches; the
+train and eval steps move them to the device:
 
 - images: cv2 BGR->RGB, LINEAR resize to 512², then either raw uint8
   (``emit_uint8``: the step normalizes on the device, ``ops/normalize.py``)
@@ -11,6 +11,10 @@ move them to the device:
 - masks: grayscale, NEAREST resize, stray values ``(v > 2) & (v != 255)``
   set to 0, int32;
 - original dims recorded before the resize (the eval protocol needs them);
+- ``mode="reconstruction"``: no mask in the batch (a masks directory given
+  is read only for the original dims), and ``target`` is the image: the raw
+  uint8 image with ``emit_uint8``, else both are the image /255 (no ImageNet
+  statistics);
 - augmented images from ``../augmented/{images,masks}`` included for train;
 - several processes: the file list is split into equal contiguous shards by
   ``process_index`` / ``process_count``.
@@ -26,8 +30,7 @@ functions, so a cache can also be written from arrays made elsewhere. The
 directory and manifest are those of the JAX package, so the two packages
 share a cache.
 
-Left out here (ROADMAP queue 1): the reconstruction mode and the CLIP view
-(``clip_dir``).
+Left out here (ROADMAP queue 1 item 6): the CLIP view (``clip_dir``).
 """
 
 from __future__ import annotations
@@ -44,17 +47,19 @@ import numpy as np
 from unet_implementations_tpu_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
 
 MANIFEST = "manifest.json"
+MODES = ("segmentation", "reconstruction")
 
 
 def cache_identity(image_files: Sequence[Path], target_size: Tuple[int, int],
-                   has_masks: bool) -> Dict:
+                   has_masks: bool, mode: str = "segmentation") -> Dict:
     """What a cache was built from: name, size and mtime of every image file
     (a re-run of the offline pipeline or augmentation invalidates it), the
-    target size and whether masks are stored."""
+    target size, the mode and whether the dataset has a masks directory (a
+    reconstruction cache stores no masks either way)."""
     return {
         "version": 1,
         "target_size": list(target_size),
-        "mode": "segmentation",
+        "mode": mode,
         "has_masks": has_masks,
         "clip_size": 0,
         "files": [[p.name, st.st_size, st.st_mtime_ns]
@@ -64,10 +69,11 @@ def cache_identity(image_files: Sequence[Path], target_size: Tuple[int, int],
 
 def cache_path(root: str | Path, images_dir: Path, masks_dir: Optional[Path],
                target_size: Tuple[int, int], process_index: int = 0,
-               process_count: int = 1) -> Path:
-    """The cache directory of one dataset (one process's shard) under ``root``."""
+               process_count: int = 1, mode: str = "segmentation") -> Path:
+    """The cache directory of one dataset (one process's shard, one mode)
+    under ``root``."""
     key = hashlib.sha1(json.dumps(
-        [str(images_dir), str(masks_dir), "segmentation", list(target_size), 0,
+        [str(images_dir), str(masks_dir), mode, list(target_size), 0,
          process_index, process_count]
     ).encode()).hexdigest()[:12]
     return Path(root) / f"{images_dir.parent.name}_{images_dir.name}_{key}"
@@ -76,8 +82,9 @@ def cache_path(root: str | Path, images_dir: Path, masks_dir: Optional[Path],
 def write_cache(d: Path, ident: Dict, items: Iterable[Dict[str, np.ndarray]],
                 n: int, target_size: Tuple[int, int], has_masks: bool) -> None:
     """Write ``n`` raw items (``{"image": (H, W, 3) uint8, "original_dims":
-    (2,) int32, "mask": (H, W) uint8}``) as the cache in ``d``. The manifest
-    is written last, so a build cut short is rebuilt on the next open."""
+    (2,) int32, "mask": (H, W) uint8}``, the mask only with ``has_masks``)
+    as the cache in ``d``. The manifest is written last, so a build cut short
+    is rebuilt on the next open."""
     th, tw = target_size
     d.mkdir(parents=True, exist_ok=True)
     print(f"decode cache: building {d} ({n} items)...", flush=True)
@@ -126,7 +133,11 @@ class PetDataset:
         normalize: bool = True,
         cache_dir: Optional[str | Path] = None,
         emit_uint8: bool = False,
+        mode: str = "segmentation",
     ):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        self.mode = mode
         self.emit_uint8 = emit_uint8
         self.images_dir = Path(images_dir)
         self.masks_dir = Path(masks_dir) if masks_dir else None
@@ -215,7 +226,7 @@ class PetDataset:
         if image.shape[:2] != (th, tw):
             image = cv2.resize(image, (tw, th), interpolation=cv2.INTER_LINEAR)
         raw: Dict[str, np.ndarray] = {"image": image, "original_dims": original_dims}
-        if mask is not None:
+        if mask is not None and self.mode == "segmentation":
             if mask.shape != (th, tw):
                 mask = cv2.resize(mask, (tw, th), interpolation=cv2.INTER_NEAREST)
             raw["mask"] = np.where((mask > 2) & (mask != 255), 0, mask).astype(np.uint8)
@@ -224,6 +235,10 @@ class PetDataset:
     def _finalize(self, raw: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """uint8 arrays -> the batch contract (normalization etc.)."""
         item: Dict[str, np.ndarray] = {"original_dims": raw["original_dims"]}
+        if self.mode == "reconstruction":
+            image = raw["image"] if self.emit_uint8 else raw["image"].astype(np.float32) / 255.0
+            item["image"] = item["target"] = image
+            return item
         if self.emit_uint8:
             item["image"] = raw["image"]
         else:
@@ -237,11 +252,11 @@ class PetDataset:
 
     def cache_path(self, root: str | Path) -> Path:
         return cache_path(root, self.images_dir, self.masks_dir, self.target_size,
-                          self.process_index, self.process_count)
+                          self.process_index, self.process_count, self.mode)
 
     def _open_or_build_cache(self, root: Path) -> Dict[str, np.ndarray]:
         has_masks = self.masks_dir is not None
-        ident = cache_identity(self.image_files, self.target_size, has_masks)
+        ident = cache_identity(self.image_files, self.target_size, has_masks, self.mode)
         d = self.cache_path(root)
         manifest = d / MANIFEST
         if manifest.exists():
@@ -252,7 +267,7 @@ class PetDataset:
                 pass  # a torn manifest: rebuild below
         with cf.ThreadPoolExecutor(max_workers=8) as pool:
             write_cache(d, ident, pool.map(self._decode, range(len(self))), len(self),
-                        self.target_size, has_masks)
+                        self.target_size, has_masks and self.mode == "segmentation")
         return open_cache(d)
 
     def _cached(self, idx: int) -> Dict[str, np.ndarray]:

@@ -4,9 +4,9 @@ The port's own copy of ``unet_implementations_tpu/data/synthetic.py``: an
 elliptical "pet" (class 1 = cat or 2 = dog) on a textured background, with a
 255 border ring around it, the Oxford-IIIT Pet trimap format ({0, 1, 2, 255}
 masks, ImageNet-normalized RGB). The same seed gives the same arrays as the
-JAX package's (its segmentation batches; the CLIP features and the
-reconstruction targets come with their slices). ``as_uint8`` turns a batch
-into the raw uint8 pixels the loader feeds the in-step normalization.
+JAX package's (its segmentation and reconstruction batches; the CLIP
+features come with their slice). ``as_uint8`` turns a segmentation batch into
+the raw uint8 pixels the loader feeds the in-step normalization.
 """
 
 from __future__ import annotations
@@ -41,11 +41,18 @@ def synthetic_sample(rng: np.random.Generator, size: int = 128) -> Tuple[np.ndar
     return img_norm.astype(np.float32), mask
 
 
-def synthetic_batch(seed: int, batch_size: int, size: int = 128) -> Dict[str, np.ndarray]:
-    """``{"image": (B, S, S, 3) float32 normalized, "mask": (B, S, S) int32}``."""
+def synthetic_batch(seed: int, batch_size: int, size: int = 128,
+                    reconstruction: bool = False) -> Dict[str, np.ndarray]:
+    """``{"image": (B, S, S, 3) float32 normalized, "mask": (B, S, S) int32}``;
+    with ``reconstruction``, ``{"image", "target"}``: the same images in
+    [0, 1] (no ImageNet statistics), the target equal to the image."""
     rng = np.random.default_rng(seed)
     images, masks = zip(*(synthetic_sample(rng, size) for _ in range(batch_size)))
-    return {"image": np.stack(images), "mask": np.stack(masks)}
+    batch = {"image": np.stack(images), "mask": np.stack(masks)}
+    if reconstruction:
+        raw = (batch["image"] * IMAGENET_STD + IMAGENET_MEAN).astype(np.float32)
+        batch = {"image": raw, "target": raw.copy()}
+    return batch
 
 
 def as_uint8(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -6,6 +6,7 @@ keys, which the JAX package also writes (``cli export_torch``):
     encoder_stages.{i}.block.{idx}.weight/bias     Conv2d / InstanceNorm
     decoder_stages.{d}.conv_block.block.{idx}....
     segmentation_output.weight/bias                (1x1 head)
+    reconstruction_output.0.weight/bias            (autoencoder: 3x3 head)
 
 Inside each ``block`` every conv occupies [Conv2d, InstanceNorm, LeakyReLU(,
 dropout)], so the conv of unit j sits at j*step and its norm at j*step+1,
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from unet_implementations_tpu_torch.models.blocks import N_CONVS
-from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
+from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage, unet_6stage
 
 
 def _conv_oihw(kernel) -> torch.Tensor:
@@ -54,8 +55,9 @@ def params_from_jax(params: Dict, model: UNet) -> Dict[str, torch.Tensor]:
     for d in range(model.n_stages - 1):
         emit_block(f"decoder_stages.{d}.conv_block", params[f"decoder_{d}"]["conv_block"],
                    model.decoder_dropout_rates[d])
-    sd["segmentation_output.weight"] = _conv_oihw(params["head"]["kernel"])
-    sd["segmentation_output.bias"] = _vec(params["head"]["bias"])
+    head = "segmentation_output" if model.head == "segmentation" else "reconstruction_output.0"
+    sd[f"{head}.weight"] = _conv_oihw(params["head"]["kernel"])
+    sd[f"{head}.bias"] = _vec(params["head"]["bias"])
     return sd
 
 
@@ -68,15 +70,30 @@ def save_reference_checkpoint(model: UNet, path) -> None:
     torch.save({"epoch": 0, "model_state_dict": sd, "best_dice": 0.0}, str(path))
 
 
+def _model_for_arch(arch: str, **kwargs) -> UNet:
+    """The reference-trained model of each ``--arch`` of the JAX package's
+    ``convert`` / ``export_torch``: the encoder-transfer model is the
+    segmentation UNet; ``clip_unet`` (bottleneck fusion) is not ported yet."""
+    if arch in ("our_unet", "ae_transfer"):
+        return unet_6stage(**kwargs)
+    if arch == "ae_recon":
+        return autoencoder_6stage(**kwargs)
+    if arch == "clip_unet":
+        raise NotImplementedError("the clip_unet model is not ported to the PyTorch package yet "
+                                  "(ROADMAP.md queue 1 item 6)")
+    raise ValueError(f"unknown arch {arch!r}")
+
+
 def load_reference_checkpoint(path, device=None, dtype: torch.dtype = torch.bfloat16,
-                              **layout) -> UNet:
-    """Build ``unet_6stage`` on ``device`` (CUDA unless named) and load a
-    reference-schema ``.pth`` (full checkpoint dict or bare state dict)
-    strictly. ``layout`` (``s2d_level0``, ``s2d_low_channel_decoders``) goes
-    to ``unet_6stage``: one ``.pth`` loads into either layout. Returns the
-    model in eval mode."""
+                              arch: str = "our_unet", **layout) -> UNet:
+    """Build the model of ``arch`` (``our_unet`` | ``ae_transfer``:
+    ``unet_6stage``; ``ae_recon``: ``autoencoder_6stage``) on ``device``
+    (CUDA unless named) and load a reference-schema ``.pth`` (full checkpoint
+    dict or bare state dict) strictly. ``layout`` (``s2d_level0``,
+    ``s2d_low_channel_decoders``) goes to the constructor: one ``.pth`` loads
+    into either layout. Returns the model in eval mode."""
     ckpt = torch.load(str(Path(path)), map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    model = unet_6stage(dtype=dtype, device=device, **layout)
+    model = _model_for_arch(arch, dtype=dtype, device=device, **layout)
     model.load_state_dict(sd, strict=True)
     return model.eval()

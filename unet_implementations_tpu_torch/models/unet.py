@@ -1,15 +1,18 @@
-"""The parametric segmentation UNet as an ``nn.Module``.
+"""The parametric UNet as an ``nn.Module``.
 
 Counterpart of ``unet_implementations_tpu/models/unet.py::UNet`` with the
-segmentation head, in the dense layout and in the JAX model's space-to-depth
-layout (``s2d_level0``, ``s2d_low_channel_decoders``), which is an exact
-rewrite of the dense model. Input is NHWC, output NHWC float32 logits, as in
-JAX.
+segmentation head (1x1 conv to logits) or the reconstruction head (3x3 conv to
+3 channels, then a float32 sigmoid: the autoencoder), in the dense layout and
+in the JAX model's space-to-depth layout (``s2d_level0``,
+``s2d_low_channel_decoders``), which is an exact rewrite of the dense model.
+Input is NHWC, output NHWC float32 logits or [0, 1] reconstructions, as in
+JAX. The encoder-transfer model is the segmentation UNet with its encoder
+grafted from an autoencoder and frozen (``recipes/ae_transfer.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +33,10 @@ DEFAULT_FEATURES = (32, 64, 128, 256, 512, 512)
 DEFAULT_STRIDES = (1, 2, 2, 2, 2, 2)
 DEFAULT_ENC_DROPOUT = (0.0, 0.0, 0.1, 0.2, 0.3, 0.3)
 DEFAULT_DEC_DROPOUT = (0.3, 0.2, 0.2, 0.1, 0.0)
+# The autoencoder's lowered dropout schedule.
+AE_ENC_DROPOUT = (0.0, 0.0, 0.05, 0.1, 0.15, 0.15)
+AE_DEC_DROPOUT = (0.15, 0.1, 0.1, 0.05, 0.0)
+HEADS = ("segmentation", "reconstruction")
 IN_CHANNELS = 3  # RGB
 # The JAX model's default layout: level 0, and the decoders under 128
 # channels, in space-to-depth. Keywords of ``UNet`` and ``unet_6stage``.
@@ -38,7 +45,10 @@ S2D_LAYOUT = {"s2d_level0": True, "s2d_low_channel_decoders": True}
 
 class UNet(nn.Module):
     """Encoder stages with skips, a bottleneck stage, bilinear decoders with
-    skip concat, and a 1x1 segmentation head.
+    skip concat, and a head: ``head="segmentation"``, a 1x1 conv to
+    ``num_classes`` logits (``segmentation_output``); ``"reconstruction"``, a
+    3x3 conv to 3 channels and a sigmoid in float32 (``reconstruction_output``,
+    a one-conv Sequential, as the reference autoencoder's state dict has it).
 
     Every parameter is float32, as in the JAX model; ``dtype`` is the
     compute dtype, to which each conv casts its weight and bias at the call
@@ -68,8 +78,11 @@ class UNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         s2d_level0: bool = False,
         s2d_low_channel_decoders: bool = False,
+        head: str = "segmentation",
     ):
         super().__init__()
+        if head not in HEADS:
+            raise ValueError(f"head must be one of {HEADS}, got {head!r}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         n = len(features_per_stage)
@@ -80,6 +93,7 @@ class UNet(nn.Module):
         self.encoder_dropout_rates = tuple(encoder_dropout_rates)
         self.decoder_dropout_rates = tuple(decoder_dropout_rates)
         self.dtype = dtype
+        self.head = head
         cin = IN_CHANNELS
         encoders = []
         for i in range(n):
@@ -93,19 +107,26 @@ class UNet(nn.Module):
             decoders.append(UpBlock(cin, feats, feats, decoder_dropout_rates[d], generator))
             cin = feats
         self.decoder_stages = nn.ModuleList(decoders)
-        self.segmentation_output = kaiming_conv(cin, num_classes, 1, 1, generator)
+        if head == "segmentation":
+            self.segmentation_output = kaiming_conv(cin, num_classes, 1, 1, generator)
+        else:
+            self.reconstruction_output = nn.Sequential(kaiming_conv(cin, IN_CHANNELS, 3, 1,
+                                                                    generator))
 
     @property
     def n_stages(self) -> int:
         return len(self.features_per_stage)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits.
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                return_bottleneck: bool = False):
+        """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits, or
+        (B, H, W, 3) float32 reconstructions in [0, 1].
 
         ``generator`` (on x's device) drives channel dropout in training
         mode; a training forward through a block with a dropout rate above
-        0 raises without one."""
+        0 raises without one. ``return_bottleneck`` also returns the
+        bottleneck stage's output flattened in NHWC order, (B, H'·W'·C), in
+        the compute dtype, as JAX's."""
         n = self.n_stages
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         # The JAX model's rules: the s2d level needs even sizes and a
@@ -124,6 +145,7 @@ class UNet(nn.Module):
             if s2d_stage and not feed_s2d:
                 x = nchw(depth_to_space(nhwc(x)))
         x = self.encoder_stages[-1](x, generator=generator)
+        bottleneck = x
         for d, decoder in enumerate(self.decoder_stages):
             skip_idx = n - 2 - d
             skip = skips[skip_idx]
@@ -139,12 +161,18 @@ class UNet(nn.Module):
             x = decoder(x, skip, s2d=s2d_stage or s2d_wrap, generator=generator)
             if s2d_wrap:
                 x = nchw(depth_to_space(nhwc(x)))
-        head = self.segmentation_output
+        head = (self.segmentation_output if self.head == "segmentation"
+                else self.reconstruction_output[0])
         if use_s2d:
             out = depth_to_space(conv_s2d(nhwc(x), head.weight, head.bias))
         else:
             out = nhwc(conv2d(x, head))
-        return out.to(torch.float32)
+        out = out.to(torch.float32)
+        if self.head == "reconstruction":
+            out = torch.sigmoid(out)
+        if return_bottleneck:
+            return out, nhwc(bottleneck).reshape(bottleneck.shape[0], -1)
+        return out
 
 
 def unet_6stage(dtype: torch.dtype = torch.float32, device=None,
@@ -156,3 +184,22 @@ def unet_6stage(dtype: torch.dtype = torch.float32, device=None,
     device = default_device(device)
     return UNet(dtype=dtype, generator=generator, s2d_level0=s2d_level0,
                 s2d_low_channel_decoders=s2d_low_channel_decoders).to(device)
+
+
+def autoencoder_6stage(dtype: torch.dtype = torch.float32, device=None,
+                       generator: Optional[torch.Generator] = None, s2d_level0: bool = False,
+                       s2d_low_channel_decoders: bool = False) -> UNet:
+    """The reconstruction autoencoder: ``unet_6stage``'s topology with the
+    reconstruction head and the lowered dropout, on ``device`` (CUDA unless
+    the caller names another device)."""
+    device = default_device(device)
+    return UNet(encoder_dropout_rates=AE_ENC_DROPOUT, decoder_dropout_rates=AE_DEC_DROPOUT,
+                dtype=dtype, generator=generator, s2d_level0=s2d_level0,
+                s2d_low_channel_decoders=s2d_low_channel_decoders,
+                head="reconstruction").to(device)
+
+
+def encoder_param_names(n_stages: int = 6) -> Tuple[str, ...]:
+    """The submodules that form the transferable encoder (the JAX names are
+    ``encoder_{i}``; here ``encoder_stages.{i}``), bottleneck included."""
+    return tuple(f"encoder_stages.{i}" for i in range(n_stages))

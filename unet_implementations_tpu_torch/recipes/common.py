@@ -1,11 +1,13 @@
 """Shared recipe plumbing: dataset evaluation and the serving path.
 
 Counterpart of ``unet_implementations_tpu/recipes/common.py``
-(``check_grad_accum``, ``evaluate_segmentation``, ``predict_segmentation``).
-The forward and the argmax run on the model's device; the nearest resize
-back to each image's original size runs on the host with torch/cv2 floor
-index math, as the reference eval protocol does. ``evaluate_segmentation``
-writes ``evaluation_results.json`` with the reference's schema.
+(``check_grad_accum``, ``evaluate_segmentation``, ``predict_segmentation``,
+``evaluate_reconstruction``). The forward and the argmax run on the model's
+device; the nearest resize back to each image's original size runs on the
+host with torch/cv2 floor index math, as the reference eval protocol does.
+``evaluate_segmentation`` writes ``evaluation_results.json`` with the
+reference's schema, ``evaluate_reconstruction`` the JAX package's
+``reconstruction_metrics.json``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch
 
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
+from unet_implementations_tpu_torch.ops.losses import psnr, ssim
 from unet_implementations_tpu_torch.ops.metrics import SegmentationMetrics
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.training.steps import to_device
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
 IMAGE_SIZE = 512
@@ -125,6 +129,56 @@ def evaluate_segmentation(
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         with open(output_dir / "evaluation_results.json", "w") as f:
+            json.dump(results, f, indent=4)
+    return results
+
+
+def evaluate_reconstruction(
+    recon_fn: Callable[[Dict], torch.Tensor],
+    dataset: PetDataset,
+    batch_size: int = 32,
+    output_dir: Optional[str | Path] = None,
+    num_threads: int = 8,
+    verbose: bool = True,
+) -> Dict:
+    """Per-image MSE, PSNR and SSIM over a reconstruction-mode dataset, as
+    ``reconstruction_metrics.json`` (``mse``, ``psnr``, ``ssim``,
+    ``num_images``: each the mean over the images).
+
+    ``recon_fn(batch) -> (B, H, W, 3)`` reconstructions on the device. The
+    target (uint8 or [0, 1] float) crosses to the same device, and the three
+    metrics are one device computation per batch; only their per-image
+    scalars come back, with the forwards ``EVAL_RUN_AHEAD`` batches ahead of
+    the host, as in ``evaluate_segmentation``."""
+    @torch.inference_mode()
+    def metrics(recon: torch.Tensor, batch: Dict) -> torch.Tensor:
+        target = normalize_image(to_device(batch["target"], recon.device), mode="unit")
+        diff = recon.to(torch.float32) - target.to(torch.float32)
+        return torch.stack([torch.mean(diff * diff, dim=(1, 2, 3)), psnr(recon, target),
+                            ssim(recon, target)])
+
+    rows: List[np.ndarray] = []
+    pending = deque()
+    for batch in batch_iterator(dataset, batch_size, shuffle=False, num_threads=num_threads):
+        pending.append(metrics(recon_fn(batch), batch))
+        if len(pending) > EVAL_RUN_AHEAD:
+            rows.append(pending.popleft().cpu().numpy())
+    rows.extend(m.cpu().numpy() for m in pending)
+    per_image = (np.concatenate(rows, axis=1) if rows else np.zeros((3, 0))).astype(np.float64)
+
+    results = {
+        "mse": float(np.mean(per_image[0])),
+        "psnr": float(np.mean(per_image[1])),
+        "ssim": float(np.mean(per_image[2])),
+        "num_images": int(per_image.shape[1]),
+    }
+    if verbose:
+        print(f"MSE: {results['mse']:.6f}  PSNR: {results['psnr']:.2f} dB  "
+              f"SSIM: {results['ssim']:.4f}  (n={results['num_images']})")
+    if output_dir is not None:
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        with open(output_dir / "reconstruction_metrics.json", "w") as f:
             json.dump(results, f, indent=4)
     return results
 

@@ -158,7 +158,23 @@ def train(
 
     model = build_model(dtype, device, seed)
     optimizer = sgd_nesterov(model.parameters(), lr, weight_decay, momentum)
+    return fit(model, optimizer, train_ds, val_ds, output_dir, batch_size=batch_size,
+               epochs=epochs, lr=lr, weighted_ce=weighted_ce, static_weights=static_weights,
+               dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
+               save_every=save_every, resume=resume, seed=seed, num_threads=num_threads,
+               arch_config=ARCH_CONFIG, verbose=verbose)
 
+
+def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
+        val_ds: PetDataset, output_dir: Path, *, batch_size: int, epochs: int, lr: float,
+        weighted_ce: bool, static_weights: bool, dice_weight: float, ce_weight: float,
+        patience: int, save_every: int, resume: Optional[str], seed: int, num_threads: int,
+        arch_config: Dict, verbose: bool) -> Dict:
+    """The segmentation training of ``model`` by ``optimizer`` (shared with
+    ``recipes/ae_transfer.py``): the loss's class weights, the train and eval
+    steps, a resume, and ``train_loop`` with poly LR decay and early stopping
+    on mean foreground Dice."""
+    device = next(model.parameters()).device
     sw = None
     if weighted_ce and static_weights:
         sw = torch.from_numpy(compute_static_weights(train_ds, batch_size)).to(device)
@@ -203,7 +219,7 @@ def train(
         start_epoch=start_epoch,
         best_metric=best,
         early_stopping_state=es_state,
-        arch_config=ARCH_CONFIG,
+        arch_config=arch_config,
         verbose=verbose,
     )
 

@@ -1,7 +1,7 @@
-"""The segmentation train and eval steps.
+"""The segmentation and reconstruction train and eval steps.
 
 Counterpart of ``unet_implementations_tpu/training/steps.py`` (its lines
-29-97 and 184-219). JAX jits a pure ``(state, batch, rng) -> (state, loss)``;
+29-97 and 184-261). JAX jits a pure ``(state, batch, rng) -> (state, loss)``;
 the port runs eagerly and updates the model and its optimizer in place.
 
 A batch is ``{"image": (B, H, W, 3) uint8 or float, "mask": (B, H, W) int}``,
@@ -16,6 +16,11 @@ from the ``torch.Generator`` it is given (on the model's device), then
 in plain torch. The eval step runs in eval mode under ``torch.inference_mode``
 (so in the s2d layout the fused block tail, K3, runs) and returns the loss,
 the per-class batch Dice, the argmax predictions and a confusion matrix.
+
+The reconstruction steps take ``{"image", "target"}`` (uint8, or float in
+[0, 1]), scale uint8 to [0, 1] on the device (``mode="unit"``, no ImageNet
+statistics), and train on the MSE, or on ``loss_fn(recon, target)`` (the
+composite loss of ``recipes/ae_recon.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from unet_implementations_tpu_torch.ops.losses import segmentation_loss
+from unet_implementations_tpu_torch.ops.losses import mse_loss, psnr, segmentation_loss
 from unet_implementations_tpu_torch.ops.metrics import batch_dice_scores, confusion_matrix
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 
@@ -99,5 +104,51 @@ def make_segmentation_eval_step(
         preds = torch.argmax(logits, dim=-1).to(torch.int32)
         return {"loss": loss, "dice": batch_dice_scores(preds, mask), "preds": preds,
                 "confusion": confusion_matrix(preds, mask)}
+
+    return step
+
+
+def _recon_on_device(batch: Dict, device: torch.device):
+    return (normalize_image(to_device(batch["image"], device), mode="unit"),
+            normalize_image(to_device(batch["target"], device), mode="unit"))
+
+
+def make_reconstruction_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = mse_loss,
+) -> Callable:
+    """``step(batch, generator) -> loss`` (a detached float32 scalar on the
+    model's device): a training forward with channel dropout from
+    ``generator``, ``loss_fn(recon, target)`` (plain MSE by default, the
+    reference's trained objective), backward and optimizer update in
+    place."""
+    device = next(model.parameters()).device
+
+    def step(batch: Dict, generator: Optional[torch.Generator]) -> torch.Tensor:
+        model.train()
+        image, target = _recon_on_device(batch, device)
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model(image, generator=generator), target)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_reconstruction_eval_step(model: nn.Module) -> Callable:
+    """``step(batch) -> {"loss" (the MSE), "mse" (B,), "psnr" (B,), "recon"
+    (B, H, W, 3) float32}``, all on the model's device."""
+    device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        model.eval()
+        image, target = _recon_on_device(batch, device)
+        recon = model(image)
+        diff = recon.to(torch.float32) - target.to(torch.float32)
+        return {"loss": mse_loss(recon, target), "mse": torch.mean(diff * diff, dim=(1, 2, 3)),
+                "psnr": psnr(recon, target), "recon": recon}
 
     return step
