@@ -4,13 +4,13 @@ paths on one card.
 
     python3 chip_smoke.py
 
-Two models: the segmentation UNet (``unet_6stage``) and the autoencoder
+Three models: the segmentation UNet (``unet_6stage``), the autoencoder
 (``autoencoder_6stage``, phase 9), whose encoder the transfer recipe grafts
-onto the UNet and freezes. Two layouts of the model are served and trained
-(the recipes of phases 8 and 9 run the default, dense): dense, and the JAX
-model's
-space-to-depth layout (``s2d_level0`` and ``s2d_low_channel_decoders``: level
-0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
+onto the UNet and freezes, and the CLIP_UNet model (``unet_6stage`` with
+``clip_fusion``, phase 10) with its frozen ViT-B/16 tower. Two layouts of the
+model are served and trained (the recipes of phases 8-10 run the default,
+dense): dense, and the JAX model's space-to-depth layout (``s2d_level0`` and
+``s2d_low_channel_decoders``: level 0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
 K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
 K3 (the fused s2d block tail) and K4/K4f (the Winograd s2d conv, with the
 unfolded and the folded U).
@@ -108,10 +108,37 @@ Phases (any failure makes the script exit non-zero without a result line):
    the AE and transfer step times, and both recipes' time per step after
    their first batch, beside phase 7's b32 dense step.
 
+10. The CLIP_UNet path, dense, bf16 with float32 parameters. The frozen
+   ViT-B/16 tower (random weights from seed 0, as every ``clip_unet`` command
+   draws them) at b64 224²: bf16 against float32 (TF32 off) within
+   TOWER_BF16_REL_L2 (rel-L2 of the embeddings), a second bf16 call bit for
+   bit, no kernel launch, and its time by CUDA events beside its bound (the
+   products at the bf16 tensor peak). The fusion model's train step
+   (``use_clip``; its embeddings are the tower's): K1/K2a/K2b/K3/K1bwd
+   23/5/0/0/23 per step (the fusion's norm is one more K1 and K1bwd); at b8
+   phase 7's gates against the plain versions; 10 b8 steps lower the loss;
+   the b16 time and peak memory. Its b8 forward in both layouts against the
+   plain versions at phase 4's bounds (23/5/0/0 dense, 17/3/2/3 s2d;
+   22/5/0/0 without features), and f32 s2d against f32 dense. Then through
+   ``cli.main`` on phase 8's dataset, from decode caches that hold the CLIP
+   view (written with the loader's functions; ``clips.npy``): ``clip_unet
+   embed`` (every table's rows equal a live extraction at b64 by a tower
+   built anew, bit for bit), ``clip_unet train --embeddings_dir`` at b16 for
+   CLIP_EPOCHS epochs (phase 9's CSV checks; ``checkpoints/epoch_N`` and
+   ``best_model`` loading strictly, fusion keys included, ``meta.json`` carrying
+   ``with_clip_features`` and ``clip_dim``), and ``clip_unet evaluate`` with
+   the tables, with live extraction (every scalar within CLIP_TABLE_ATOL of
+   the tables' run), with ``--no_clip_features`` (22/5 per forward), and in
+   float32 with the kernels and with the plain versions (within 2e-3).
+   Printed, not gated: the b16 step beside phase 7's b32 dense step; the
+   tower's controls (TOWER_SLIPS); the recipe's overhead per step: epochs
+   2-4 after their first batch against the isolated step timed as the loop
+   times it (an epoch's steps back to back by the host clock), each thrice.
+
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6, 7, 8 and 9).
+runs of the main paths (phases 3, 6, 7, 8, 9 and 10).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -131,6 +158,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -145,6 +173,8 @@ from unet_implementations_tpu_torch.kernels import s2d_region as k3
 from unet_implementations_tpu_torch.kernels import upsample as k2
 from unet_implementations_tpu_torch.kernels import winograd as k4
 from unet_implementations_tpu_torch.models import blocks, convert
+from unet_implementations_tpu_torch.models import clip as clip_model
+from unet_implementations_tpu_torch.models.clip import ClipFeatureExtractor
 from unet_implementations_tpu_torch.models.s2d import (
     depth_to_space,
     space_to_depth,
@@ -158,7 +188,8 @@ from unet_implementations_tpu_torch.models.unet import (
     unet_6stage,
 )
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
-from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
+from unet_implementations_tpu_torch.ops.resize import resize_bilinear, upsample2x_nhwc
+from unet_implementations_tpu_torch.recipes import clip_unet
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training.checkpoint import (
     extract_encoder_params,
@@ -250,6 +281,39 @@ TRANSFER_PER_STEP = {**PER_STEP["dense"], "K1bwd": 2 * len(K2_INPUTS)}
 AE_EVAL_REL = 2e-3
 # The keys of the JAX package's reconstruction_metrics.json.
 AE_METRIC_KEYS = ("mse", "psnr", "ssim", "num_images")
+# The CLIP_UNet path (phase 10): the fusion's InstanceNorm+LeakyReLU at the
+# bottleneck is one more K1 per forward and one more K1bwd per train step.
+CLIP_PER_FORWARD = {layout: {**fwd, "K1": fwd["K1"] + 1} for layout, fwd in PER_FORWARD.items()}
+CLIP_PER_STEP = {layout: {**step, "K1": step["K1"] + 1, "K1bwd": step["K1bwd"] + 1}
+                 for layout, step in PER_STEP.items()}
+# The recipe's batch (JAX's and the reference's default), the tower's
+# batch (``clip_unet embed``'s default) and its input side.
+CLIP_BATCH = 16
+TOWER_BATCH = 64
+TOWER_SIDE = 224
+# The bf16 tower against the float32 tower (TF32 off) on the same weights
+# and images: rel-L2 of the (B, 512) embeddings at most this. The residual
+# stream and the LayerNorms stay float32; every product and the attention
+# round to bf16 (unit roundoff 2^-9 = 2e-3) and 12 blocks add their errors.
+# On an H100 (80GB HBM3, 700 W) three runs read 5.518e-3, and two controls,
+# each a precision slip that Flax's numerics rule out (TOWER_SLIPS), read
+# 8.119e-3 (the residual stream kept in bf16) and 6.160e-3 (the LayerNorms
+# in bf16): the bound sits between the tower and the first control, so a
+# bf16 residual stream fails; the LayerNorm slip stays under any bound that
+# leaves the tower room. A tower wrong as a whole (a head split, the q
+# scale, the token order) reads near 1.
+TOWER_BF16_REL_L2 = 7e-3
+# The evaluate with the embedding tables against the one with live
+# extraction: every scalar within this (absolute). The tables were computed
+# at the tower's batch (64), the live features at the recipe's (16): bf16
+# products of another shape may round otherwise.
+CLIP_TABLE_ATOL = 2e-3
+# The clip_unet recipe's epochs: epochs 2-4 each give one reading of its
+# time per step after the first batch, against as many readings of the
+# isolated step over an epoch's steps by the host clock (OVERHEAD_REPEATS).
+CLIP_EPOCHS = 4
+OVERHEAD_REPEATS = 3
+
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
          (300, 300), (181, 257)]
@@ -1338,12 +1402,14 @@ def phase_k4():
 
 def grad_groups(model) -> dict:
     """Parameter names by comparison group: each parameter alone, except a
-    conv followed by InstanceNorm (inside a block), whose bias goes with its
-    weight (the norm cancels the bias: its exact gradient is zero)."""
+    conv followed by InstanceNorm (inside a block, and the CLIP fusion's),
+    whose bias goes with its weight (the norm cancels the bias: its exact
+    gradient is zero)."""
     groups = {}
     for name, _ in model.named_parameters():
         prefix = name.rsplit(".", 1)[0]
-        if ".block." in name and isinstance(model.get_submodule(prefix), torch.nn.Conv2d):
+        if (".block." in name or name.startswith("clip_fusion_conv.")) and isinstance(
+                model.get_submodule(prefix), torch.nn.Conv2d):
             groups.setdefault(prefix, []).append(name)
         else:
             groups[name] = [name]
@@ -1363,7 +1429,13 @@ OBJECTIVES = {
         m, sgd_nesterov(m.parameters()))),
     "reconstruction": (autoencoder_6stage, lambda m: make_reconstruction_train_step(
         m, adam_l2(m.parameters()))),
+    "clip": (lambda **kw: unet_6stage(clip_fusion=True, **kw),
+             lambda m: make_segmentation_train_step(m, sgd_nesterov(m.parameters()),
+                                                    use_clip=True)),
 }
+# Each objective's launches per train step, and its name in the log.
+STEP_LAUNCHES = {"segmentation": PER_STEP, "reconstruction": PER_STEP, "clip": CLIP_PER_STEP}
+OBJECTIVE_NAMES = {"segmentation": "", "reconstruction": "AE ", "clip": "CLIP "}
 
 
 def train_model(layout: str, state: dict, dtype, objective: str = "segmentation"):
@@ -1388,8 +1460,9 @@ def one_step(layout: str, state: dict, dtype, batch: dict, mode: str,
     model = train_model(layout, state, dtype, objective)
     step = OBJECTIVES[objective][1](model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    expected = {"kernels": PER_STEP[layout], "kernel values": {
-        **NO_LAUNCHES, "K1": PER_STEP[layout]["K1"]}}.get(mode, NO_LAUNCHES)
+    per_step = STEP_LAUNCHES[objective][layout]
+    expected = {"kernels": per_step, "kernel values": {
+        **NO_LAUNCHES, "K1": per_step["K1"]}}.get(mode, NO_LAUNCHES)
     k1_version = STEP_MODES[mode]
     with deterministic(), plain_versions(k1_version) if k1_version else nullcontext():
         loss = (counted_path if mode == "kernels" else counted)(lambda: float(step(batch, gen)),
@@ -1405,7 +1478,7 @@ def check_train_step(layout: str, state: dict, batch: dict,
     runs.update({(torch.bfloat16, mode): one_step(layout, state, torch.bfloat16, batch, mode,
                                                   objective)
                  for mode in ("kernels", "plain")})
-    name = layout if objective == "segmentation" else f"AE {layout}"
+    name = OBJECTIVE_NAMES[objective] + layout
     f32, f32_plain = runs[(torch.float32, "kernels")], runs[(torch.float32, "plain")]
     f32_values, f32_reordered = (runs[(torch.float32, "kernel values")],
                                  runs[(torch.float32, "reordered")])
@@ -1466,10 +1539,12 @@ def check_train_step(layout: str, state: dict, batch: dict,
             "bf16 loss err": (dl_k, dl_p)}
 
 
-def timed_steps(label: str, step, batch: dict, expected: dict) -> tuple[float, float]:
-    """The median of TIMED_STEPS b32 steps by CUDA events after WARMUP_STEPS
-    and the peak memory, every step counted; fails unless the loss of one
-    more step is finite. Returns (median ms, peak GiB)."""
+def timed_steps(label: str, step, batch: dict, expected: dict,
+                batch_size: int = TRAIN_BATCH) -> tuple[float, float]:
+    """The median of TIMED_STEPS steps (of ``batch_size`` images) by CUDA
+    events after WARMUP_STEPS and the peak memory, every step counted; fails
+    unless the loss of one more step is finite. Returns (median ms, peak
+    GiB)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1478,11 +1553,11 @@ def timed_steps(label: str, step, batch: dict, expected: dict) -> tuple[float, f
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(ms)
     last = counted_path(lambda: float(step(batch, gen)), expected)
-    log(f"{label} b{TRAIN_BATCH} 512² bf16: {spread(ms)}, "
-        f"{TRAIN_BATCH / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; loss after "
+    log(f"{label} b{batch_size} 512² bf16: {spread(ms)}, "
+        f"{batch_size / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; loss after "
         f"{WARMUP_STEPS + TIMED_STEPS + 1} steps {last:.4f}")
     if not math.isfinite(last):
-        raise AssertionError(f"{label}: the b{TRAIN_BATCH} loss is not finite")
+        raise AssertionError(f"{label}: the b{batch_size} loss is not finite")
     return med, peak
 
 
@@ -1593,12 +1668,12 @@ def recipe_data(root: Path) -> tuple[Path, Path]:
     return data, cache
 
 
-def per_epoch(per_step: dict, epochs: int) -> dict:
-    """Launches of ``epochs`` recipe epochs: the train steps and the
-    validation forwards (dense)."""
-    steps = RECIPE_SPLITS["Train"][1] // RECIPE_BATCH
-    val_fwd = -(-RECIPE_SPLITS["Val"][1] // RECIPE_BATCH)
-    fwd = PER_FORWARD["dense"]
+def per_epoch(per_step: dict, epochs: int, batch: int = RECIPE_BATCH,
+              fwd: dict = PER_FORWARD["dense"]) -> dict:
+    """Launches of ``epochs`` recipe epochs at ``batch``: the train steps and
+    the validation forwards (dense, ``fwd`` each)."""
+    steps = RECIPE_SPLITS["Train"][1] // batch
+    val_fwd = -(-RECIPE_SPLITS["Val"][1] // batch)
     return {k: epochs * (steps * per_step[k] + val_fwd * fwd[k]) for k in KERNELS}
 
 
@@ -2019,6 +2094,332 @@ def phase_ae(root: Path):
             f"dense step {phase7 if phase7 else float('nan'):.3f} ms{ratio}")
 
 
+def tower_flops(config, batch: int) -> float:
+    """Multiply-adds x 2 of the tower's forward on ``batch`` images: the
+    patch conv, and per block the q/k/v, the scores, the weighted sum, the
+    out projection and the MLP (the LayerNorms, softmax and activations are
+    elementwise and left out); ``ln_post``'s projection on one token."""
+    w, n, p = config.width, config.grid ** 2 + 1, config.patch_size
+    patch = config.grid ** 2 * w * 3 * p * p
+    block = n * w * 3 * w + 2 * n * n * w + n * w * w + 2 * n * w * 4 * w
+    return 2.0 * batch * (patch + config.layers * block + w * config.output_dim)
+
+
+def _bf16_stream_block(block, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``ResidualAttentionBlock.forward`` with a precision slip: the residual
+    stream rounded to ``dtype`` at each addition (Flax keeps it float32)."""
+    x = (x + block.attn(clip_model._layer_norm(x, block.ln_1), dtype)).to(dtype)
+    y = clip_model.quick_gelu(clip_model._linear(clip_model._layer_norm(x, block.ln_2),
+                                                 block.mlp.c_fc, dtype))
+    return (x + clip_model._linear(y, block.mlp.c_proj, dtype)).to(dtype)
+
+
+def _bf16_layer_norm(x: torch.Tensor, ln: torch.nn.LayerNorm) -> torch.Tensor:
+    """``_layer_norm`` with a precision slip: input, affine and output in
+    bf16 (Flax computes them in float32), widened after."""
+    bf = torch.bfloat16
+    return F.layer_norm(x.to(bf), ln.normalized_shape, ln.weight.to(bf), ln.bias.to(bf),
+                        ln.eps).float()
+
+
+# The tower's controls: (owner, attribute, replacement) of each slip.
+TOWER_SLIPS = {
+    "residual stream in bf16": (clip_model.ResidualAttentionBlock, "forward", _bf16_stream_block),
+    "LayerNorms in bf16": (clip_model, "_layer_norm", _bf16_layer_norm),
+}
+
+
+def clip_tower() -> torch.Tensor:
+    """The frozen ViT-B/16 tower from seed CLIP_SEED at b64 224²: bf16
+    against float32 (TF32 off) within TOWER_BF16_REL_L2, a second bf16 call
+    bit for bit, no kernel launch; the bf16 time by CUDA events beside the
+    bound; the controls of TOWER_SLIPS against float32, printed. Returns the
+    bf16 embeddings."""
+    extractor = ClipFeatureExtractor("ViT-B/16", dtype=torch.bfloat16, device="cuda",
+                                     seed=clip_unet.CLIP_SEED)
+    tower = extractor.model
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    pixels = torch.randint(0, 256, (TOWER_BATCH, TOWER_SIDE, TOWER_SIDE, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    with torch.inference_mode():
+        bf16 = counted(lambda: extractor(pixels), NO_LAUNCHES)
+        again = counted(lambda: extractor(pixels), NO_LAUNCHES)
+        x = normalize_image(pixels)
+        tower.dtype = torch.float32
+        f32 = counted(lambda: tower(x), NO_LAUNCHES)
+        tower.dtype = torch.bfloat16
+        ms = cuda_times(tower, [x], iters=10, warmup=3)
+        controls = {}
+        for name, (owner, attr, slip) in TOWER_SLIPS.items():
+            with mock.patch.object(owner, attr, slip):
+                controls[name] = rel_l2(counted(lambda: tower(x), NO_LAUNCHES), f32)
+    rel, repeat = rel_l2(bf16, f32), torch.equal(bf16, again)
+    flops = tower_flops(tower.config, TOWER_BATCH)
+    bound = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    med = statistics.median(ms)
+    log(f"tower ViT-B/16 b{TOWER_BATCH} {TOWER_SIDE}²: bf16 vs f32 embeddings rel-L2 {rel:.4e} "
+        f"(bound {TOWER_BF16_REL_L2:g}); a second bf16 call repeats bit for bit: {repeat}; "
+        f"no kernel launch")
+    log("tower controls, each a precision slip, bf16 vs f32 embeddings rel-L2: "
+        + "; ".join(f"{k} {v:.4e} ({v / TOWER_BF16_REL_L2:.2f}x the bound)"
+                    for k, v in controls.items()))
+    log(f"tower ViT-B/16 b{TOWER_BATCH} bf16 forward: {spread(ms)}; bound {bound:.4f} ms "
+        f"({flops / 1e12:.4f} TFLOP at {BF16_TENSOR_FLOPS_PER_S / 1e12:g} TFLOP/s bf16, "
+        f"{bound / med:.1%} of it); {TOWER_BATCH / med * 1e3:.1f} img/s")
+    report["clip"].update(tower_rel_l2=rel, tower_ms=med, tower_bound_ms=bound,
+                          tower_controls=controls)
+    if not (rel <= TOWER_BF16_REL_L2 and repeat and bool(torch.isfinite(bf16).all())):
+        raise AssertionError(f"the bf16 tower: rel-L2 {rel:.4e}, repeats {repeat}")
+    return bf16
+
+
+def clip_batch(seed: int, batch: int, features: torch.Tensor) -> dict:
+    """A segmentation batch on the card with the tower's embeddings."""
+    out = device_batch(as_uint8(synthetic_batch(seed, batch, IMG)))
+    out["clip_features"] = features[:batch].clone()
+    return out
+
+
+def clip_train_steps(features: torch.Tensor) -> torch.nn.Module:
+    """The fusion model's train step (dense, bf16, SGD-Nesterov): the b8
+    checks of phase 7, 10 b8 steps that must lower the loss, the b16 time
+    and peak memory. Returns the model after the timed steps."""
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 16), clip_fusion=True)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    check = clip_batch(SEED + 17, CHECK_BATCH, features)
+    report["clip"]["check"] = check_train_step("dense", state, check, "clip")
+    torch.cuda.empty_cache()
+
+    trained = train_model("dense", state, torch.bfloat16, "clip")
+    step = OBJECTIVES["clip"][1](trained)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = [counted_path(lambda: float(step(check, gen)), CLIP_PER_STEP["dense"])
+              for _ in range(TRAIN_STEPS_DOWN)]
+    log(f"CLIP {TRAIN_STEPS_DOWN} steps on one b{CHECK_BATCH} batch: losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the CLIP model's loss did not go down: {losses}")
+    del trained, step, check
+    torch.cuda.empty_cache()
+
+    batch = clip_batch(SEED + 18, CLIP_BATCH, features)
+    step = OBJECTIVES["clip"][1](model)
+    med, peak = timed_steps("CLIP train step", step, batch, CLIP_PER_STEP["dense"],
+                            batch_size=CLIP_BATCH)
+    n = RECIPE_SPLITS["Train"][1] // CLIP_BATCH
+    host = [host_steps_ms(step, batch, n, CLIP_PER_STEP["dense"])
+            for _ in range(OVERHEAD_REPEATS)]
+    log(f"CLIP train step b{CLIP_BATCH}, {n} steps back to back by the host clock: "
+        + ", ".join(f"{v:.3f}" for v in host) + " ms per step")
+    report["clip"].update(step_ms=med, peak_gib=peak, host_step_ms=host)
+    return model
+
+
+def host_steps_ms(step, batch: dict, n: int, expected: dict) -> float:
+    """Milliseconds per step of ``n`` steps issued back to back, by the
+    host clock with the card synchronized at both ends: the recipe loop's
+    own timer around the same work, without its loader and copies."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        counted_path(lambda: step(batch, gen), expected)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def clip_forwards(model: torch.nn.Module, features: torch.Tensor) -> None:
+    """The fusion model's b8 forward in both layouts, bf16 and float32, with
+    the kernels against the plain versions (phase 4's bounds), without
+    features (22/5/0/0), and float32 s2d against float32 dense."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    pixels = torch.randint(0, 256, (SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    x, cf = normalize_image(pixels), features[:SERVE_BATCH]
+    state = model.state_dict()
+    results = {}
+    for layout in LAYOUTS:
+        log(f"-- CLIP forward, {layout}")
+        served, reference = (unet_6stage(dtype=dt, device="cuda", clip_fusion=True,
+                                         **LAYOUTS[layout])
+                             for dt in (torch.bfloat16, torch.float32))
+        for m in (served, reference):
+            m.load_state_dict(state, strict=True)
+            m.eval()
+        results[layout] = check_forwards(lambda v: served(v, cf), lambda v: reference(v, cf), x,
+                                         CLIP_PER_FORWARD[layout], path=True)
+        if layout == "dense":
+            with torch.inference_mode():
+                plain = counted_path(lambda: served(x), PER_FORWARD["dense"])
+                fused = served(x, cf)
+            moved = rel_l2(fused, plain)
+            log(f"dense forward without features: launches {PER_FORWARD['dense']}; its logits "
+                f"against the fused forward's: rel-L2 {moved:.4e}")
+            if not moved > 0:
+                raise AssertionError("the features do not change the fused forward")
+        del served, reference
+    report["clip"]["forwards"] = {k: v["pairs"] for k, v in results.items()}
+    report["clip"]["layouts"] = check_layouts_agree(results["s2d"]["f32"],
+                                                    results["dense"]["f32"], "CLIP b8")
+
+
+def write_clip_caches(data: Path, cache: Path) -> None:
+    """Decode caches with the CLIP view for phase 8's dataset, written with
+    the loader's functions: for each split, the segmentation dataset's (its
+    masks) and ``clip_unet embed``'s (no masks). Each view is the 512² image
+    resized to 224² bilinearly on the card (the card has no cv2)."""
+    size, cs = (IMG, IMG), TOWER_SIDE
+    for split, (labels, n) in RECIPE_SPLITS.items():
+        images_dir, masks_dir = data / split / "resized", data / split / labels
+        seg = loader.open_cache(loader.cache_path(cache, images_dir, masks_dir, size))
+        with torch.inference_mode():
+            views = torch.cat([
+                resize_bilinear(torch.from_numpy(np.array(seg["image"][i:i + 64])).to(
+                    "cuda", torch.float32), (cs, cs)).round().clamp(0, 255).to(torch.uint8)
+                for i in range(0, n, 64)]).cpu().numpy()
+        files = sorted(images_dir.glob("*.jpg"))
+        for masks in (masks_dir, None):
+            def items():
+                for i in range(n):
+                    item = {"image": seg["image"][i], "original_dims": seg["original_dims"][i],
+                            "clip_image": views[i]}
+                    if masks is not None:
+                        item["mask"] = seg["mask"][i]
+                    yield item
+
+            has_masks = masks is not None
+            loader.write_cache(loader.cache_path(cache, images_dir, masks, size, clip_size=cs),
+                               loader.cache_identity(files, size, has_masks, clip_size=cs),
+                               items(), n, size, has_masks, clip_size=cs)
+
+
+def clip_chain(root: Path) -> None:
+    """``cli clip_unet embed -> train --embeddings_dir -> evaluate`` (with the
+    tables, with live extraction, without features; float32 with the kernels
+    and with the plain versions) on phase 8's dataset, from warm decode caches
+    that hold the CLIP view."""
+    data, cache = recipe_data(root)
+    write_clip_caches(data, cache)
+    emb, out = data / "clip_embeddings", root / "clip"
+    common = ["--data_dir", str(data), "--decode_cache", str(cache)]
+    n_test = RECIPE_SPLITS["Test"][1]
+    test_fwd = -(-n_test // CLIP_BATCH)
+
+    written = counted(lambda: cli.main(["clip_unet", "embed", *common]), NO_LAUNCHES)
+    # The tables against a live extraction of the same images at the same
+    # batch, by a tower built anew from the same seed: bit for bit.
+    extractor = ClipFeatureExtractor("ViT-B/16", dtype=torch.bfloat16, device="cuda",
+                                     seed=clip_unet.CLIP_SEED)
+    for split in RECIPE_SPLITS:
+        ds = loader.PetDataset(data / split / "resized", None, include_augmented=False,
+                               clip_dir=data / split / "resized_clip", cache_dir=cache)
+        table = clip_unet._load_embedding_table(emb, split, ds, "ViT-B/16", verbose=False)
+        live = clip_unet._embedding_table(extractor, ds, TOWER_BATCH)
+        if table is None or not np.array_equal(table, live):
+            raise AssertionError(f"the {split} table differs from live extraction")
+    del extractor
+    log(f"clip_unet embed: {sorted(written)}; each table's rows equal a live extraction at "
+        f"b{TOWER_BATCH} bit for bit")
+
+    result = counted_path(lambda: cli.main([
+        "clip_unet", "train", "--output_dir", str(out), "--save_every", "1", "--epochs",
+        str(CLIP_EPOCHS), "--embeddings_dir", str(emb), *common]),
+        per_epoch(CLIP_PER_STEP["dense"], CLIP_EPOCHS, CLIP_BATCH, CLIP_PER_FORWARD["dense"]))
+    check_csv(out / "training_log.csv", SEG_CSV_HEADER,
+              [f"{poly_lr(5e-3, CLIP_EPOCHS)(e):.7f}" for e in range(CLIP_EPOCHS)], 7,
+              slice(1, 7))
+    model = unet_6stage(device="cuda", clip_fusion=True)
+    for d in [*(out / "checkpoints" / f"epoch_{e + 1}" for e in range(CLIP_EPOCHS)),
+              out / "best_model"]:
+        model.load_state_dict(load_checkpoint(d)["model_state_dict"], strict=True)
+        config = json.loads((d / "meta.json").read_text())["config"]
+        if config != clip_unet.ARCH_CONFIG or not config["with_clip_features"]:
+            raise AssertionError(f"{d}/meta.json config {config}")
+    del model
+    log(f"checkpoints epoch_1..{CLIP_EPOCHS} and best_model load strictly, the fusion's keys "
+        f"included; meta.json config {clip_unet.ARCH_CONFIG}")
+    report["clip"]["recipe_steady_ms"] = [
+        (e["train_s"] - e["first_batch_s"]) / e["steps"] * 1e3 for e in result["epochs"][1:]]
+    torch.cuda.empty_cache()
+
+    def evaluate(name: str, expected: dict, *flags: str) -> dict:
+        def run():
+            cli.main(["clip_unet", "evaluate", "--model_path", str(out / "best_model"),
+                      "--output_dir", str(out / name), "--batch_size", str(CLIP_BATCH),
+                      *common, *flags])
+        (counted_path if expected != NO_LAUNCHES else counted)(run, expected)
+        return eval_scalars(json.loads((out / name / "evaluation_results.json").read_text()))
+
+    per_test = times(CLIP_PER_FORWARD["dense"], test_fwd)
+    runs = {"tables": evaluate("eval_tables", per_test, "--embeddings_dir", str(emb)),
+            "live": evaluate("eval_live", per_test),
+            "no features": evaluate("eval_plain", times(PER_FORWARD["dense"], test_fwd),
+                                    "--no_clip_features"),
+            "f32 tables": evaluate("eval_f32", per_test, "--f32", "--embeddings_dir", str(emb))}
+    with plain_versions():
+        runs["f32 plain"] = evaluate("eval_f32_plain", NO_LAUNCHES, "--f32", "--embeddings_dir",
+                                     str(emb))
+    log(f"{'scalar':<22} " + " ".join(f"{k:>12}" for k in runs))
+    for k in runs["tables"]:
+        log(f"{k:<22} " + " ".join(f"{r[k]:12.6f}" for r in runs.values()))
+
+    def far(a: dict, b: dict, atol: float) -> dict:
+        # Two NaNs agree: a class that neither run predicts has no precision.
+        return {k: (a[k], b[k]) for k in a
+                if not (abs(a[k] - b[k]) <= atol or math.isnan(a[k]) and math.isnan(b[k]))}
+
+    far_live = far(runs["tables"], runs["live"], CLIP_TABLE_ATOL)
+    far_plain = far(runs["f32 tables"], runs["f32 plain"], RECIPE_EVAL_ATOL)
+    if far_live or far_plain:
+        raise AssertionError(f"evaluate: tables against live beyond {CLIP_TABLE_ATOL}: "
+                             f"{far_live}; f32 kernels against plain beyond {RECIPE_EVAL_ATOL}: "
+                             f"{far_plain}")
+    if not all(math.isfinite(v) for v in runs["no features"].values() if not math.isnan(v)):
+        raise AssertionError(f"an evaluation scalar without features is not finite: {runs}")
+
+
+@phase(f"10. the CLIP_UNet path: the ViT-B/16 tower (b{TOWER_BATCH}), unet_6stage with "
+       f"clip_fusion (b{CHECK_BATCH} checks, b{CLIP_BATCH} times), then cli clip_unet "
+       f"embed -> train -> evaluate")
+def phase_clip(root: Path):
+    report["clip"] = {}
+    parts, t0 = {}, time.perf_counter()
+    features = clip_tower()
+    torch.cuda.empty_cache()
+    parts["tower"], t0 = time.perf_counter() - t0, time.perf_counter()
+    model = clip_train_steps(features)
+    torch.cuda.empty_cache()
+    parts["train steps"], t0 = time.perf_counter() - t0, time.perf_counter()
+    clip_forwards(model, features)
+    del model
+    torch.cuda.empty_cache()
+    parts["forwards"], t0 = time.perf_counter() - t0, time.perf_counter()
+    clip_chain(root)
+    parts["cli chain"] = time.perf_counter() - t0
+    log("phase 10 wall time by part: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    if "cv2" in sys.modules:
+        raise AssertionError("the CLIP recipe imported cv2")
+    phase7 = report.get("train", {}).get("dense", {}).get("step_ms")
+    clip = report["clip"]
+    ratio = f", ratio {clip['step_ms'] / phase7:.3f}" if phase7 else ""
+    log(f"CLIP train step: {clip['step_ms']:.3f} ms per b{CLIP_BATCH} step (peak "
+        f"{clip['peak_gib']:.2f} GiB); phase 7's b{TRAIN_BATCH} dense step "
+        f"{phase7 if phase7 else float('nan'):.3f} ms{ratio}")
+    # The recipe's overhead: each of epochs 2..CLIP_EPOCHS after its first
+    # batch against each host-clock reading of the isolated step, both over
+    # an epoch's steps; the mean difference and its range.
+    recipe, host = clip["recipe_steady_ms"], clip["host_step_ms"]
+    diffs = [r - h for r in recipe for h in host]
+    log(f"clip_unet recipe after the first batch, epochs 2-{CLIP_EPOCHS}: "
+        + ", ".join(f"{v:.3f}" for v in recipe) + f" ms per step; the isolated step by the "
+        f"host clock: " + ", ".join(f"{v:.3f}" for v in host) + " ms per step")
+    log(f"clip_unet recipe overhead per b{CLIP_BATCH} step: mean "
+        f"{statistics.mean(recipe) - statistics.mean(host):+.3f} ms "
+        f"(range {min(diffs):+.3f} to {max(diffs):+.3f} ms over {len(diffs)} pairs; "
+        f"ratio {statistics.mean(recipe) / statistics.mean(host):.3f})")
+
+
 def kernels_line() -> dict:
     rows = report["rows"]
     bound_by = report["bound_by"]
@@ -2050,7 +2451,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6, 7, 8 and 9).
+            # The counted runs of the main paths (phases 3, 6, 7, 8, 9 and 10).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2084,6 +2485,8 @@ def main() -> int:
             phase_recipe(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_ae(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_clip(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -29,7 +29,9 @@ the plain version sums dpre·scale); bfloat16 dx within one bf16 ulp plus
 1e-4, dscale and dbias (float32) to 1e-4 of their largest magnitude. K2's
 backward is plain torch on both devices: its gradients are held to the CPU's.
 SSIM's blur is elementwise float32, so with TF32 allowed in cuDNN it still
-equals a float64 computation on the CPU to 1e-5.
+equals a float64 computation on the CPU to 1e-5. The CLIP tower launches no
+kernel of the port; in float32 (TF32 off) it equals the CPU's to 1e-5
+relative L2.
 """
 
 import numpy as np
@@ -44,6 +46,7 @@ from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_into_s2d_fast,
     upsample2x_nhwc_fast,
 )
+from unet_implementations_tpu_torch.models import clip
 from unet_implementations_tpu_torch.models.s2d import (
     depth_to_space,
     space_to_depth,
@@ -567,3 +570,67 @@ def test_reconstruction_and_transfer_steps_run_the_kernels():
     assert counts == [22, 5, 10] and np.isfinite(loss)
     for k, v in encoder.items():
         assert torch.equal(model.state_dict()[k], v), k
+
+
+def _all_counts():
+    wrappers = (torch_in.fused_instance_norm, upsample2x_nhwc_fast, upsample2x_into_s2d_fast,
+                torch_region.fused_s2d_tail)
+    return [w.launches for w in wrappers] + [torch_in.fused_instance_norm.backward_launches]
+
+
+def _counted(fn):
+    before = _all_counts()
+    out = fn()
+    return [a - b for a, b in zip(_all_counts(), before)], out
+
+
+@pytest.mark.parametrize("layout", ["dense", "s2d"])
+def test_clip_fusion_runs_the_kernels(layout):
+    """The CLIP-fused model's fusion norm is one more K1 per forward and one
+    more K1bwd per step: forwards 23/5/0/0 dense and 17/3/2/3 s2d (22/5/0/0
+    dense without features), a ``use_clip`` train step 23/5/0/0/23 dense and
+    23/3/2/0/23 s2d; on the CPU none."""
+    _need_cuda()
+    flags = {"s2d_level0": True, "s2d_low_channel_decoders": True} if layout == "s2d" else {}
+    batch = as_uint8(synthetic_batch(0, 2, 64))
+    batch["clip_features"] = np.random.default_rng(1).normal(size=(2, 24)).astype(np.float32)
+    model = UNet(features_per_stage=(8, 32, 16, 16, 16, 16), clip_fusion=True, clip_dim=24,
+                 dtype=torch.bfloat16, **flags).cuda().eval()
+    x = torch.from_numpy(batch["image"]).cuda()
+    cf = torch.from_numpy(batch["clip_features"]).cuda()
+    with torch.inference_mode():
+        fused, out = _counted(lambda: model(x.float(), cf))
+        unfused, plain = _counted(lambda: model(x.float()))
+    assert fused[:4] == ([23, 5, 0, 0] if layout == "dense" else [17, 3, 2, 3])
+    if layout == "dense":
+        assert unfused[:4] == [22, 5, 0, 0]
+    assert torch.isfinite(out).all() and not torch.equal(out, plain)
+    step = steps.make_segmentation_train_step(model, train_state.sgd_nesterov(
+        model.parameters()), use_clip=True)
+    counts, loss = _counted(lambda: float(step(batch, torch.Generator("cuda").manual_seed(0))))
+    assert counts == ([23, 5, 0, 0, 23] if layout == "dense" else [23, 3, 2, 0, 23])
+    assert np.isfinite(loss)
+    cpu = model.cpu()
+    step = steps.make_segmentation_train_step(cpu, train_state.sgd_nesterov(cpu.parameters()),
+                                              use_clip=True)
+    counts, _ = _counted(lambda: float(step(batch, torch.Generator().manual_seed(0))))
+    assert counts == [0, 0, 0, 0, 0]
+
+
+def test_clip_tower_on_cuda_launches_no_kernel():
+    """The ViT tower is plain torch: on the card it launches none of the
+    port's kernels, and its float32 embeddings (TF32 off) equal the CPU's to
+    1e-5 relative L2; a bf16 call repeats bit for bit."""
+    _need_cuda()
+    config = clip.CLIPVisionConfig(image_size=32, patch_size=16, width=64, layers=2, heads=2,
+                                   output_dim=16)
+    tower = clip.CLIPVisionTransformer(config, generator=torch.Generator().manual_seed(2))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = tower(x)
+        counts, got = _counted(lambda: tower.cuda()(x.cuda()))
+        tower.dtype = torch.bfloat16
+        a, b = tower(x.cuda()), tower(x.cuda())
+    assert counts == [0, 0, 0, 0, 0]
+    assert float((got.cpu() - want).norm() / want.norm()) <= 1e-5
+    assert a.dtype == torch.float32 and torch.equal(a, b)

@@ -259,5 +259,6 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
                  "training.train_state", "training.steps", "data.synthetic",
                  "data.loader", "training.early_stopping", "training.checkpoint",
                  "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",
-                 "recipes.ae_transfer", "cli"):
+                 "recipes.ae_transfer", "models.clip", "recipes.clip_unet", "data.pipeline",
+                 "cli"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

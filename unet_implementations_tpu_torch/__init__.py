@@ -4,7 +4,8 @@ A second package beside the JAX reference ``unet_implementations_tpu``. It
 keeps the reference's module names so each counterpart is easy to find:
 
 - ``models``   — the 6-stage UNet as ``nn.Module``s, with the segmentation
-                 or the reconstruction head (the autoencoder), the VGG16
+                 or the reconstruction head (the autoencoder) and the CLIP
+                 bottleneck fusion, the frozen CLIP ViT tower, the VGG16
                  feature extractor of the perceptual loss, and the
                  JAX-params / reference-``.pth`` converters.
 - ``ops``      — pixel normalization, the bilinear resize primitives (the
@@ -16,12 +17,15 @@ keeps the reference's module names so each counterpart is easy to find:
 - ``training`` — optimizers, schedules, the segmentation and reconstruction
                  train and eval steps, the epoch loop, checkpoints and early
                  stopping.
-- ``data``     — the dataset loader (segmentation and reconstruction modes)
-                 with its decode cache, and synthetic batches.
-- ``recipes``  — the ``our_unet``, ``ae_recon`` and ``ae_transfer`` recipes
-                 (train, evaluate), dataset evaluation and the serving path
+- ``data``     — the dataset loader (segmentation and reconstruction modes,
+                 the CLIP view) with its decode cache, synthetic batches and
+                 the CLIP view's padded copies (``pipeline``).
+- ``recipes``  — the ``our_unet``, ``ae_recon``, ``ae_transfer`` and
+                 ``clip_unet`` recipes (train, evaluate; CLIP embedding
+                 tables), dataset evaluation and the serving path
                  (``predict_segmentation``).
-- ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate`` and
+- ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate``,
+                 ``clip_unet train|evaluate|embed``, ``clip_resize`` and
                  ``predict``.
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.

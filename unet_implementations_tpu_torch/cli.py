@@ -8,16 +8,26 @@
     python -m unet_implementations_tpu_torch.cli ae_transfer train \\
         --pretrained_encoder <ae run dir>/best_model ...
     python -m unet_implementations_tpu_torch.cli ae_transfer evaluate ...
+    python -m unet_implementations_tpu_torch.cli clip_resize --data_dir <processed data>
+    python -m unet_implementations_tpu_torch.cli clip_unet embed --data_dir <processed data>
+    python -m unet_implementations_tpu_torch.cli clip_unet train \\
+        --data_dir <processed data> --output_dir <run dir> \\
+        [--embeddings_dir <processed data>/clip_embeddings]
+    python -m unet_implementations_tpu_torch.cli clip_unet evaluate ...
     python -m unet_implementations_tpu_torch.cli predict \\
         --model_path model.pth --input <image-or-dir> --output_dir predictions
 
-The flags of ``our_unet``, ``ae_recon`` and ``ae_transfer`` are the JAX
-package's (``unet_implementations_tpu/cli.py``), with its defaults.
+The flags of ``our_unet``, ``ae_recon``, ``ae_transfer``, ``clip_unet`` and
+``clip_resize`` are the JAX package's (``unet_implementations_tpu/cli.py``),
+with its defaults; ``clip_unet embed`` also takes ``--device``, ``--f32``
+and ``--decode_cache``, and ``--clip_weights`` is a torch CLIP checkpoint (OpenAI,
+open_clip or TorchScript; random weights from seed 0 without it).
 ``--device`` is the torch device (default: CUDA; ``cpu`` runs the plain
 PyTorch path). ``--num_workers`` is an alias of ``--num_threads``;
 ``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE`` for every dataset the
 command opens. ``--no_mesh``, ``--amp`` and ``--reduced_complexity`` are
-accepted and do nothing. Not ported yet, and refused: ``--online_augment``,
+accepted and do nothing, and so is ``clip_unet train --use_clip``. Not
+ported yet, and refused: ``--online_augment``,
 ``--spatial`` > 1, ``--grad_accum`` > 1, ``--visualize_samples`` > 0 (so it
 defaults to 0 here, 3 in JAX) and ``--analyze_latent_space``.
 
@@ -48,10 +58,10 @@ def _add_compat_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reduced_complexity", action="store_true", help=argparse.SUPPRESS)
 
 
-def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
+def _add_common_train_flags(p: argparse.ArgumentParser, batch_size: int = 32) -> None:
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", required=True)
-    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--batch_size", type=int, default=batch_size)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--num_threads", type=int, default=8)
     p.add_argument("--save_every", type=int, default=10)
@@ -84,6 +94,18 @@ def _add_eval_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--visualize_samples", type=int, default=0, help="not ported: only 0")
     p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
     _add_compat_flags(p)
+
+
+CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "ViT-L/14"]
+
+
+def _add_clip_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--clip_model", default="ViT-B/16", choices=CLIP_MODELS)
+    p.add_argument("--clip_weights", default=None,
+                   help="a torch CLIP checkpoint (OpenAI, open_clip or TorchScript); "
+                        "random weights if absent")
+    p.add_argument("--embeddings_dir", default=None,
+                   help="the tables `clip_unet embed` wrote (skips live extraction)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,6 +142,38 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--pretrained_encoder", required=True,
                    help="the ae_recon best_model checkpoint (a directory or its model.pth)")
     _add_eval_flags(tr_sub.add_parser("evaluate"))
+
+    clip = sub.add_parser("clip_unet",
+                          help="train, evaluate or embed with the CLIP-fused 6-stage UNet")
+    clip_sub = clip.add_subparsers(dest="cmd", required=True)
+    t = clip_sub.add_parser("train")
+    _add_common_train_flags(t, batch_size=16)
+    _add_seg_train_flags(t)
+    _add_clip_flags(t)
+    # The reference's --use_clip is store_true with default True: a no-op.
+    t.add_argument("--use_clip", action="store_true", help=argparse.SUPPRESS)
+    e = clip_sub.add_parser("evaluate")
+    _add_eval_flags(e)
+    _add_clip_flags(e)
+    e.add_argument("--no_clip_features", action="store_true",
+                   help="evaluate without conditioning (the reference evaluator's quirk)")
+    em = clip_sub.add_parser("embed", help="write each split's CLIP embedding table to disk")
+    em.add_argument("--data_dir", required=True)
+    em.add_argument("--output_dir", default=None, help="default: <data_dir>/clip_embeddings")
+    em.add_argument("--clip_model", default="ViT-B/16", choices=CLIP_MODELS)
+    em.add_argument("--clip_weights", default=None, help="a torch CLIP checkpoint")
+    em.add_argument("--batch_size", type=int, default=64)
+    em.add_argument("--no_augmented", action="store_true", help="skip Train/augmented images")
+    em.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
+    em.add_argument("--device", default=None,
+                    help="torch device, e.g. cuda:1 or cpu (default: cuda)")
+    em.add_argument("--decode_cache", default=None, metavar="DIR",
+                    help="as for train and evaluate")
+
+    clip_resize = sub.add_parser("clip_resize",
+                                 help="write each split's resized_clip/ (padded square copies)")
+    clip_resize.add_argument("--data_dir", required=True)
+    clip_resize.add_argument("--size", type=int, default=224)
 
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
     pred.add_argument("--model_path", required=True, help="a reference-schema .pth checkpoint")
@@ -200,6 +254,37 @@ def main(argv: Optional[Sequence[str]] = None):
             analyze_latent_space=args.analyze_latent_space,
             visualize_samples=args.visualize_samples, num_threads=_num_threads(args),
         )
+    if args.command == "clip_unet":
+        from unet_implementations_tpu_torch.recipes import clip_unet
+
+        clip = dict(clip_model=args.clip_model, clip_weights=args.clip_weights)
+        if args.cmd == "train":
+            return clip_unet.train(args.data_dir, args.output_dir,
+                                   embeddings_dir=args.embeddings_dir, **clip,
+                                   **_seg_train_kwargs(args))
+        if args.cmd == "embed":
+            return clip_unet.dump_embeddings(
+                args.data_dir, args.output_dir, batch_size=args.batch_size,
+                include_augmented=not args.no_augmented, dtype=_dtype(args),
+                device=args.device, **clip)
+        return clip_unet.evaluate(
+            args.model_path, args.data_dir, args.output_dir,
+            batch_size=args.batch_size, dtype=_dtype(args), device=args.device,
+            embeddings_dir=args.embeddings_dir, use_clip_features=not args.no_clip_features,
+            visualize_samples=args.visualize_samples, num_threads=_num_threads(args), **clip)
+    if args.command == "clip_resize":
+        from pathlib import Path
+
+        from unet_implementations_tpu_torch.data.pipeline import create_clip_resized
+
+        counts = {}
+        for split in ("Train", "Val", "Test"):
+            d = Path(args.data_dir) / split
+            if (d / "resized").exists():
+                counts[split] = create_clip_resized([d / "resized"], d / "resized_clip",
+                                                    args.size)
+                print(f"{split}: {counts[split]} images")
+        return counts
     if args.command == "predict":
         from unet_implementations_tpu_torch.recipes.common import predict_segmentation
 

@@ -15,6 +15,12 @@ train and eval steps move them to the device:
   is read only for the original dims), and ``target`` is the image: the raw
   uint8 image with ``emit_uint8``, else both are the image /255 (no ImageNet
   statistics);
+- the CLIP view (``clip_dir``): a ``clip_size``² RGB image per item, read
+  from ``clip_dir`` (``resized_clip/``, written by ``cli clip_resize``) or,
+  for a file missing there, one LINEAR resize of the image's own decode
+  (never of its 512² copy); uint8 with ``emit_uint8``, else /255 and
+  ImageNet mean/std (the reference's quirk: ImageNet statistics, not
+  CLIP's). Reconstruction mode ignores it;
 - augmented images from ``../augmented/{images,masks}`` included for train;
 - several processes: the file list is split into equal contiguous shards by
   ``process_index`` / ``process_count``.
@@ -27,10 +33,8 @@ uint8 memmap of the decoded, resized arrays, built on first use. From then on
 the loader reads from the page cache and only the float normalization runs
 per batch. ``cache_path``, ``cache_identity`` and ``write_cache`` are module
 functions, so a cache can also be written from arrays made elsewhere. The
-directory and manifest are those of the JAX package, so the two packages
-share a cache.
-
-Left out here (ROADMAP queue 1 item 6): the CLIP view (``clip_dir``).
+directory, manifest and arrays (``clips.npy`` for the CLIP view) are those
+of the JAX package, so the two packages share a cache.
 """
 
 from __future__ import annotations
@@ -51,17 +55,18 @@ MODES = ("segmentation", "reconstruction")
 
 
 def cache_identity(image_files: Sequence[Path], target_size: Tuple[int, int],
-                   has_masks: bool, mode: str = "segmentation") -> Dict:
+                   has_masks: bool, mode: str = "segmentation", clip_size: int = 0) -> Dict:
     """What a cache was built from: name, size and mtime of every image file
     (a re-run of the offline pipeline or augmentation invalidates it), the
-    target size, the mode and whether the dataset has a masks directory (a
-    reconstruction cache stores no masks either way)."""
+    target size, the mode, whether the dataset has a masks directory (a
+    reconstruction cache stores no masks either way) and the CLIP view's
+    side (0 without a ``clip_dir``)."""
     return {
         "version": 1,
         "target_size": list(target_size),
         "mode": mode,
         "has_masks": has_masks,
-        "clip_size": 0,
+        "clip_size": clip_size,
         "files": [[p.name, st.st_size, st.st_mtime_ns]
                   for p in image_files for st in [p.stat()]],
     }
@@ -69,22 +74,24 @@ def cache_identity(image_files: Sequence[Path], target_size: Tuple[int, int],
 
 def cache_path(root: str | Path, images_dir: Path, masks_dir: Optional[Path],
                target_size: Tuple[int, int], process_index: int = 0,
-               process_count: int = 1, mode: str = "segmentation") -> Path:
-    """The cache directory of one dataset (one process's shard, one mode)
-    under ``root``."""
+               process_count: int = 1, mode: str = "segmentation", clip_size: int = 0) -> Path:
+    """The cache directory of one dataset (one process's shard, one mode, one
+    CLIP view side) under ``root``."""
     key = hashlib.sha1(json.dumps(
-        [str(images_dir), str(masks_dir), mode, list(target_size), 0,
+        [str(images_dir), str(masks_dir), mode, list(target_size), clip_size,
          process_index, process_count]
     ).encode()).hexdigest()[:12]
     return Path(root) / f"{images_dir.parent.name}_{images_dir.name}_{key}"
 
 
 def write_cache(d: Path, ident: Dict, items: Iterable[Dict[str, np.ndarray]],
-                n: int, target_size: Tuple[int, int], has_masks: bool) -> None:
+                n: int, target_size: Tuple[int, int], has_masks: bool,
+                clip_size: int = 0) -> None:
     """Write ``n`` raw items (``{"image": (H, W, 3) uint8, "original_dims":
-    (2,) int32, "mask": (H, W) uint8}``, the mask only with ``has_masks``)
-    as the cache in ``d``. The manifest is written last, so a build cut short
-    is rebuilt on the next open."""
+    (2,) int32, "mask": (H, W) uint8, "clip_image": (S, S, 3) uint8}``, the
+    mask only with ``has_masks``, the CLIP view only with ``clip_size`` S >
+    0) as the cache in ``d``. The manifest is written last, so a build cut
+    short is rebuilt on the next open."""
     th, tw = target_size
     d.mkdir(parents=True, exist_ok=True)
     print(f"decode cache: building {d} ({n} items)...", flush=True)
@@ -93,18 +100,22 @@ def write_cache(d: Path, ident: Dict, items: Iterable[Dict[str, np.ndarray]],
     dims = mm(d / "dims.npy", mode="w+", dtype=np.int32, shape=(n, 2))
     masks = (mm(d / "masks.npy", mode="w+", dtype=np.uint8, shape=(n, th, tw))
              if has_masks else None)
+    clips = (mm(d / "clips.npy", mode="w+", dtype=np.uint8, shape=(n, clip_size, clip_size, 3))
+             if clip_size else None)
     count = 0
     for i, raw in enumerate(items):
         imgs[i] = raw["image"]
         dims[i] = raw["original_dims"]
         if masks is not None:
             masks[i] = raw["mask"]
+        if clips is not None:
+            clips[i] = raw["clip_image"]
         count += 1
         if count % 2000 == 0:
             print(f"decode cache: {count}/{n}", flush=True)
     if count != n:
         raise ValueError(f"decode cache: {count} items for {n} files")
-    for arr in (imgs, dims, masks):
+    for arr in (imgs, dims, masks, clips):
         if arr is not None:
             arr.flush()
     (d / MANIFEST).write_text(json.dumps(ident))
@@ -116,6 +127,8 @@ def open_cache(d: Path) -> Dict[str, np.ndarray]:
              "original_dims": np.load(d / "dims.npy", mmap_mode="r")}
     if (d / "masks.npy").exists():
         cache["mask"] = np.load(d / "masks.npy", mmap_mode="r")
+    if (d / "clips.npy").exists():
+        cache["clip_image"] = np.load(d / "clips.npy", mmap_mode="r")
     return cache
 
 
@@ -134,10 +147,14 @@ class PetDataset:
         cache_dir: Optional[str | Path] = None,
         emit_uint8: bool = False,
         mode: str = "segmentation",
+        clip_dir: Optional[str | Path] = None,
+        clip_size: int = 224,
     ):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.mode = mode
+        self.clip_dir = Path(clip_dir) if clip_dir else None
+        self.clip_size = clip_size
         self.emit_uint8 = emit_uint8
         self.images_dir = Path(images_dir)
         self.masks_dir = Path(masks_dir) if masks_dir else None
@@ -223,6 +240,9 @@ class PetDataset:
             mask = np.zeros((th, tw), np.uint8) if self.masks_dir else None
             original_dims = np.array(self.target_size, np.int32)
 
+        # The decode before its resize feeds the CLIP view's fallback: the
+        # resized_clip/ images are one resize from the original.
+        decoded = image
         if image.shape[:2] != (th, tw):
             image = cv2.resize(image, (tw, th), interpolation=cv2.INTER_LINEAR)
         raw: Dict[str, np.ndarray] = {"image": image, "original_dims": original_dims}
@@ -230,7 +250,31 @@ class PetDataset:
             if mask.shape != (th, tw):
                 mask = cv2.resize(mask, (tw, th), interpolation=cv2.INTER_NEAREST)
             raw["mask"] = np.where((mask > 2) & (mask != 255), 0, mask).astype(np.uint8)
+        if self._clip_cached:
+            raw["clip_image"] = self._decode_clip(img_path, decoded)
         return raw
+
+    def _decode_clip(self, img_path: Path, decoded: np.ndarray) -> np.ndarray:
+        """The CLIP view of one file: ``clip_dir``'s copy, else one resize of
+        the decode; a copy of another side is resized once more, so every
+        route is one cv2 resize before any normalization."""
+        import cv2
+
+        side = self.clip_size
+        clip_path = self.clip_dir / img_path.name
+        clip_img = cv2.imread(str(clip_path)) if clip_path.exists() else None
+        if clip_img is None:
+            clip_img = cv2.resize(decoded, (side, side), interpolation=cv2.INTER_LINEAR)
+        else:
+            clip_img = cv2.cvtColor(clip_img, cv2.COLOR_BGR2RGB)
+        if clip_img.shape[:2] != (side, side):
+            clip_img = cv2.resize(clip_img, (side, side), interpolation=cv2.INTER_LINEAR)
+        return clip_img
+
+    @property
+    def _clip_cached(self) -> bool:
+        """Whether items carry the CLIP view (reconstruction ignores it)."""
+        return self.clip_dir is not None and self.mode == "segmentation"
 
     def _finalize(self, raw: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """uint8 arrays -> the batch contract (normalization etc.)."""
@@ -246,17 +290,31 @@ class PetDataset:
             item["image"] = (img_f - IMAGENET_MEAN) / IMAGENET_STD if self.normalize else img_f
         if "mask" in raw:
             item["mask"] = raw["mask"].astype(np.int32)
+        if "clip_image" in raw:
+            if self.emit_uint8:
+                item["clip_image"] = raw["clip_image"]
+            else:
+                clip_f = raw["clip_image"].astype(np.float32) / 255.0
+                item["clip_image"] = (clip_f - IMAGENET_MEAN) / IMAGENET_STD
         return item
 
     # ---- decode-once cache -------------------------------------------------
 
+    @property
+    def _clip_key(self) -> int:
+        """The CLIP view's side in the cache's identity and key: as in JAX,
+        ``clip_size`` whenever a ``clip_dir`` is given (reconstruction mode
+        included, though it stores no view), else 0."""
+        return self.clip_size if self.clip_dir is not None else 0
+
     def cache_path(self, root: str | Path) -> Path:
         return cache_path(root, self.images_dir, self.masks_dir, self.target_size,
-                          self.process_index, self.process_count, self.mode)
+                          self.process_index, self.process_count, self.mode, self._clip_key)
 
     def _open_or_build_cache(self, root: Path) -> Dict[str, np.ndarray]:
         has_masks = self.masks_dir is not None
-        ident = cache_identity(self.image_files, self.target_size, has_masks, self.mode)
+        ident = cache_identity(self.image_files, self.target_size, has_masks, self.mode,
+                               self._clip_key)
         d = self.cache_path(root)
         manifest = d / MANIFEST
         if manifest.exists():
@@ -267,7 +325,8 @@ class PetDataset:
                 pass  # a torn manifest: rebuild below
         with cf.ThreadPoolExecutor(max_workers=8) as pool:
             write_cache(d, ident, pool.map(self._decode, range(len(self))), len(self),
-                        self.target_size, has_masks and self.mode == "segmentation")
+                        self.target_size, has_masks and self.mode == "segmentation",
+                        self.clip_size if self._clip_cached else 0)
         return open_cache(d)
 
     def _cached(self, idx: int) -> Dict[str, np.ndarray]:

@@ -7,7 +7,9 @@ in the JAX model's space-to-depth layout (``s2d_level0``,
 ``s2d_low_channel_decoders``), which is an exact rewrite of the dense model.
 Input is NHWC, output NHWC float32 logits or [0, 1] reconstructions, as in
 JAX. The encoder-transfer model is the segmentation UNet with its encoder
-grafted from an autoencoder and frozen (``recipes/ae_transfer.py``).
+grafted from an autoencoder and frozen (``recipes/ae_transfer.py``). The
+CLIP_UNet model is the segmentation UNet with ``clip_fusion``: a global
+(B, clip_dim) image embedding fused at the bottleneck.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models.blocks import (
     ConvBlock,
+    InstanceNorm,
     UpBlock,
     conv2d,
     kaiming_conv,
@@ -50,6 +53,14 @@ class UNet(nn.Module):
     3x3 conv to 3 channels and a sigmoid in float32 (``reconstruction_output``,
     a one-conv Sequential, as the reference autoencoder's state dict has it).
 
+    ``clip_fusion`` adds, after the bottleneck stage, the CLIP_UNet fusion:
+    the (B, clip_dim) features broadcast over the bottleneck grid and
+    concatenated after its channels (UNet features first), then a 1x1 conv
+    back to the bottleneck width and K1's InstanceNorm+LeakyReLU
+    (``clip_fusion_conv``: keys ``.0`` conv and ``.1`` norm, the reference's;
+    drawn after every other parameter, so the rest of the model's init does
+    not depend on it). The bottleneck is dense in both layouts.
+
     Every parameter is float32, as in the JAX model; ``dtype`` is the
     compute dtype, to which each conv casts its weight and bias at the call
     (the InstanceNorm affines stay float32 in the norm). The model is built
@@ -79,6 +90,8 @@ class UNet(nn.Module):
         s2d_level0: bool = False,
         s2d_low_channel_decoders: bool = False,
         head: str = "segmentation",
+        clip_fusion: bool = False,
+        clip_dim: int = 512,
     ):
         super().__init__()
         if head not in HEADS:
@@ -94,6 +107,8 @@ class UNet(nn.Module):
         self.decoder_dropout_rates = tuple(decoder_dropout_rates)
         self.dtype = dtype
         self.head = head
+        self.clip_fusion = clip_fusion
+        self.clip_dim = clip_dim
         cin = IN_CHANNELS
         encoders = []
         for i in range(n):
@@ -112,15 +127,23 @@ class UNet(nn.Module):
         else:
             self.reconstruction_output = nn.Sequential(kaiming_conv(cin, IN_CHANNELS, 3, 1,
                                                                     generator))
+        if clip_fusion:
+            width = features_per_stage[-1]
+            self.clip_fusion_conv = nn.Sequential(
+                kaiming_conv(width + clip_dim, width, 1, 1, generator), InstanceNorm(width))
 
     @property
     def n_stages(self) -> int:
         return len(self.features_per_stage)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                return_bottleneck: bool = False):
+    def forward(self, x: torch.Tensor, clip_features: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, return_bottleneck: bool = False):
         """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits, or
         (B, H, W, 3) float32 reconstructions in [0, 1].
+
+        ``clip_features`` (B, clip_dim) feeds the bottleneck fusion of a
+        ``clip_fusion`` model; None skips the fusion (the reference
+        evaluator's path), and a model without fusion ignores it, as JAX's.
 
         ``generator`` (on x's device) drives channel dropout in training
         mode; a training forward through a block with a dropout rate above
@@ -145,6 +168,8 @@ class UNet(nn.Module):
             if s2d_stage and not feed_s2d:
                 x = nchw(depth_to_space(nhwc(x)))
         x = self.encoder_stages[-1](x, generator=generator)
+        if self.clip_fusion and clip_features is not None:
+            x = self._fuse(x, clip_features)
         bottleneck = x
         for d, decoder in enumerate(self.decoder_stages):
             skip_idx = n - 2 - d
@@ -174,16 +199,44 @@ class UNet(nn.Module):
             return out, nhwc(bottleneck).reshape(bottleneck.shape[0], -1)
         return out
 
+    def load_reference_state_dict(self, sd: dict) -> "UNet":
+        """``load_state_dict(sd, strict=True)``, except that a ``clip_fusion``
+        model also takes a state dict that holds none of ``clip_fusion_conv``'s
+        keys, and leaves the fusion at its init: the reference builds its
+        fusion lazily, so such files exist, and the JAX converter loads them
+        so. A partial fusion, and every other key, stays strict. Returns the
+        model."""
+        fusion = {k: v for k, v in self.state_dict().items()
+                  if k.startswith("clip_fusion_conv.")}
+        if fusion and not any(k in sd for k in fusion):
+            sd = {**sd, **fusion}
+        self.load_state_dict(sd, strict=True)
+        return self
+
+    def _fuse(self, x: torch.Tensor, clip_features: torch.Tensor) -> torch.Tensor:
+        """The bottleneck fusion: concat [x, features broadcast over x's
+        grid], 1x1 conv, InstanceNorm+LeakyReLU (K1)."""
+        b, _, h, w = x.shape
+        cf = clip_features.to(device=x.device, dtype=self.dtype)
+        cf = cf[:, :, None, None].expand(b, self.clip_dim, h, w)
+        x = torch.cat([x, cf], dim=1).contiguous(memory_format=torch.channels_last)
+        conv, norm = self.clip_fusion_conv[0], self.clip_fusion_conv[1]
+        return norm(conv2d(x, conv))
+
 
 def unet_6stage(dtype: torch.dtype = torch.float32, device=None,
                 generator: Optional[torch.Generator] = None, s2d_level0: bool = False,
-                s2d_low_channel_decoders: bool = False) -> UNet:
+                s2d_low_channel_decoders: bool = False, clip_fusion: bool = False,
+                clip_dim: int = 512) -> UNet:
     """The 6-stage segmentation UNet the reference trains, on ``device``
     (CUDA unless the caller names another device), in the dense layout or,
-    with the two flags, in the JAX model's space-to-depth layout."""
+    with the two flags, in the JAX model's space-to-depth layout; with
+    ``clip_fusion``, the CLIP_UNet model (``clip_dim``: the encoder's output
+    width, 512 for ViT-B/16 and B/32, 768 for ViT-L/14)."""
     device = default_device(device)
     return UNet(dtype=dtype, generator=generator, s2d_level0=s2d_level0,
-                s2d_low_channel_decoders=s2d_low_channel_decoders).to(device)
+                s2d_low_channel_decoders=s2d_low_channel_decoders, clip_fusion=clip_fusion,
+                clip_dim=clip_dim).to(device)
 
 
 def autoencoder_6stage(dtype: torch.dtype = torch.float32, device=None,

@@ -2,7 +2,8 @@
 
 Counterpart of ``unet_implementations_tpu/recipes/common.py``
 (``check_grad_accum``, ``evaluate_segmentation``, ``predict_segmentation``,
-``evaluate_reconstruction``). The forward and the argmax run on the model's
+``evaluate_reconstruction``; ``wrap_online_augment_clip`` raises until
+on-device augmentation is ported). The forward and the argmax run on the model's
 device; the nearest resize back to each image's original size runs on the
 host with torch/cv2 floor index math, as the reference eval protocol does.
 ``evaluate_segmentation`` writes ``evaluation_results.json`` with the
@@ -32,6 +33,17 @@ IMAGE_SIZE = 512
 # Batches whose forward is dispatched before the oldest one's predictions
 # are read back and resized on the host.
 EVAL_RUN_AHEAD = 2
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
+
+
+def wrap_online_augment_clip(batches, epoch: int, seed: int, extractor):
+    """On-device augmentation with live CLIP extraction from the augmented
+    pixels: not ported (it needs ``data/augment.py`` on the card)."""
+    raise not_ported("wrap_online_augment_clip (--online_augment)", 4)
 
 
 def check_grad_accum(batch_size: int, grad_accum: int) -> None:

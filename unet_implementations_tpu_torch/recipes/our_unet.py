@@ -17,7 +17,7 @@ gradient-accumulation training, and the evaluation's visualizations.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -25,7 +25,11 @@ import torch
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
-from unet_implementations_tpu_torch.recipes.common import check_grad_accum, evaluate_segmentation
+from unet_implementations_tpu_torch.recipes.common import (
+    check_grad_accum,
+    evaluate_segmentation,
+    not_ported,
+)
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
 from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
 from unet_implementations_tpu_torch.training.steps import (
@@ -43,11 +47,6 @@ ARCH_CONFIG = {
     "encoder_dropout_rates": [0.0, 0.0, 0.1, 0.2, 0.3, 0.3],
     "decoder_dropout_rates": [0.3, 0.2, 0.2, 0.1, 0.0],
 }
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
 
 
 def build_model(dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0) -> UNet:
@@ -169,11 +168,14 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         val_ds: PetDataset, output_dir: Path, *, batch_size: int, epochs: int, lr: float,
         weighted_ce: bool, static_weights: bool, dice_weight: float, ce_weight: float,
         patience: int, save_every: int, resume: Optional[str], seed: int, num_threads: int,
-        arch_config: Dict, verbose: bool) -> Dict:
+        arch_config: Dict, verbose: bool,
+        features: Optional[Callable[[Iterable[Dict], str], Iterable[Dict]]] = None) -> Dict:
     """The segmentation training of ``model`` by ``optimizer`` (shared with
-    ``recipes/ae_transfer.py``): the loss's class weights, the train and eval
-    steps, a resume, and ``train_loop`` with poly LR decay and early stopping
-    on mean foreground Dice."""
+    ``recipes/ae_transfer.py`` and ``recipes/clip_unet.py``): the loss's
+    class weights, the train and eval steps, a resume, and ``train_loop``
+    with poly LR decay and early stopping on mean foreground Dice.
+    ``features(batches, split)`` ("Train" or "Val") attaches each batch's
+    ``clip_features``; the steps then feed them to the model."""
     device = next(model.parameters()).device
     sw = None
     if weighted_ce and static_weights:
@@ -182,8 +184,9 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
             print(f"Computed class weights: {sw.cpu().numpy()}")
     loss_kw = dict(weight_ce=ce_weight, weight_dice=dice_weight,
                    dynamic_weights=weighted_ce and not static_weights, static_weights=sw)
-    train_step = make_segmentation_train_step(model, optimizer, **loss_kw)
-    eval_step = make_segmentation_eval_step(model, **loss_kw)
+    use_clip = features is not None
+    train_step = make_segmentation_train_step(model, optimizer, use_clip=use_clip, **loss_kw)
+    eval_step = make_segmentation_eval_step(model, use_clip=use_clip, **loss_kw)
 
     start_epoch, best, es_state, step = 0, None, None, 0
     if resume:
@@ -195,12 +198,16 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         if verbose:
             print(f"Resumed from epoch {start_epoch}")
 
+    def attach(batches, split):
+        return batches if features is None else features(batches, split)
+
     def train_batches(epoch):
-        return batch_iterator(train_ds, batch_size, shuffle=True, seed=seed * 1000 + epoch,
-                              drop_last=True, num_threads=num_threads)
+        return attach(batch_iterator(train_ds, batch_size, shuffle=True,
+                                     seed=seed * 1000 + epoch, drop_last=True,
+                                     num_threads=num_threads), "Train")
 
     def val_batches():
-        return batch_iterator(val_ds, batch_size, num_threads=num_threads)
+        return attach(batch_iterator(val_ds, batch_size, num_threads=num_threads), "Val")
 
     return train_loop(
         model, optimizer,

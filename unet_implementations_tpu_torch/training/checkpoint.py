@@ -108,10 +108,10 @@ def restore_checkpoint(path: str | Path, model: nn.Module,
 
 def restore_params(path: str | Path, model: nn.Module) -> nn.Module:
     """Load only the weights of a checkpoint directory or a reference
-    ``.pth`` (a full checkpoint dict or a bare state dict) into ``model``,
-    strictly; returns ``model``."""
-    model.load_state_dict(_state_dict(load_checkpoint(path)), strict=True)
-    return model
+    ``.pth`` (a full checkpoint dict or a bare state dict) into ``model`` (a
+    ``UNet``), strictly, through ``UNet.load_reference_state_dict``; returns
+    ``model``."""
+    return model.load_reference_state_dict(_state_dict(load_checkpoint(path)))
 
 
 def extract_encoder_params(checkpoint_path: str | Path, model: nn.Module,

@@ -5,17 +5,20 @@ Counterpart of ``unet_implementations_tpu/training/steps.py`` (its lines
 the port runs eagerly and updates the model and its optimizer in place.
 
 A batch is ``{"image": (B, H, W, 3) uint8 or float, "mask": (B, H, W) int}``,
-numpy arrays or tensors; it moves to the model's device (through pinned
-memory, ``to_device``), where uint8 pixels are ImageNet-normalized in the
-step (``ops.normalize``), as in JAX.
+numpy arrays or tensors, and with ``use_clip`` also ``"clip_features"``
+(B, clip_dim), the CLIP embeddings the model fuses at its bottleneck
+(``recipes/clip_unet.py`` attaches them). It moves to the model's device
+(through pinned memory, ``to_device``), where uint8 pixels are
+ImageNet-normalized in the step (``ops.normalize``), as in JAX.
 
 The train step runs the forward in training mode, with channel dropout drawn
 from the ``torch.Generator`` it is given (on the model's device), then
 ``segmentation_loss`` with per-batch class weights, ``backward()`` and
-``optimizer.step()``: the forward launches K1 and K2 and their backward runs
-in plain torch. The eval step runs in eval mode under ``torch.inference_mode``
-(so in the s2d layout the fused block tail, K3, runs) and returns the loss,
-the per-class batch Dice, the argmax predictions and a confusion matrix.
+``optimizer.step()``: the forward launches K1 and K2, the backward K1's
+backward kernel (K1bwd); only K2's transpose runs in plain torch. The eval
+step runs in eval mode under ``torch.inference_mode`` (so in the s2d layout
+the fused block tail, K3, runs) and returns the loss, the per-class batch
+Dice, the argmax predictions and a confusion matrix.
 
 The reconstruction steps take ``{"image", "target"}`` (uint8, or float in
 [0, 1]), scale uint8 to [0, 1] on the device (``mode="unit"``, no ImageNet
@@ -51,6 +54,16 @@ def _on_device(batch: Dict, device: torch.device):
     return normalize_image(to_device(batch["image"], device)), to_device(batch["mask"], device)
 
 
+def _clip_kwargs(batch: Dict, device: torch.device, use_clip: bool) -> Dict:
+    """The model's ``clip_features`` keyword: the batch's features on the
+    device with ``use_clip`` (None when the batch has none, as JAX's
+    ``batch.get``), else nothing."""
+    if not use_clip:
+        return {}
+    features = batch.get("clip_features")
+    return {"clip_features": None if features is None else to_device(features, device)}
+
+
 def make_segmentation_train_step(
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -59,18 +72,19 @@ def make_segmentation_train_step(
     weight_dice: float = 1.0,
     dynamic_weights: bool = True,
     static_weights: Optional[torch.Tensor] = None,
+    use_clip: bool = False,
 ) -> Callable:
     """``step(batch, generator) -> loss`` (a float32 scalar tensor on the
     model's device, detached): one forward, backward and optimizer update of
     ``model`` in place. ``static_weights`` (C,) replaces the per-batch class
-    weights."""
+    weights; ``use_clip`` feeds the batch's ``clip_features`` to the model."""
     device = next(model.parameters()).device
 
     def step(batch: Dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         model.train()
         image, mask = _on_device(batch, device)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(image, generator=generator)
+        logits = model(image, generator=generator, **_clip_kwargs(batch, device, use_clip))
         loss = segmentation_loss(logits, mask, weight_ce=weight_ce, weight_dice=weight_dice,
                                  class_weights=static_weights,
                                  dynamic_weights=dynamic_weights and static_weights is None)
@@ -88,16 +102,18 @@ def make_segmentation_eval_step(
     weight_dice: float = 1.0,
     dynamic_weights: bool = True,
     static_weights: Optional[torch.Tensor] = None,
+    use_clip: bool = False,
 ) -> Callable:
     """``step(batch) -> {"loss", "dice" (3,), "preds" (B, H, W) int32,
-    "confusion" (3, 3)}``, all on the model's device."""
+    "confusion" (3, 3)}``, all on the model's device; ``use_clip`` as in the
+    train step."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.eval()
         image, mask = _on_device(batch, device)
-        logits = model(image)
+        logits = model(image, **_clip_kwargs(batch, device, use_clip))
         loss = segmentation_loss(logits, mask, weight_ce=weight_ce, weight_dice=weight_dice,
                                  class_weights=static_weights,
                                  dynamic_weights=dynamic_weights and static_weights is None)
