@@ -134,11 +134,32 @@ Phases (any failure makes the script exit non-zero without a result line):
    tower's controls (TOWER_SLIPS); the recipe's overhead per step: epochs
    2-4 after their first batch against the isolated step timed as the loop
    times it (an epoch's steps back to back by the host clock), each thrice.
+11. Online augmentation (``data/augment.py``, plain PyTorch: no kernel of
+   its own), on b32 512² synthetic images, 16 cats and 16 dogs, uint8.
+   ``sample_params`` on a CUDA generator, then ``apply_params`` on the card
+   against ``apply_params`` on the CPU on the same draws (image max |error|
+   AUG_IMAGE_MAX_ABS, mask agreement AUG_MASK_AGREEMENT; the pre-histogram
+   values in another uint8 bin are counted), a second card call bit for bit,
+   no launch of K1-K4. ``augment_and_normalize`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronization
+   inside it) and is timed by CUDA events (median of AUG_TIMED after
+   AUG_WARMUP), beside its bytes bound, its device kernels and their device
+   time (``torch.profiler``) and its peak memory. Then through ``cli.main``
+   on phase 8's dataset, each with ``--online_augment``: ``our_unet train``
+   2 epochs at b32 (22/5/22 per step, 22/5/0 per validation forward; phase
+   8's CSV and checkpoint checks; ``training_config.json`` records the
+   flag), ``clip_unet train`` 2 epochs at b16 (23/5/23 per step; the tower
+   once per training batch on its augmented 224² view; only the Val table is
+   computed; phase 8's CSV checks), ``ae_transfer train`` 1 epoch on phase
+   9's autoencoder
+   (22/5/10). Printed, not gated: each recipe's time per step after its first
+   batch, beside phase 7's isolated step and the runs of phases 8-10 without
+   augmentation.
 
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6, 7, 8, 9 and 10).
+runs of the main paths (phases 3 and 6-11).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -165,7 +186,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_implementations_tpu_torch import cli
-from unet_implementations_tpu_torch.data import loader
+from unet_implementations_tpu_torch.data import augment, loader
 from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch, synthetic_sample
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.kernels import instance_norm as k1
@@ -313,6 +334,15 @@ CLIP_TABLE_ATOL = 2e-3
 # isolated step over an epoch's steps by the host clock (OVERHEAD_REPEATS).
 CLIP_EPOCHS = 4
 OVERHEAD_REPEATS = 3
+# Online augmentation (phase 11): the batch held card against CPU and timed,
+# and its gates. The stages ahead of the histogram's uint8 truncation are
+# elementwise float32 in a fixed order on both, so the pre-histogram pixels
+# should match bit for bit; what follows (the LUTs' cumulative sums, the
+# blur's exponentials) differs by float32 roundings of values in [0, 1].
+AUG_BATCH = 32
+AUG_IMAGE_MAX_ABS = 1e-4
+AUG_MASK_AGREEMENT = 0.999
+AUG_TIMED, AUG_WARMUP = 5, 2
 
 # Original sizes of the eight images of a request batch.
 SIZES = [(375, 500), (512, 512), (240, 320), (500, 333), (64, 96), (1024, 768),
@@ -2420,6 +2450,227 @@ def phase_clip(root: Path):
         f"ratio {statistics.mean(recipe) / statistics.mean(host):.3f})")
 
 
+def augment_batch_u8() -> tuple[torch.Tensor, torch.Tensor]:
+    """AUG_BATCH synthetic 512² images, half cats and half dogs, as uint8
+    pixels and uint8 {0, 1, 2, 255} masks on the card."""
+    rng = np.random.default_rng(SEED + 20)
+    pairs = {1: [], 2: []}
+    while min(len(v) for v in pairs.values()) < AUG_BATCH // 2:
+        image, mask = synthetic_sample(rng, IMG)
+        cls = int(mask.max(initial=0, where=mask != 255))
+        if len(pairs[cls]) < AUG_BATCH // 2:
+            pairs[cls].append((image, mask))
+    images, masks = zip(*(pairs[1] + pairs[2]))
+    pixels = as_uint8({"image": np.stack(images)})["image"]
+    return (torch.from_numpy(pixels).to("cuda"),
+            torch.from_numpy(np.stack(masks).astype(np.uint8)).to("cuda"))
+
+
+def augment_bytes_bound_ms(images: torch.Tensor, masks: torch.Tensor) -> float:
+    """One read of the uint8 image and mask, one write of the float32 image
+    and of the mask, at the memory rate."""
+    return bytes_ms(images.numel() * (1 + 4) + masks.numel() * 2 * masks.element_size())
+
+
+def augment_on_card() -> None:
+    """``sample_params`` on a CUDA generator at b32 512², ``apply_params`` on
+    the card against the CPU on the same draws, a repeat bit for bit, no
+    host synchronization inside ``augment_and_normalize``, and its time."""
+    images, masks = augment_batch_u8()
+    classes = augment.mask_classes(masks)
+    if classes.tolist() != [0] * (AUG_BATCH // 2) + [1] * (AUG_BATCH // 2):
+        raise AssertionError(f"classes from the masks: {classes.tolist()}")
+    images01 = normalize_image(images, mode="unit")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    params = augment.sample_params(gen, classes, None, IMG, IMG)
+    card = counted(lambda: augment.apply_params(params, images01, masks), NO_LAUNCHES)
+    again = augment.apply_params(params, images01, masks)
+    if not (torch.equal(card[0], again[0]) and torch.equal(card[1], again[1])):
+        raise AssertionError("a second apply_params on the card differs")
+    t0 = time.perf_counter()
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu = augment.apply_params(cpu_params, images01.cpu(), masks.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = (card[0].cpu() - cpu[0]).abs().max().item()
+    agree = (card[1].cpu() == cpu[1]).float().mean().item()
+    pre_card = augment._warp_and_colour(params, images01, masks)[0].cpu()
+    pre_cpu = augment._warp_and_colour(cpu_params, images01.cpu(), masks.cpu())[0]
+
+    def u8(x):
+        return torch.clamp(x * 255.0, 0, 255).to(torch.int32)
+
+    bins = int((u8(pre_card) != u8(pre_cpu)).sum())
+    gates = {k: int(params[k].sum()) for k in ("flip", "ssr", "rrc", "perspective", "distort",
+                                                "dropout", "color", "hist", "noise",
+                                                "saltpepper", "iso", "lighting")}
+    log(f"apply_params b{AUG_BATCH} 512², card against CPU on the card's draws: image max "
+        f"|error| {err:.3e} (gate {AUG_IMAGE_MAX_ABS}), mask agreement {agree:.6f} (gate "
+        f"{AUG_MASK_AGREEMENT}), pre-histogram values in another uint8 bin {bins}; a second "
+        f"card call bit for bit; the CPU took {cpu_s:.1f} s; gates taken of {AUG_BATCH}: {gates}")
+    if not (err <= AUG_IMAGE_MAX_ABS and agree >= AUG_MASK_AGREEMENT):
+        raise AssertionError(f"apply_params on the card against the CPU: max |error| {err}, "
+                             f"mask agreement {agree}")
+    if not (card[0].min() >= 0 and card[0].max() <= 1 and
+            set(card[1].unique().tolist()) <= {0, 1, 2, 255}):
+        raise AssertionError("augmented pixels leave [0, 1] or masks leave {0, 1, 2, 255}")
+    del card, again, cpu, params, cpu_params, pre_card, pre_cpu
+    torch.cuda.empty_cache()
+
+    # Time: the whole online call, uint8 in, normalized float32 out.
+    tables = augment.policy_arrays(None, torch.device("cuda"))
+    gens = [torch.Generator(device="cuda").manual_seed(SEED + 22 + i) for i in range(8)]
+
+    def call(g):
+        return augment.augment_and_normalize(g, images, masks, policy=tables)
+
+    call(gens[0])  # first use: the per-device constants are copied to the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counted(lambda: call(gens[1]), NO_LAUNCHES)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_times(call, gens, iters=AUG_TIMED, warmup=AUG_WARMUP)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        call(gens[0])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    # Device time by the aten op that launched it.
+    ops = [(e.key, e.count, getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0.0)) for e in prof.key_averages()
+           if e.key.startswith("aten::")]
+    top = sorted(ops, key=lambda o: -o[2])[:10]
+    bound = augment_bytes_bound_ms(images, masks)
+    med = statistics.median(ms)
+    log(f"augment_and_normalize b{AUG_BATCH} 512² (uint8 in, float32 out), CUDA events: "
+        f"{spread(ms)}; {len(kernels)} device kernels and copies per call, their device time "
+        f"{device_ms:.3f} ms; peak memory above its inputs {peak:.2f} GiB; bytes bound "
+        f"{bound:.4f} ms ({bound / med:.2%} of the median); no host synchronization inside "
+        f"the call (torch.cuda.set_sync_debug_mode('error'))")
+    log("its device time by aten op, the largest: " + "; ".join(
+        f"{name} x{n} {us / 1e3:.3f} ms" for name, n, us in top))
+    report["augment"].update(ms=med, launches=len(kernels), device_ms=device_ms, peak_gib=peak,
+                             bound_ms=bound, max_abs=err, mask_agreement=agree, bins=bins)
+
+
+def pretrained_ae(root: Path) -> Path:
+    """Phase 9's autoencoder ``best_model``; where phase 9 wrote none, one
+    saved from a seeded ``autoencoder_6stage``."""
+    path = root / "ae" / "best_model"
+    if not (path / "model.pth").is_file():
+        save_checkpoint(root / "ae_seeded", autoencoder_6stage(
+            device="cuda", generator=torch.Generator().manual_seed(SEED + 23)), None, 0, 0.0)
+        path = root / "ae_seeded"
+    return path
+
+
+def augment_recipes(root: Path) -> None:
+    """``cli our_unet|clip_unet|ae_transfer train --online_augment`` on phase
+    8's dataset: launch counts, the tower once per training batch and no
+    Train table in clip_unet, the CSVs and checkpoints, the time per step."""
+    data, cache = recipe_data(root)
+    common = ["--data_dir", str(data), "--decode_cache", str(cache), "--online_augment",
+              "--save_every", "1"]
+    out = root / "aug_run"
+    result = counted_path(lambda: cli.main([
+        "our_unet", "train", "--output_dir", str(out), "--batch_size", str(RECIPE_BATCH),
+        "--epochs", str(RECIPE_EPOCHS), *common]), per_epoch(PER_STEP["dense"], RECIPE_EPOCHS))
+    check_csv(out / "training_log.csv", SEG_CSV_HEADER,
+              [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)], 7,
+              slice(1, 7))
+    for d in [*(out / "checkpoints" / f"epoch_{e + 1}" for e in range(RECIPE_EPOCHS)),
+              out / "best_model"]:
+        if not ((d / "model.pth").is_file() and (d / "meta.json").is_file()):
+            raise AssertionError(f"{d} lacks model.pth or meta.json")
+    convert.load_reference_checkpoint(out / "best_model" / "model.pth", device="cuda")
+    if json.loads((out / "training_config.json").read_text())["online_augment"] is not True:
+        raise AssertionError("training_config.json does not record online_augment")
+    report["augment"]["recipe_steady_ms"] = steady_step_ms(result)
+    torch.cuda.empty_cache()
+
+    # CLIP: live extraction from the augmented view, no Train table.
+    val = data / "Val"
+    if not (loader.cache_path(cache, val / "resized", val / "processed_labels", (IMG, IMG),
+                              clip_size=TOWER_SIDE) / loader.MANIFEST).exists():
+        write_clip_caches(data, cache)
+    tower_calls, tables_built = [], []
+    extract, build = ClipFeatureExtractor.__call__, clip_unet._embedding_table
+
+    def counted_extract(self, images):
+        tower_calls.append(tuple(images.shape))
+        return extract(self, images)
+
+    def counted_build(extractor, dataset, *args):
+        tables_built.append(dataset.images_dir.parent.name)
+        return build(extractor, dataset, *args)
+
+    with mock.patch.object(ClipFeatureExtractor, "__call__", counted_extract), \
+            mock.patch.object(clip_unet, "_embedding_table", counted_build):
+        result = counted_path(lambda: cli.main([
+            "clip_unet", "train", "--output_dir", str(root / "aug_clip"), "--batch_size",
+            str(CLIP_BATCH), "--epochs", str(RECIPE_EPOCHS), *common]),
+            per_epoch(CLIP_PER_STEP["dense"], RECIPE_EPOCHS, CLIP_BATCH,
+                      CLIP_PER_FORWARD["dense"]))
+    check_csv(root / "aug_clip" / "training_log.csv", SEG_CSV_HEADER,
+              [f"{poly_lr(5e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)], 7,
+              slice(1, 7))
+    steps = RECIPE_EPOCHS * (RECIPE_SPLITS["Train"][1] // CLIP_BATCH)
+    live = [s for s in tower_calls if s == (CLIP_BATCH, TOWER_SIDE, TOWER_SIDE, 3)]
+    log(f"clip_unet --online_augment: {result['step']} steps, {len(live)} tower calls on "
+        f"b{CLIP_BATCH} augmented views, tables computed for {tables_built}")
+    if result["step"] != steps or len(live) != steps or tables_built != ["Val"]:
+        raise AssertionError(f"clip_unet --online_augment: {result['step']} steps, tower calls "
+                             f"{tower_calls}, tables {tables_built}")
+    report["augment"]["clip_steady_ms"] = steady_step_ms(result)
+    torch.cuda.empty_cache()
+
+    result = counted_path(lambda: cli.main([
+        "ae_transfer", "train", "--output_dir", str(root / "aug_transfer"),
+        "--pretrained_encoder", str(pretrained_ae(root)), "--batch_size", str(RECIPE_BATCH),
+        "--epochs", "1", *common]), per_epoch(TRANSFER_PER_STEP, 1))
+    report["augment"]["transfer_steady_ms"] = steady_step_ms(result)
+
+
+@phase(f"11. online augmentation: data/augment.py at b{AUG_BATCH} 512² on the card against "
+       f"the CPU and timed, then cli our_unet|clip_unet|ae_transfer train --online_augment")
+def phase_augment(root: Path):
+    report["augment"] = {}
+    augment_on_card()
+    augment_recipes(root)
+    if "cv2" in sys.modules:
+        raise AssertionError("online augmentation imported cv2")
+    a = report["augment"]
+    phase7 = report.get("train", {}).get("dense", {}).get("step_ms")
+    phase8 = report.get("recipe", {}).get("steady_step_ms")
+    clip = report.get("clip", {})
+    beside = [f"phase 7's isolated b{TRAIN_BATCH} step {phase7:.3f} ms (ratio "
+              f"{a['recipe_steady_ms'] / phase7:.3f})" if phase7 else "",
+              f"phase 8's run without augmentation {phase8:.3f} ms (ratio "
+              f"{a['recipe_steady_ms'] / phase8:.3f}, {a['recipe_steady_ms'] - phase8:+.3f} ms)"
+              if phase8 else ""]
+    log(f"our_unet --online_augment, epoch {RECIPE_EPOCHS} after its first batch: "
+        f"{a['recipe_steady_ms']:.3f} ms per b{RECIPE_BATCH} step; "
+        + "; ".join(b for b in beside if b))
+    clip_steady = statistics.mean(clip["recipe_steady_ms"]) if clip.get("recipe_steady_ms") \
+        else None
+    log(f"clip_unet --online_augment, epoch {RECIPE_EPOCHS} after its first batch: "
+        f"{a['clip_steady_ms']:.3f} ms "
+        f"per b{CLIP_BATCH} step" + (f"; phase 10's run on tables {clip_steady:.3f} ms "
+                                     f"({a['clip_steady_ms'] - clip_steady:+.3f} ms)"
+                                     if clip_steady else ""))
+    transfer = report.get("ae", {}).get("transfer_recipe_steady_ms")
+    log(f"ae_transfer --online_augment, epoch 1 after its first batch: "
+        f"{a['transfer_steady_ms']:.3f} ms per b{RECIPE_BATCH} step"
+        + (f"; phase 9's run without augmentation (epoch 2) {transfer:.3f} ms" if transfer
+           else ""))
+
+
 def kernels_line() -> dict:
     rows = report["rows"]
     bound_by = report["bound_by"]
@@ -2451,7 +2702,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6, 7, 8, 9 and 10).
+            # The counted runs of the main paths (phases 3 and 6-11).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2487,6 +2738,8 @@ def main() -> int:
             phase_ae(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_clip(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_augment(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

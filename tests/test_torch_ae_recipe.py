@@ -33,11 +33,11 @@ from unet_implementations_tpu.recipes import ae_recon as jax_ae_recon
 from unet_implementations_tpu.recipes import ae_transfer as jax_ae_transfer
 from unet_implementations_tpu_torch import cli
 from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage
-from unet_implementations_tpu_torch.recipes import ae_recon, ae_transfer
+from unet_implementations_tpu_torch.recipes import ae_recon, ae_transfer, common
 from unet_implementations_tpu_torch.training import checkpoint
 from unet_implementations_tpu_torch.training.loop import AE_CSV_HEADER, SEG_CSV_HEADER
 
-from test_torch_recipe import SPLITS, write_split
+from test_torch_recipe import SPLITS, count_calls, write_split
 
 DEMO = Path(__file__).resolve().parents[1] / "demo" / "four_recipes"
 
@@ -170,6 +170,23 @@ def _options(parser, recipe):
     return {cmd: {s for a in p._actions for s in a.option_strings} for cmd, p in sub.items()}
 
 
+def test_transfer_online_augment_trains(chain, tmp_path, monkeypatch):
+    """``ae_transfer train --online_augment`` on the phase-1 checkpoint: one
+    augmentation per training batch, and the grafted encoder stays frozen."""
+    calls = count_calls(monkeypatch, common, "augment_and_normalize")
+    monkeypatch.setenv("UNET_TPU_DECODE_CACHE", "")
+    out = tmp_path / "run"
+    result = cli.main(["ae_transfer", "train", "--online_augment", "--output_dir", str(out),
+                       "--pretrained_encoder", str(chain["ae"] / "best_model"), "--data_dir",
+                       str(chain["root"] / "data"), "--device", "cpu", "--f32",
+                       "--batch_size", "2", "--epochs", "1", "--num_workers", "2"])
+    assert result["step"] == 1 and len(calls) == 1
+    ae = checkpoint.load_checkpoint(chain["ae"] / "best_model")["model_state_dict"]
+    tr = checkpoint.load_checkpoint(out / "best_model")["model_state_dict"]
+    encoder = [k for k in tr if k.startswith("encoder_stages.")]
+    assert encoder and all(torch.equal(tr[k], ae[k]) for k in encoder)
+
+
 class TestCli:
     @pytest.mark.parametrize("recipe", ["ae_recon", "ae_transfer"])
     def test_every_jax_flag_exists(self, recipe):
@@ -210,8 +227,6 @@ class TestCli:
         (["ae_recon", "train", "--grad_accum", "3"], ValueError, "does not divide"),
         (["ae_transfer", "train", "--pretrained_encoder", "p", "--grad_accum", "2"],
          NotImplementedError, "item 7"),
-        (["ae_transfer", "train", "--pretrained_encoder", "p", "--online_augment"],
-         NotImplementedError, "item 4"),
     ])
     def test_train_flags_not_ported_raise(self, tmp_path, argv, error, match):
         with pytest.raises(error, match=match):

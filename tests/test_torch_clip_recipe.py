@@ -21,6 +21,8 @@ against the JAX package's, on the CPU.
   tables and live extraction give every evaluation scalar within 2e-3;
   ``best_model/model.pth`` loads strictly, and into JAX's fusion UNet, whose
   float32 logits with features equal the port's to 1e-4 relative at 64².
+  Then ``clip_unet train --online_augment``: live extraction once per
+  training batch, no Train table.
 - Every JAX ``clip_unet`` and ``clip_resize`` flag exists with JAX's
   defaults; what is not ported raises, naming its ROADMAP item.
 """
@@ -46,7 +48,8 @@ from unet_implementations_tpu.models.unet import UNet as JaxUNet
 from unet_implementations_tpu.recipes import clip_unet as jax_clip_unet
 from unet_implementations_tpu_torch import cli
 from unet_implementations_tpu_torch.data import loader, pipeline
-from unet_implementations_tpu_torch.recipes import clip_unet, common
+from unet_implementations_tpu_torch.models.clip import ClipFeatureExtractor
+from unet_implementations_tpu_torch.recipes import clip_unet
 from unet_implementations_tpu_torch.training import checkpoint
 from unet_implementations_tpu_torch.training.loop import SEG_CSV_HEADER
 
@@ -331,6 +334,43 @@ class TestChain:
         assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-4
 
 
+def test_train_online_augment_extracts_live(chain, tmp_path, monkeypatch):
+    """``clip_unet train --online_augment --embeddings_dir``: the tower runs
+    once per training batch on its augmented 224² view, no Train table is
+    read or computed, and validation reads its table."""
+    tables, computed, seen = [], [], []
+    load = clip_unet._load_embedding_table
+
+    def load_table(embeddings_dir, split, *args, **kwargs):
+        tables.append(split)
+        return load(embeddings_dir, split, *args, **kwargs)
+
+    call = ClipFeatureExtractor.__call__
+
+    def extract(self, images):
+        seen.append((tuple(images.shape), images.dtype))
+        return call(self, images)
+
+    monkeypatch.setattr(clip_unet, "_load_embedding_table", load_table)
+    monkeypatch.setattr(clip_unet, "_embedding_table", lambda *a, **k: computed.append(a))
+    monkeypatch.setattr(ClipFeatureExtractor, "__call__", extract)
+    monkeypatch.setenv("UNET_TPU_DECODE_CACHE", "")
+    out = tmp_path / "run"
+    result = cli.main(["clip_unet", "train", "--online_augment", "--output_dir", str(out),
+                       "--data_dir", str(chain["data"]), "--embeddings_dir",
+                       str(chain["data"] / "clip_embeddings"), "--device", "cpu", "--f32",
+                       "--clip_model", "ViT-B/32", "--batch_size", "2", "--epochs", "1",
+                       "--num_workers", "2"])
+    assert result["step"] == 1
+    assert tables == ["Val"] and computed == []
+    assert seen == [((2, 224, 224, 3), torch.float32)]
+    config = json.loads((out / "training_config.json").read_text())
+    assert config["online_augment"] is True
+    with open(out / "training_log.csv") as f:
+        rows = list(csv.reader(f))
+    assert len(rows) == 2 and np.isfinite([float(v) for v in rows[1][1:7]]).all()
+
+
 class TestCli:
     def test_every_jax_flag_exists(self):
         ours, ref = _options(cli.build_parser(), "clip_unet"), _options(jax_build_parser(),
@@ -362,7 +402,6 @@ class TestCli:
     @pytest.mark.parametrize("argv,error,match", [
         (["--grad_accum", "2"], NotImplementedError, "item 7"),
         (["--grad_accum", "3"], ValueError, "does not divide"),
-        (["--online_augment"], NotImplementedError, "item 4"),
     ])
     def test_train_flags_not_ported_raise(self, tmp_path, argv, error, match):
         with pytest.raises(error, match=match):
@@ -377,8 +416,6 @@ class TestCli:
             cli.main(["clip_unet", "evaluate", "--model_path", str(tmp_path / "m"),
                       "--data_dir", str(tmp_path), "--device", "cpu",
                       "--visualize_samples", "2"])
-        with pytest.raises(NotImplementedError, match="item 4"):
-            common.wrap_online_augment_clip(iter(()), 0, 0, FakeExtractor())
 
     @pytest.mark.parametrize("argv", [
         ["clip_unet", "train", "--output_dir", "o"], ["clip_unet", "embed"]])

@@ -243,7 +243,8 @@ importlib.import_module("chip_smoke")
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "unet_implementations_tpu")
 bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
-print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
+print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
+                  "yaml": "yaml" in sys.modules}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
@@ -251,8 +252,10 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    # cv2 is imported only where a file is decoded (the card has none).
+    # cv2 is imported only where a file is decoded (the card has none), and
+    # yaml only where an augmentation policy file is read.
     assert result["cv2"] is False
+    assert result["yaml"] is False
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
                  "kernels.winograd", "models.s2d", "ops.losses", "ops.metrics",
@@ -260,5 +263,5 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules}))
                  "data.loader", "training.early_stopping", "training.checkpoint",
                  "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",
                  "recipes.ae_transfer", "models.clip", "recipes.clip_unet", "data.pipeline",
-                 "cli"):
+                 "data.augment", "cli"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

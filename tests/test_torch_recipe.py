@@ -12,12 +12,15 @@ against the JAX package's.
   JAX package through ``convert.load_torch_checkpoint`` and gives the port's
   float32 logits to 1e-4 relative at 64²; ``evaluate`` of the ``.pth`` file
   gives what ``evaluate`` of the directory gives.
+- ``our_unet train --online_augment`` on the CPU: one augmentation per
+  training batch, ``Train/augmented/`` not read.
 - The argv lists of ``tests/test_cli.py``'s ``our_unet`` cases parse, every
   JAX ``our_unet`` flag exists, and the flags that are not ported raise.
 """
 
 import csv
 import json
+import shutil
 from pathlib import Path
 
 import cv2
@@ -162,6 +165,47 @@ class TestRecipe:
         assert meta["config"] == our_unet.ARCH_CONFIG == jax_our_unet.ARCH_CONFIG
 
 
+def count_calls(monkeypatch, module, name):
+    """Count the calls of ``module.name`` (still calling it)."""
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_online_augment_trains(recipe_run, tmp_path, monkeypatch):
+    """``our_unet train --online_augment``: each training batch is augmented
+    on the device (one call per batch), ``Train/augmented/`` is not read (two
+    files there would make a second batch), and the config records the
+    flag."""
+    data = tmp_path / "data"
+    shutil.copytree(recipe_run["root"] / "data", data)
+    for sub in ("images", "masks"):
+        (data / "Train" / "augmented" / sub).mkdir(parents=True)
+    for i in range(2):
+        shutil.copy(data / "Train" / "resized" / f"train_{i}.jpg",
+                    data / "Train" / "augmented" / "images" / f"train_{i}_aug0.jpg")
+        shutil.copy(data / "Train" / "resized_label" / f"train_{i}.png",
+                    data / "Train" / "augmented" / "masks" / f"train_{i}_aug0.png")
+    calls = count_calls(monkeypatch, common, "augment_and_normalize")
+    monkeypatch.setenv("UNET_TPU_DECODE_CACHE", "")
+    out = tmp_path / "run"
+    result = cli.main(["our_unet", "train", "--online_augment", "--data_dir", str(data),
+                       "--output_dir", str(out), "--device", "cpu", "--f32", "--batch_size",
+                       "2", "--epochs", "1", "--num_workers", "2"])
+    assert result["step"] == 1 and len(calls) == 1
+    assert json.loads((out / "training_config.json").read_text())["online_augment"] is True
+    with open(out / "training_log.csv") as f:
+        rows = list(csv.reader(f))
+    assert len(rows) == 2 and np.isfinite([float(v) for v in rows[1][1:7]]).all()
+    assert (out / "best_model" / "model.pth").is_file()
+
+
 def _options(parser, *path):
     for name in path:
         action = next(a for a in parser._actions if a.dest in ("recipe", "command"))
@@ -211,7 +255,6 @@ class TestCli:
                                        "--data_dir", "d"])) == 8
 
     @pytest.mark.parametrize("flags,error,item", [
-        (["--online_augment"], NotImplementedError, "item 4"),
         (["--spatial", "2"], NotImplementedError, "item 7"),
         (["--grad_accum", "2"], NotImplementedError, "item 7"),
         (["--grad_accum", "3"], ValueError, "does not divide"),

@@ -18,15 +18,16 @@ keeps the reference's module names so each counterpart is easy to find:
                  train and eval steps, the epoch loop, checkpoints and early
                  stopping.
 - ``data``     — the dataset loader (segmentation and reconstruction modes,
-                 the CLIP view) with its decode cache, synthetic batches and
-                 the CLIP view's padded copies (``pipeline``).
+                 the CLIP view) with its decode cache, the class-balanced
+                 augmentation on the batch's device (``augment``), synthetic
+                 batches and the CLIP view's padded copies (``pipeline``).
 - ``recipes``  — the ``our_unet``, ``ae_recon``, ``ae_transfer`` and
                  ``clip_unet`` recipes (train, evaluate; CLIP embedding
-                 tables), dataset evaluation and the serving path
-                 (``predict_segmentation``).
+                 tables; online augmentation), dataset evaluation and the
+                 serving path (``predict_segmentation``).
 - ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate``,
-                 ``clip_unet train|evaluate|embed``, ``clip_resize`` and
-                 ``predict``.
+                 ``clip_unet train|evaluate|embed``, ``clip_resize``,
+                 ``augment`` and ``predict``.
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they never

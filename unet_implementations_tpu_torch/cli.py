@@ -14,20 +14,23 @@
         --data_dir <processed data> --output_dir <run dir> \\
         [--embeddings_dir <processed data>/clip_embeddings]
     python -m unet_implementations_tpu_torch.cli clip_unet evaluate ...
+    python -m unet_implementations_tpu_torch.cli augment --data_dir <processed data>
     python -m unet_implementations_tpu_torch.cli predict \\
         --model_path model.pth --input <image-or-dir> --output_dir predictions
 
-The flags of ``our_unet``, ``ae_recon``, ``ae_transfer``, ``clip_unet`` and
-``clip_resize`` are the JAX package's (``unet_implementations_tpu/cli.py``),
-with its defaults; ``clip_unet embed`` also takes ``--device``, ``--f32``
-and ``--decode_cache``, and ``--clip_weights`` is a torch CLIP checkpoint (OpenAI,
+The flags of ``our_unet``, ``ae_recon``, ``ae_transfer``, ``clip_unet``,
+``clip_resize`` and ``augment`` are the JAX package's
+(``unet_implementations_tpu/cli.py``), with its defaults; ``clip_unet embed``
+also takes ``--device``, ``--f32`` and ``--decode_cache``, ``augment`` also
+takes ``--device``, and ``--clip_weights`` is a torch CLIP checkpoint (OpenAI,
 open_clip or TorchScript; random weights from seed 0 without it).
 ``--device`` is the torch device (default: CUDA; ``cpu`` runs the plain
 PyTorch path). ``--num_workers`` is an alias of ``--num_threads``;
 ``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE`` for every dataset the
 command opens. ``--no_mesh``, ``--amp`` and ``--reduced_complexity`` are
-accepted and do nothing, and so is ``clip_unet train --use_clip``. Not
-ported yet, and refused: ``--online_augment``,
+accepted and do nothing, and so is ``clip_unet train --use_clip``.
+``--online_augment`` augments each training batch on the device (and, in
+``clip_unet``, extracts its CLIP features live). Not ported yet, and refused:
 ``--spatial`` > 1, ``--grad_accum`` > 1, ``--visualize_samples`` > 0 (so it
 defaults to 0 here, 3 in JAX) and ``--analyze_latent_space``.
 
@@ -75,7 +78,9 @@ def _add_common_train_flags(p: argparse.ArgumentParser, batch_size: int = 32) ->
 
 
 def _add_seg_train_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--online_augment", action="store_true", help="not ported")
+    p.add_argument("--online_augment", action="store_true",
+                   help="augment each training batch on the device (class-balanced policy); "
+                        "Train/augmented/ is not read")
     p.add_argument("--lr", type=float, default=5e-3)
     p.add_argument("--weight_decay", type=float, default=1e-4)
     p.add_argument("--momentum", type=float, default=0.99)
@@ -174,6 +179,17 @@ def build_parser() -> argparse.ArgumentParser:
                                  help="write each split's resized_clip/ (padded square copies)")
     clip_resize.add_argument("--data_dir", required=True)
     clip_resize.add_argument("--size", type=int, default=224)
+
+    aug = sub.add_parser("augment", help="write Train/augmented/ (class-balanced copies)")
+    aug.add_argument("--data_dir", required=True,
+                     help="processed dir; writes Train/augmented/{images,masks}")
+    aug.add_argument("--cat_augmentations", type=int, default=5)
+    aug.add_argument("--dog_augmentations", type=int, default=2)
+    aug.add_argument("--seed", type=int, default=42)
+    aug.add_argument("--config", default=None,
+                     help="reference-format augmentation_config.yaml")
+    aug.add_argument("--device", default=None,
+                     help="torch device, e.g. cuda:1 or cpu (default: cuda)")
 
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
     pred.add_argument("--model_path", required=True, help="a reference-schema .pth checkpoint")
@@ -285,6 +301,18 @@ def main(argv: Optional[Sequence[str]] = None):
                                                     args.size)
                 print(f"{split}: {counts[split]} images")
         return counts
+    if args.command == "augment":
+        from unet_implementations_tpu_torch.data.augment import (
+            augment_dataset_offline,
+            load_policy_yaml,
+        )
+
+        stats = augment_dataset_offline(
+            args.data_dir, cat_augmentations=args.cat_augmentations,
+            dog_augmentations=args.dog_augmentations, seed=args.seed,
+            policy=load_policy_yaml(args.config) if args.config else None, device=args.device)
+        print(stats)
+        return stats
     if args.command == "predict":
         from unet_implementations_tpu_torch.recipes.common import predict_segmentation
 

@@ -1,10 +1,13 @@
-"""Offline image tools: the padded resize and the CLIP view's copies.
+"""Offline image tools: the padded resize, the CLIP view's copies and the
+cat/dog breed test.
 
-The port's own copy of ``resize_with_padding`` and ``create_clip_resized``
-from ``unet_implementations_tpu/data/pipeline.py`` (the rest of that module,
-the raw-to-processed pipeline, is not ported yet: ROADMAP.md queue 1 item
-9). ``cli clip_resize`` writes each split's ``resized_clip/`` with them, the
-directory the loader's CLIP view reads. cv2 is imported inside the
+The port's own copy of ``resize_with_padding``, ``create_clip_resized``,
+``CAT_BREEDS`` and ``is_cat_image`` from
+``unet_implementations_tpu/data/pipeline.py`` (the rest of that module, the
+raw-to-processed pipeline, is not ported yet: ROADMAP.md queue 1 item 9).
+``cli clip_resize`` writes each split's ``resized_clip/`` with them, the
+directory the loader's CLIP view reads; ``cli augment`` routes an image
+whose mask names no class by its breed. cv2 is imported inside the
 functions, so the module imports on a host without it.
 """
 
@@ -14,6 +17,19 @@ from pathlib import Path
 from typing import Sequence
 
 import numpy as np
+
+# The cat breeds of the Oxford-IIIT Pet file names (the rest are dogs).
+CAT_BREEDS = (
+    "abyssinian", "bengal", "birman", "bombay",
+    "british", "egyptian", "maine",
+    "persian", "ragdoll", "russian", "siamese", "sphynx",
+)
+
+
+def is_cat_image(filename: str) -> bool:
+    """Cat or dog from the breed in the file name, case-insensitively."""
+    name = filename.lower()
+    return any(breed in name for breed in CAT_BREEDS)
 
 
 def resize_with_padding(image: np.ndarray, target_size: int, nearest: bool = False) -> np.ndarray:

@@ -19,13 +19,16 @@ import numpy as np
 import torch
 
 
-def _linear_weights(out_size: int, in_size: int):
-    scale = np.float32(in_size / out_size)
-    src = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * scale - np.float32(0.5)
-    src = np.maximum(src, 0.0)
-    i0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
-    i1 = np.clip(i0 + 1, 0, in_size - 1)
-    w1 = (src - i0.astype(np.float32)).astype(np.float32)
+def _linear_weights(out_size: int, in_size: int, device=None):
+    """The two source indices and the second one's weight of each output
+    position, in float32, made on ``device`` (no copy from the host, which on
+    a card would wait for its queue)."""
+    scale = float(np.float32(in_size / out_size))
+    src = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * scale - 0.5
+    src = torch.clamp_min(src, 0.0)
+    i0 = torch.clamp(torch.floor(src).to(torch.int64), 0, in_size - 1)
+    i1 = torch.clamp(i0 + 1, 0, in_size - 1)
+    w1 = src - i0.to(torch.float32)
     return i0, i1, w1
 
 
@@ -33,7 +36,7 @@ def _interp_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    i0, i1, w1 = (torch.from_numpy(a).to(x.device) for a in _linear_weights(out_size, in_size))
+    i0, i1, w1 = _linear_weights(out_size, in_size, x.device)
     x0 = torch.index_select(x, axis, i0)
     x1 = torch.index_select(x, axis, i1)
     shape = [1] * x.ndim

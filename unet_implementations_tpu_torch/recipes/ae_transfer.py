@@ -11,9 +11,9 @@ either, autograd records nothing in the encoder: its backward (its convs'
 gradients and its 12 InstanceNorm backwards) never runs.
 
 Everything else is the ``our_unet`` recipe: SGD-Nesterov, poly LR, Dice +
-weighted CE, early stopping on mean foreground Dice, and its evaluation.
-Not ported (each raises ``NotImplementedError``): on-device augmentation and
-gradient accumulation.
+weighted CE, early stopping on mean foreground Dice, online augmentation,
+and its evaluation. Not ported (it raises ``NotImplementedError``): gradient
+accumulation.
 """
 
 from __future__ import annotations
@@ -27,7 +27,12 @@ from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models.unet import encoder_param_names
 from unet_implementations_tpu_torch.recipes import our_unet
 from unet_implementations_tpu_torch.recipes.common import check_grad_accum
-from unet_implementations_tpu_torch.recipes.our_unet import build_model, make_datasets, not_ported
+from unet_implementations_tpu_torch.recipes.our_unet import (
+    build_model,
+    make_datasets,
+    not_ported,
+    online_augmenter,
+)
 from unet_implementations_tpu_torch.training.checkpoint import extract_encoder_params
 from unet_implementations_tpu_torch.training.loop import write_training_config
 from unet_implementations_tpu_torch.training.train_state import sgd_nesterov, with_frozen
@@ -67,8 +72,6 @@ def train(
     ``pretrained_encoder`` (an ``ae_recon`` checkpoint directory or its
     ``.pth``) and return the loop's result."""
     check_grad_accum(batch_size, grad_accum)
-    if online_augment:
-        raise not_ported("--online_augment", 4)
     if grad_accum > 1:
         raise not_ported("--grad_accum", 7)
     device = default_device(device)
@@ -82,7 +85,7 @@ def train(
         grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir)
+    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment)
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -99,4 +102,5 @@ def train(
                         static_weights=static_weights, dice_weight=dice_weight,
                         ce_weight=ce_weight, patience=patience, save_every=save_every,
                         resume=resume, seed=seed, num_threads=num_threads,
-                        arch_config=ARCH_CONFIG, verbose=verbose)
+                        arch_config=ARCH_CONFIG, verbose=verbose,
+                        augment=online_augmenter(seed, device) if online_augment else None)

@@ -16,16 +16,20 @@ package reads the other's tables. A table built with another encoder, or
 missing a file, is not used: its rows are then computed anew (in training)
 or extracted live (in evaluation), as JAX does.
 
-Without ``clip_weights`` the tower runs on random weights drawn from seed 0
-in every command, so tables and live extraction agree. Evaluation conditions
-on the features unless ``use_clip_features=False`` (the reference
-evaluator's quirk). Not ported (each raises ``NotImplementedError``):
-on-device augmentation with live extraction, gradient accumulation and a
-device mesh, and the evaluation's visualizations.
+With ``online_augment`` the training batches are augmented on the device and
+the tower embeds the 224² view of each augmented batch live
+(``recipes/common.py::wrap_online_augment_clip``): no Train table is read or
+computed, and validation keeps its table. Without ``clip_weights`` the tower
+runs on random weights drawn from seed 0 in every command, so tables and live
+extraction agree. Evaluation conditions on the features unless
+``use_clip_features=False`` (the reference evaluator's quirk). Not ported
+(each raises ``NotImplementedError``): gradient accumulation and a device
+mesh, and the evaluation's visualizations.
 """
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
@@ -41,6 +45,7 @@ from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
     not_ported,
+    wrap_online_augment_clip,
 )
 from unet_implementations_tpu_torch.training.checkpoint import restore_params
 from unet_implementations_tpu_torch.training.loop import write_training_config
@@ -67,18 +72,19 @@ def build_model(dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0,
 
 
 def make_datasets(data_dir: str | Path, include_augmented: bool = True,
-                  emit_uint8: bool = True):
+                  emit_uint8: bool = True, train_clip_view: bool = True):
     """Train and validation datasets with the CLIP view from each split's
     ``resized_clip/`` (or one resize of each file's decode where it is
     missing). ``emit_uint8``: uint8 pixels and views, normalized on the
-    device."""
+    device. ``train_clip_view=False`` leaves the view out of the training
+    items (online augmentation makes its own from the augmented pixels)."""
     data_dir = Path(data_dir)
     train = PetDataset(
         data_dir / "Train" / "resized",
         data_dir / "Train" / "resized_label",
         include_augmented=include_augmented,
         emit_uint8=emit_uint8,
-        clip_dir=data_dir / "Train" / "resized_clip",
+        clip_dir=data_dir / "Train" / "resized_clip" if train_clip_view else None,
     )
     val = PetDataset(
         data_dir / "Val" / "resized",
@@ -209,10 +215,10 @@ def train(
 ) -> Dict:
     """Train from scratch (or from ``resume``) on the frozen encoder's
     features: the tables of ``embeddings_dir`` where they fit the datasets,
-    else tables computed once here. Returns the loop's result."""
+    else tables computed once here; with ``online_augment`` the training
+    batches' features are extracted live from the augmented pixels. Returns
+    the loop's result."""
     check_grad_accum(batch_size, grad_accum)
-    if online_augment:
-        raise not_ported("--online_augment", 4)
     if grad_accum > 1:
         raise not_ported("--grad_accum", 7)
     if use_mesh:
@@ -231,7 +237,8 @@ def train(
         grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir)
+    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment,
+                                     train_clip_view=not online_augment)
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -239,19 +246,22 @@ def train(
     if verbose and clip_weights is None:
         print("WARNING: no CLIP weights given: the encoder runs on random weights "
               "(pass --clip_weights to load a torch CLIP checkpoint).")
-    datasets = {"Train": train_ds, "Val": val_ds}
+    # With online augmentation the Train features come live from the
+    # augmented pixels: no Train table is read or computed.
+    datasets = {"Val": val_ds} if online_augment else {"Train": train_ds, "Val": val_ds}
     tables = {split: None if embeddings_dir is None else
               _load_embedding_table(embeddings_dir, split, ds, clip_model, verbose)
               for split, ds in datasets.items()}
     missing = [split for split, table in tables.items() if table is None]
-    if missing:
-        if verbose:
-            print("Precomputing CLIP embeddings (frozen encoder, computed once)...")
-        extractor = ClipFeatureExtractor(clip_model, clip_weights, dtype=dtype, device=device,
-                                         seed=CLIP_SEED)
-        for split in missing:
-            tables[split] = _embedding_table(extractor, datasets[split])
-        del extractor
+    extractor = (ClipFeatureExtractor(clip_model, clip_weights, dtype=dtype, device=device,
+                                      seed=CLIP_SEED) if missing or online_augment else None)
+    if missing and verbose:
+        print("Precomputing CLIP embeddings (frozen encoder, computed once)...")
+    for split in missing:
+        tables[split] = _embedding_table(extractor, datasets[split])
+    augment = (functools.partial(wrap_online_augment_clip, seed=seed, device=device,
+                                 extractor=extractor) if online_augment else None)
+    del extractor  # the tower stays only for live extraction
 
     clip_dim = CLIP_CONFIGS[clip_model].output_dim
     model = build_model(dtype, device, seed, clip_dim=clip_dim)
@@ -262,7 +272,8 @@ def train(
         dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
         save_every=save_every, resume=resume, seed=seed, num_threads=num_threads,
         arch_config=arch_config(clip_dim), verbose=verbose,
-        features=lambda batches, split: _attach_features(batches, tables[split]))
+        features=lambda batches, split: _attach_features(batches, tables[split]),
+        augment=augment)
 
 
 def evaluate(

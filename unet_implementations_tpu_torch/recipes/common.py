@@ -1,14 +1,16 @@
-"""Shared recipe plumbing: dataset evaluation and the serving path.
+"""Shared recipe plumbing: online augmentation, dataset evaluation and the
+serving path.
 
 Counterpart of ``unet_implementations_tpu/recipes/common.py``
-(``check_grad_accum``, ``evaluate_segmentation``, ``predict_segmentation``,
-``evaluate_reconstruction``; ``wrap_online_augment_clip`` raises until
-on-device augmentation is ported). The forward and the argmax run on the model's
-device; the nearest resize back to each image's original size runs on the
-host with torch/cv2 floor index math, as the reference eval protocol does.
-``evaluate_segmentation`` writes ``evaluation_results.json`` with the
-reference's schema, ``evaluate_reconstruction`` the JAX package's
-``reconstruction_metrics.json``.
+(``check_grad_accum``, ``wrap_online_augment``, ``wrap_online_augment_clip``,
+``evaluate_segmentation``, ``predict_segmentation``,
+``evaluate_reconstruction``). The online wrappers augment each training batch
+on the model's device (``data/augment.py``). In evaluation the forward and
+the argmax run on the model's device; the nearest resize back to each image's
+original size runs on the host with torch/cv2 floor index math, as the
+reference eval protocol does. ``evaluate_segmentation`` writes
+``evaluation_results.json`` with the reference's schema,
+``evaluate_reconstruction`` the JAX package's ``reconstruction_metrics.json``.
 """
 
 from __future__ import annotations
@@ -16,12 +18,17 @@ from __future__ import annotations
 import json
 from collections import deque
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch.data.augment import (
+    augment_and_normalize,
+    augment_and_normalize_with_clip,
+    policy_arrays,
+)
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.ops.losses import psnr, ssim
 from unet_implementations_tpu_torch.ops.metrics import SegmentationMetrics
@@ -40,10 +47,53 @@ def not_ported(what: str, item: int) -> NotImplementedError:
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
 
 
-def wrap_online_augment_clip(batches, epoch: int, seed: int, extractor):
-    """On-device augmentation with live CLIP extraction from the augmented
-    pixels: not ported (it needs ``data/augment.py`` on the card)."""
-    raise not_ported("wrap_online_augment_clip (--online_augment)", 4)
+def augment_generator(seed: int, epoch: int, i: int, device) -> torch.Generator:
+    """The generator of batch ``i`` of ``epoch``'s online augmentation, on
+    ``device``, seeded from ``(seed + 7, epoch, i)`` mixed by numpy's
+    ``SeedSequence``. Both wrappers draw from it, so they apply the same
+    transforms to the same batch."""
+    mixed = np.random.SeedSequence([(seed + 7) & 0xFFFFFFFF, epoch & 0xFFFFFFFF,
+                                    i & 0xFFFFFFFF])
+    return torch.Generator(device=device).manual_seed(
+        int(mixed.generate_state(1, np.uint64)[0]))
+
+
+def _augmented(batches: Iterable[Dict], epoch: int, seed: int, device, policy, clip: bool):
+    device = torch.device(device)
+    tables = policy_arrays(policy, device)
+    augment = augment_and_normalize_with_clip if clip else augment_and_normalize
+    for i, batch in enumerate(batches):
+        out = augment(augment_generator(seed, epoch, i, device),
+                      to_device(batch["image"], device), to_device(batch["mask"], device),
+                      policy=tables)
+        yield batch, out
+
+
+def wrap_online_augment(batches: Iterable[Dict], epoch: int, seed: int, device,
+                        policy=None) -> Iterator[Dict]:
+    """Augment each host batch on ``device`` (the model's): its uint8 pixels
+    and masks cross through pinned memory (``to_device``), are augmented
+    under ``policy`` (the built-in table by default; classes from the masks)
+    and ImageNet-normalized there. Yields the batch with ``image`` float32
+    and ``mask`` (its dtype kept) as tensors on ``device``; the train step's
+    ``normalize_image`` passes the float image through."""
+    for batch, (image, mask) in _augmented(batches, epoch, seed, device, policy, clip=False):
+        yield dict(batch, image=image, mask=mask)
+
+
+def wrap_online_augment_clip(batches: Iterable[Dict], epoch: int, seed: int, device,
+                             extractor, policy=None) -> Iterator[Dict]:
+    """``wrap_online_augment`` with live CLIP extraction: the frozen
+    ``extractor`` embeds the 224² view of each AUGMENTED batch, so the
+    features follow the pixels the model sees (tables cannot: the pixels
+    change every epoch). Yields ``clip_features`` (B, dim) float32 on
+    ``device``, a plain tensor that a training forward may save, and drops
+    the loader's ``clip_image``."""
+    for batch, (image, mask, clip_image) in _augmented(batches, epoch, seed, device, policy,
+                                                       clip=True):
+        out = dict(batch, image=image, mask=mask, clip_features=extractor(clip_image).clone())
+        out.pop("clip_image", None)
+        yield out
 
 
 def check_grad_accum(batch_size: int, grad_accum: int) -> None:

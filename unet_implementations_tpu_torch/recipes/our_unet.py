@@ -9,8 +9,10 @@ original-resolution test evaluation writing ``evaluation_results.json``.
 
 The model is ``unet_6stage`` in the port's default (dense) layout, with
 float32 parameters and bf16 compute unless ``dtype`` says otherwise. Entry
-points run on CUDA unless ``device`` names another device. Not ported yet
-(each raises ``NotImplementedError``): on-device augmentation, spatial and
+points run on CUDA unless ``device`` names another device. With
+``online_augment`` each training batch is augmented on that device
+(``recipes/common.py::wrap_online_augment``) and ``Train/augmented/`` is not
+read. Not ported yet (each raises ``NotImplementedError``): spatial and
 gradient-accumulation training, and the evaluation's visualizations.
 """
 
@@ -29,6 +31,7 @@ from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
     not_ported,
+    wrap_online_augment,
 )
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
 from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
@@ -133,8 +136,6 @@ def train(
     return the loop's result (``best_metric``, ``epochs_run``, ``step`` and
     each epoch's timers)."""
     check_grad_accum(batch_size, grad_accum)
-    if online_augment:
-        raise not_ported("--online_augment", 4)
     if spatial and spatial > 1:
         raise not_ported("--spatial", 7)
     if grad_accum > 1:
@@ -150,7 +151,7 @@ def train(
         online_augment=online_augment, spatial=spatial, grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir)
+    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment)
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -161,7 +162,14 @@ def train(
                epochs=epochs, lr=lr, weighted_ce=weighted_ce, static_weights=static_weights,
                dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
                save_every=save_every, resume=resume, seed=seed, num_threads=num_threads,
-               arch_config=ARCH_CONFIG, verbose=verbose)
+               arch_config=ARCH_CONFIG, verbose=verbose,
+               augment=online_augmenter(seed, device) if online_augment else None)
+
+
+def online_augmenter(seed: int, device) -> Callable[[Iterable[Dict], int], Iterable[Dict]]:
+    """``fit``'s ``augment`` hook for ``online_augment``: each epoch's
+    training batches augmented on ``device``."""
+    return lambda batches, epoch: wrap_online_augment(batches, epoch, seed, device)
 
 
 def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
@@ -169,13 +177,17 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         weighted_ce: bool, static_weights: bool, dice_weight: float, ce_weight: float,
         patience: int, save_every: int, resume: Optional[str], seed: int, num_threads: int,
         arch_config: Dict, verbose: bool,
-        features: Optional[Callable[[Iterable[Dict], str], Iterable[Dict]]] = None) -> Dict:
+        features: Optional[Callable[[Iterable[Dict], str], Iterable[Dict]]] = None,
+        augment: Optional[Callable[[Iterable[Dict], int], Iterable[Dict]]] = None) -> Dict:
     """The segmentation training of ``model`` by ``optimizer`` (shared with
     ``recipes/ae_transfer.py`` and ``recipes/clip_unet.py``): the loss's
     class weights, the train and eval steps, a resume, and ``train_loop``
     with poly LR decay and early stopping on mean foreground Dice.
     ``features(batches, split)`` ("Train" or "Val") attaches each batch's
-    ``clip_features``; the steps then feed them to the model."""
+    ``clip_features``; the steps then feed them to the model.
+    ``augment(batches, epoch)``, when given, takes the place of ``features``
+    for the training batches: it augments them (and attaches their features
+    itself, in the CLIP recipe)."""
     device = next(model.parameters()).device
     sw = None
     if weighted_ce and static_weights:
@@ -202,9 +214,9 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         return batches if features is None else features(batches, split)
 
     def train_batches(epoch):
-        return attach(batch_iterator(train_ds, batch_size, shuffle=True,
-                                     seed=seed * 1000 + epoch, drop_last=True,
-                                     num_threads=num_threads), "Train")
+        batches = batch_iterator(train_ds, batch_size, shuffle=True, seed=seed * 1000 + epoch,
+                                 drop_last=True, num_threads=num_threads)
+        return attach(batches, "Train") if augment is None else augment(batches, epoch)
 
     def val_batches():
         return attach(batch_iterator(val_ds, batch_size, num_threads=num_threads), "Val")
