@@ -22,8 +22,8 @@ Phases (any failure makes the script exit non-zero without a result line):
    must spill nothing.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the 512² forward of a batch of 8 gives it; K1bwd at the shapes the b8
-   train step gives it, in both layouts. A second bf16 call of K3 must
-   repeat the first bit for bit.
+   train step gives it, in both layouts. A second bf16 call of K3, and a
+   second call of K1bwd, must repeat the first bit for bit.
 3. The slice, in each layout: ``unet_6stage`` in bf16 from a seeded
    generator, saved as a reference-schema ``.pth``, reloaded through
    ``load_reference_checkpoint``, and three batches of 8 images answered by
@@ -40,7 +40,9 @@ Phases (any failure makes the script exit non-zero without a result line):
    (where there is one), at the b128 main-path shapes, beside the kernel's
    bound. Each kernel output timed there is first held to its plain
    version. K1's forward is also timed pass by pass (statistics, apply), and
-   K1bwd at the 22 shapes of a b32 dense train step. K3's conv launch is
+   K1bwd at the 22 shapes of a b32 dense train step, each level logged with
+   its share of the bound, its rate, and its plan (fused or two-pass, pieces,
+   rounds, bytes read twice). K3's conv launch is
    also timed alone, beside its bound and cuDNN's time for the
    dense-equivalent conv (not the same function: context).
 6. K4 through its differentiable entry point ``winograd_conv_s2d``, at b32
@@ -632,7 +634,7 @@ def k1_bwd_inputs(b: int, side: int, c: int, dtype, group: int = 1, seed: int = 
 def check_k1_bwd(args, group: int = 1) -> str:
     """K1bwd against the plain backward on the same inputs and statistics;
     fails beyond the tolerances (K1_F32_TOL of the max; K1_BF16_ULPS + K1_F32_TOL
-    for bf16 dx)."""
+    for bf16 dx), or unless a second call repeats the first bit for bit."""
     x = args[0]
     got = counted(lambda: k1._cuda_backward(*args, 0.01, group), one_launch("K1bwd"))
     want = k1._torch_backward(*args, 0.01, group)
@@ -649,6 +651,13 @@ def check_k1_bwd(args, group: int = 1) -> str:
         ok = ok and ulps <= K1_BF16_ULPS
         detail += (f"; dx max {bf16_ulps(got[0], want[0]):.0f} bf16 ulp, beyond {K1_F32_TOL:g}: "
                    f"{ulps:.0f} ulp (tol 1 ulp + {K1_F32_TOL:g}; dscale, dbias {K1_F32_TOL:g})")
+    # No atomic touches a sum: a second call repeats the first bit for bit.
+    repeats = all(torch.equal(a, b) for a, b in zip(got, k1._cuda_backward(*args, 0.01, group)))
+    ok = ok and repeats
+    plan = k1.bwd_plan(x.shape[0], x.shape[1] * x.shape[2], x.shape[3], group, x.element_size(),
+                       *_build.device_limits(x.device.index))
+    detail += (f"; a second call {'repeats bit for bit' if repeats else 'DIFFERS'}; "
+               f"{'fused' if plan.fused else 'two-pass'}")
     label = f"K1bwd {tuple(x.shape)} {str(x.dtype)[6:]} group {group}"
     if not ok:
         raise AssertionError(f"{label} disagrees with its plain version: {detail}")
@@ -1225,6 +1234,14 @@ def phase_times():
             row = time_kernel(f"K1bwd level {level} {tuple(x.shape)} x{calls}",
                               lambda a: k1._cuda_backward(*a, 0.01, 1),
                               lambda a: k1._torch_backward(*a, 0.01, 1), inputs, bound)
+            plan = k1.bwd_plan(TRAIN_BATCH, side * side, c, 1, x.element_size(),
+                               *_build.device_limits(x.device.index))
+            log(f"   level {level}: kernel {row[0]:.4f} ms, {row[2] / row[0]:.1%} of bound, "
+                f"{3 * x.numel() * x.element_size() / row[0] / 1e6:.0f} GB/s of x, dy and dx; "
+                + (f"fused: {plan.pieces} pieces ({plan.parts} a pair of {plan.cs} channels) in "
+                   f"{-(-plan.pieces // plan.grid)} rounds of {plan.grid} blocks"
+                   if plan.fused else "two-pass")
+                + f", {plan.reread_bytes} bytes read twice")
             for i in range(3):
                 rows["K1bwd"][i] += calls * row[i]
             bound_by["K1bwd"] = bound[1]

@@ -272,11 +272,17 @@ def _of_max(got, want) -> float:
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 # (2, 7, 9, 6): C not a multiple of a 16-byte vector, the scalar path;
 # (1, 100, 100, 32): H·W = 10000 is not a multiple of the 1024-pixel chunk;
-# (2, 20, 20, 96) with group 4: C = 24 per q block.
+# (2, 20, 20, 96) with group 4: C = 24 per q block. The fused kernel takes
+# (2, 128, 128, 128) (level 2 at full width, 33 pieces a pair) and (4, 64,
+# 64, 256); the two-pass kernel level 0 at full width (2, 512, 512, 32),
+# (2, 256, 256, 128) with group 4 and (1, 1024, 1024, 32), which the fused
+# kernel's rings could not hold (kernels/instance_norm.py::bwd_plan).
 @pytest.mark.parametrize("shape,group", [((2, 64, 64, 32), 1), ((2, 16, 16, 512), 1),
                                          ((2, 7, 9, 6), 1), ((1, 100, 100, 32), 1),
                                          ((2, 33, 31, 24), 1), ((2, 32, 32, 64), 4),
-                                         ((2, 20, 20, 96), 4)])
+                                         ((2, 20, 20, 96), 4), ((2, 128, 128, 128), 1),
+                                         ((4, 64, 64, 256), 1), ((2, 512, 512, 32), 1),
+                                         ((2, 256, 256, 128), 4), ((1, 1024, 1024, 32), 1)])
 def test_instance_norm_backward(dtype, shape, group):
     _need_cuda()
     x, scale, bias, mean, rstd, dy = _k1_backward_case(shape, group, DTYPES[dtype])
@@ -293,6 +299,33 @@ def test_instance_norm_backward(dtype, shape, group):
     else:
         dx, dx_want = (v.float().cpu().numpy() for v in (got[0], want[0]))
         assert bf16_ulps(dx, dx_want, 1e-4).max() <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,group", [((2, 128, 128, 128), 1), ((3, 64, 64, 128), 4),
+                                         ((2, 512, 512, 32), 1)])
+def test_instance_norm_backward_repeats_bitwise(dtype, shape, group):
+    """A second call repeats dx, dscale and dbias bit for bit (no atomic
+    touches a sum), also after a call on other inputs of the same shape has
+    left its partial sums in the scratch, and both calls match the plain
+    version."""
+    _need_cuda()
+    first = _k1_backward_case(shape, group, DTYPES[dtype], seed=11)
+    other = _k1_backward_case(shape, group, DTYPES[dtype], seed=12)
+    got = torch_in._cuda_backward(*first, 0.01, group)
+    between = torch_in._cuda_backward(*other, 0.01, group)
+    again = torch_in._cuda_backward(*first, 0.01, group)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for case, result in ((first, got), (other, between)):
+        want = torch_in._torch_backward(*case, 0.01, group)
+        for g, w in zip(result[1:], want[1:]):
+            assert _of_max(g, w) <= 1e-4
+        if dtype == "f32":
+            assert _of_max(result[0], want[0]) <= 1e-4
+        else:
+            dx, dx_want = (v.float().cpu().numpy() for v in (result[0], want[0]))
+            assert bf16_ulps(dx, dx_want, 1e-4).max() <= 1.0
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

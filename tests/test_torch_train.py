@@ -98,9 +98,11 @@ class TestInstanceNormBackward:
 
 def _factored_backward(x, scale, bias, mean, rstd, dy, slope, group, chunk_px):
     """numpy rendering of the backward kernel's algebra
-    (``csrc/instance_norm.cu``): per (image, chunk, channel) partials of dpre
-    and dpre·xhat; per image those pooled over the chunks and the group's q
-    blocks; m1 = scale·Σdpre / n and m2 = scale·Σ(dpre·xhat) / n;
+    (``csrc/instance_norm.cu``), summed in its order: per (image, piece of
+    chunk_px pixels, channel) a row of partials of dpre and dpre·xhat, the
+    row pooled over the group's q blocks (the block's sums); per image the
+    rows added piece by piece, in order (the last block's pooling);
+    m1 = scale·Σdpre / n and m2 = scale·Σ(dpre·xhat) / n;
     dx = (dpre·scale − m1 − xhat·m2)·rstd; dbias and dscale the pooled sums
     added over the images."""
     b, h, w, c = x.shape
@@ -112,12 +114,14 @@ def _factored_backward(x, scale, bias, mean, rstd, dy, slope, group, chunk_px):
     pre = xhat * s_full + b_full
     dpre = np.where(pre >= 0, g, g * np.float32(slope))
     nchunk = -(-hw // chunk_px)
-    partials = np.zeros((b, nchunk, 2, c), np.float32)
+    rows = np.zeros((b, nchunk, 2, cg), np.float32)
     for k in range(nchunk):
         part = slice(k * chunk_px, (k + 1) * chunk_px)
-        partials[:, k, 0] = dpre[:, part].sum(1)
-        partials[:, k, 1] = (dpre[:, part] * xhat[:, part]).sum(1)
-    pooled = partials.sum(1).reshape(b, 2, group, cg).sum(2)  # (b, 2, cg), q-major
+        rows[:, k, 0] = dpre[:, part].sum(1).reshape(b, group, cg).sum(1)
+        rows[:, k, 1] = (dpre[:, part] * xhat[:, part]).sum(1).reshape(b, group, cg).sum(1)
+    pooled = np.zeros((b, 2, cg), np.float32)  # q-major
+    for k in range(nchunk):
+        pooled += rows[:, k]
     n = np.float32(hw * group)
     m1 = np.tile(scale * pooled[:, 0] / n, group)  # (b, c)
     m2 = np.tile(scale * pooled[:, 1] / n, group)
@@ -125,16 +129,31 @@ def _factored_backward(x, scale, bias, mean, rstd, dy, slope, group, chunk_px):
     return dx.reshape(x.shape), pooled[:, 1].sum(0), pooled[:, 0].sum(0)
 
 
+# An H100 SXM: its SMs, and the shared memory a block may take after an
+# opt-in (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+H100_SMS, H100_SMEM = 132, 232448
+# The K1 shapes (side, C, group) of a b32 train step of unet_6stage at 512²:
+# the six dense levels, and the s2d layout's group-4 norms (level 0 and
+# decoder_3).
+STEP_NORMS = [(512, 32, 1), (256, 64, 1), (128, 128, 1), (64, 256, 1), (32, 512, 1),
+              (16, 512, 1), (256, 128, 4), (128, 256, 4)]
+
+
 class TestInstanceNormBackwardKernel:
     """The CUDA backward's factored algebra (in numpy), and what its wrapper
     refuses; the kernel itself is held to ``_torch_backward`` on the card
     (``tests/test_torch_cuda.py``)."""
 
-    @pytest.mark.parametrize("chunk_px", [None, 7], ids=["module-chunks", "7-pixel-chunks"])
+    @pytest.mark.parametrize("chunk_px", [None, 7, "plan"],
+                             ids=["module-chunks", "7-pixel-chunks", "plan-pieces"])
     @pytest.mark.parametrize("group", [1, 4])
     def test_factored_matches_jax_bwd_impl(self, group, chunk_px):
+        """The factored sums against JAX, with the pieces of the forward's
+        chunking, of 7 pixels, and of ``bwd_plan`` on an H100 (an image the
+        plan cuts into several pieces)."""
         rng = np.random.default_rng(10 + group)
-        x = (rng.normal(size=(3, 6, 10, 16)) * 2 + 0.5).astype(np.float32)
+        shape = (3, 40, 40, 16) if chunk_px == "plan" else (3, 6, 10, 16)
+        x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
         c = 16 // group
         scale = (rng.normal(size=c) * 0.5 + 1.0).astype(np.float32)
         bias = (rng.normal(size=c) * 0.3).astype(np.float32)
@@ -142,8 +161,13 @@ class TestInstanceNormBackwardKernel:
         _, mean, rstd = torch_in._torch_forward(torch.from_numpy(x), torch.from_numpy(scale),
                                                 torch.from_numpy(bias), 1e-5, 0.01, group)
         mean, rstd = mean.numpy(), rstd.numpy()
+        hw = shape[1] * shape[2]
         if chunk_px is None:
-            chunk_px = torch_in.chunking(60, 16, 4)[0]
+            chunk_px = torch_in.chunking(hw, 16, 4)[0]
+        elif chunk_px == "plan":
+            plan = torch_in.bwd_plan(3, hw, 16, group, 4, H100_SMS, H100_SMEM)
+            assert plan.parts > 1
+            chunk_px = plan.part_px
         got = _factored_backward(x, scale, bias, mean, rstd, dy, 0.01, group, chunk_px)
         want = jax_in._bwd_impl(1e-5, 0.01, group, tuple(jnp.asarray(v) for v in (
             x, scale, bias, mean, rstd)), jnp.asarray(dy))
@@ -179,7 +203,9 @@ class TestInstanceNormBackwardKernel:
 
         ns = "void unet::(anonymous namespace)::"
         for name in ("in_bwd_reduce_kernel<__nv_bfloat16, 8>(x)",
-                     "in_bwd_apply_kernel<float, 4>(x)", "in_bwd_params_kernel(x)"):
+                     "in_bwd_apply_kernel<float, 4>(x)", "in_bwd_params_kernel(x)",
+                     "in_bwd_fused_kernel<__nv_bfloat16, 8, true>(unet::(anonymous "
+                     "namespace)::BwdArgs<__nv_bfloat16>)"):
             assert profiling.kind_of(ns + name) == "K1bwd instance norm backward"
         assert profiling.kind_of(ns + "in_apply_kernel<__nv_bfloat16, 8>(x)") == \
             "K1b instance norm apply"
@@ -203,6 +229,99 @@ class TestInstanceNormBackwardKernel:
         assert chunk_px * nchunk >= hw > chunk_px * (nchunk - 1)
         assert nchunk <= torch_in._MAX_CHUNKS
         assert chunk_px * c * itemsize >= min(torch_in._MIN_CHUNK_BYTES, hw * c * itemsize)
+
+
+def _pieces(plan, b, hw):
+    """Every piece of the plan, block by block, in each block's order."""
+    return [p for block in range(plan.grid) for p in torch_in.bwd_pieces(plan, b, hw, block)]
+
+
+class TestBwdPlan:
+    """``bwd_plan``, the backward kernel's cut of the work, on an H100."""
+
+    # The step's shapes at b2, and shapes the card tests take: C not a
+    # multiple of a vector, odd sizes, C/group not a multiple of a word.
+    COVER = [(2, s * s, c, g) for s, c, g in STEP_NORMS] + [
+        (2, 63, 6, 1), (2, 33 * 31, 24, 1), (1, 10000, 32, 1), (2, 400, 96, 4),
+        (2, 400, 24, 4), (3, 1, 8, 1)]
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    @pytest.mark.parametrize("b,hw,c,group", COVER)
+    def test_covers_each_image_and_channel_once(self, b, hw, c, group, itemsize):
+        """A fused plan's pieces cover every (image, pixel, channel) once, no
+        block holds two pieces of one pair; a two-pass plan reads x and dy
+        twice."""
+        plan = torch_in.bwd_plan(b, hw, c, group, itemsize, H100_SMS, H100_SMEM)
+        if not plan.fused:
+            assert plan.reread_bytes == 2 * b * hw * c * itemsize
+            return
+        cg = c // group
+        seen = np.zeros((b, hw, c), np.int32)
+        pieces = _pieces(plan, b, hw)
+        assert len(pieces) == plan.pieces and plan.grid <= H100_SMS and plan.reread_bytes == 0
+        for img, j, part, p0, p1 in pieces:
+            assert 0 <= p0 < p1 <= hw and p1 - p0 <= plan.part_px
+            for q in range(group):
+                seen[img, p0:p1, q * cg + j * plan.cs:q * cg + (j + 1) * plan.cs] += 1
+        assert (seen == 1).all()
+        for block in range(plan.grid):
+            pairs = [(img, j) for img, j, *_ in torch_in.bwd_pieces(plan, b, hw, block)]
+            assert len(pairs) == len(set(pairs))
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    @pytest.mark.parametrize("side,c,group", STEP_NORMS)
+    def test_slices_take_a_sector_of_every_q_block(self, side, c, group, itemsize):
+        plan = torch_in.bwd_plan(32, side * side, c, group, itemsize, H100_SMS, H100_SMEM)
+        assert plan.cs * itemsize >= 32 and (c // group) % plan.cs == 0
+        assert plan.vec == 16 // itemsize and plan.cs % plan.vec == 0
+        # A slice's pixel is its cs channels in each of the group's q blocks.
+        assert plan.nv * plan.vec == group * plan.cs
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    @pytest.mark.parametrize("b,hw,c,group", COVER + [(1, 1024 * 1024, 32, 1)])
+    def test_shared_memory_fits_a_block(self, b, hw, c, group, itemsize):
+        plan = torch_in.bwd_plan(b, hw, c, group, itemsize, H100_SMS, H100_SMEM)
+        assert plan.smem + torch_in._BWD_SMEM_RESERVE <= H100_SMEM == 227 * 1024
+        assert plan.threads == plan.rows * plan.nv <= torch_in._BWD_THREADS
+        assert plan.threads % 32 == 0  # whole compute warps beside the role warps
+        assert plan.ring_steps <= torch_in._MAX_RING_STEPS
+        if plan.fused:
+            assert 1 <= plan.steps <= plan.ring_steps
+
+    @pytest.mark.parametrize("side,c,group", STEP_NORMS + [(100, 32, 1), (20, 96, 4)])
+    def test_an_images_partition_does_not_depend_on_the_batch(self, side, c, group):
+        one = torch_in.bwd_plan(1, side * side, c, group, 2, H100_SMS, H100_SMEM)
+        many = torch_in.bwd_plan(32, side * side, c, group, 2, H100_SMS, H100_SMEM)
+        assert one._replace(grid=0, pieces=0, reread_bytes=0) == many._replace(
+            grid=0, pieces=0, reread_bytes=0)
+        if one.fused:
+            image0 = sorted(p for p in _pieces(many, 32, side * side) if p[0] == 0)
+            assert image0 == sorted(_pieces(one, 1, side * side))
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    @pytest.mark.parametrize("side,c,group", STEP_NORMS)
+    def test_the_train_steps_shapes_dispatch(self, side, c, group, itemsize):
+        """Levels 2-5 of a b32 step take the fused kernel, read once, each
+        piece in its ring beside two more and a few steps loading; levels 0
+        and 1 and the s2d norms, whose pairs spread over most of the card,
+        take the two-pass kernel."""
+        plan = torch_in.bwd_plan(32, side * side, c, group, itemsize, H100_SMS, H100_SMEM)
+        if side >= 256 or group == 4:
+            assert not plan.fused and plan.reread_bytes == 2 * 32 * side * side * c * itemsize
+        else:
+            assert plan.fused and plan.reread_bytes == 0
+            assert plan.ring_steps >= 3 * plan.steps
+            assert torch_in._PAIRS_A_ROUND * plan.parts <= H100_SMS
+
+    def test_a_1024_float32_image_takes_the_two_pass_kernel(self):
+        """A pair that would need more than the ring of every block."""
+        plan = torch_in.bwd_plan(1, 1024 * 1024, 32, 1, 4, H100_SMS, H100_SMEM)
+        assert not plan.fused and plan.steps > plan.ring_steps
+        assert plan.reread_bytes == 2 * 1024 * 1024 * 32 * 4
+
+    def test_refuses_what_no_block_holds(self):
+        with pytest.raises(ValueError, match="no step"):
+            torch_in.bwd_plan(1, 64, 32, 1, 2, H100_SMS, 16 * 1024)
 
 
 class TestUpsampleBackward:

@@ -14,7 +14,9 @@ The library is loaded with ``ctypes``: pointers and the stream go over as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +34,7 @@ COMPILE_FLAGS = (ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _library = None
+_functions: dict = {}
 # What nvcc printed while building the library this process loaded
 # (``-Xptxas -v``: registers, shared memory and spills of every kernel).
 build_log = ""
@@ -111,10 +114,14 @@ def library() -> ctypes.CDLL:
 
 
 def kernel_function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of the library, typed with ``argtypes``."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point ``name`` of the library, typed with ``argtypes`` (at
+    its first call: a wrapper passes the same types every time)."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
 
 
@@ -145,6 +152,26 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"{name} has no backward; call it under torch.no_grad() or "
             "torch.inference_mode()"
         )
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, shared memory a block may take after an opt-in) of CUDA
+    device ``index``: what a persistent kernel's plan is cut to."""
+    fn = kernel_function("unet_device_limits", [ctypes.POINTER(ctypes.c_int)] * 2)
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        code = fn(ctypes.byref(sms), ctypes.byref(smem))
+    check(code, "unet_device_limits")
+    return sms.value, smem.value
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current for a launch, or nothing when
+    it already is (the common case, and the cheap one)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream_of(tensor: torch.Tensor) -> int:

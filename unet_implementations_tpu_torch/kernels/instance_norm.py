@@ -13,9 +13,14 @@ rounded once to x's dtype. With ``group=4`` the statistics pool the four
 q-major sub-pixel blocks of a space-to-depth tensor (channel = q*Cg + c).
 
 Bound: bytes. The forward must read x once and write y once, the backward
-read x and dy once and write dx once. Each kernel reads its inputs twice
-(statistics, then output), so it can reach at best 2/3 (forward) or 3/5
-(backward) of that bound; see the source for the design.
+read x and dy once and write dx once. The forward reads x twice (statistics,
+then output), so it can reach at best 2/3 of its bound. The backward is one
+persistent cooperative launch that holds what it reads in shared memory
+until its statistics are out, so it reads x and dy once, for every shape
+whose (image, slice) pairs fit at least two to a round of the card's blocks;
+the larger shapes (levels 0 and 1 of the 6-stage model at 512²) take the
+two-pass backward, which reads them twice (``bwd_plan`` says which, and
+why). See the source for the designs.
 
 On CPU tensors ``fused_instance_norm`` runs the plain versions
 ``_torch_forward`` and ``_torch_backward``; on CUDA tensors it launches the
@@ -30,6 +35,9 @@ channel), which differs from the plain version by float32 rounding only.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,9 +56,28 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, *[ctypes.c_int] * 9, ctypes.c_uint,
+    ctypes.c_float, ctypes.c_void_p,
+]
+_TWO_PASS_ARGTYPES = [ctypes.c_void_p] * 12 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 ]
+# The backward kernel (csrc/instance_norm.cu::in_bwd_fused_kernel): compute
+# threads a block at most (three role warps join them), the least bytes a
+# slice takes of each q block of a
+# pixel (one DRAM sector) and the least that DRAM reads at its full rate, the
+# ring's steps at most, the buffers of a block's sums (the compute threads
+# reduce up to one piece ahead), and shared memory left for static variables.
+_BWD_THREADS = 416
+_SECTOR_BYTES = 32
+_SEGMENT_BYTES = 64
+_MAX_RING_STEPS = 32
+_BUFFERS = 2
+# The fused kernel takes a shape when a round of the card's blocks holds at
+# least this many of its (image, slice) pairs; measured on an H100 (PERF.md).
+_PAIRS_A_ROUND = 4
+_BWD_SMEM_RESERVE = 1024
 
 
 def chunking(hw: int, c: int, itemsize: int) -> tuple[int, int]:
@@ -58,6 +85,118 @@ def chunking(hw: int, c: int, itemsize: int) -> tuple[int, int]:
     chunk_px = max(-(-hw // _MAX_CHUNKS), _MIN_CHUNK_BYTES // (c * itemsize), 1)
     chunk_px = min(chunk_px, hw)
     return chunk_px, -(-hw // chunk_px)
+
+
+class BwdPlan(NamedTuple):
+    """How one backward call cuts its work (``csrc/instance_norm.cu``): an
+    (image, slice) pair is ``parts`` pieces of ``part_px`` pixels; piece ``g``
+    is part ``g % parts`` of pair ``g // parts``, pair ``img * nslices + j``
+    holds original channels ``[j * cs, (j + 1) * cs)`` of every q block, and
+    block ``k`` takes pieces ``k, k + grid, ...`` in order."""
+
+    vec: int           # elements a vector: 16 bytes' worth, or 1
+    cs: int            # original channels a slice
+    nslices: int       # slices an image: C / group / cs
+    nv: int            # vectors of a slice's pixel: group * cs / vec
+    rows: int          # pixel rows a step of a block covers
+    threads: int       # compute threads, rows * nv (and one sync warp)
+    parts: int         # pieces a pair
+    part_px: int       # pixels a piece (the pair's last may hold fewer)
+    steps: int         # steps of a full piece
+    ring_steps: int    # steps the block's shared-memory ring holds
+    grid: int          # blocks: one a SM, at most one a piece
+    smem: int          # dynamic shared memory of a block, bytes
+    pieces: int        # b * nslices * parts
+    reread_bytes: int  # bytes of x and dy read a second time
+    fused: bool        # the one-read kernel; else the two-pass one (see bwd_plan)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, hw: int, c: int, group: int, itemsize: int, n_blocks: int,
+             smem_per_block: int, vec: int | None = None) -> BwdPlan:
+    """The backward kernel's plan for x of (b, hw, c) with ``itemsize``-byte
+    elements, on a card of ``n_blocks`` SMs whose blocks may take
+    ``smem_per_block`` bytes of shared memory. ``vec``, the elements of a
+    compute thread's vector, is 16 bytes' worth when C allows (the default),
+    and 1 when a pointer is not 16-byte aligned.
+
+    A slice takes at least 64 bytes of each q block of a pixel, which DRAM
+    reads at its full rate (32 bytes of every 64 read at half of it), unless
+    then fewer than _PAIRS_A_ROUND pairs fit a round: then 32 bytes (a
+    sector), whose copies fetch the whole 64-byte segment into L2 for the next
+    slice. A pair
+    is cut into as few pieces as let the ring hold three of them (one being
+    applied, one reduced and waiting for its pair, one loading), a number that
+    divides ``n_blocks``, so that each round of ``n_blocks`` pieces holds whole
+    pairs. Neither depends on b.
+
+    A shape whose round holds fewer than _PAIRS_A_ROUND pairs even so (levels
+    0 and 1 of the 6-stage model at 512², and its s2d norms) takes the
+    two-pass kernel instead, which reads x and dy twice (``reread_bytes``):
+    there the fused kernel's pieces wait on a pair spread over most of the
+    card, and on an H100 it was measured slower (PERF.md)."""
+    cg = c // group
+    if vec is None:
+        vec = 16 // itemsize if c % (16 // itemsize) == 0 else 1
+
+    def takes(d):  # a slice of d channels the kernel's layout takes
+        nv = group * d // vec
+        return d % vec == 0 and math.lcm(nv, 32) <= _BWD_THREADS
+
+    layouts = [d for d in range(1, cg + 1) if cg % d == 0 and takes(d)]
+    plans = [p for p in (_bwd_plan(b, hw, c, group, itemsize, n_blocks, smem_per_block, vec, d)
+                         for d in layouts) if p is not None]
+    if layouts and not plans:
+        raise ValueError(f"fused_instance_norm backward: {smem_per_block} bytes of shared "
+                         f"memory hold no step of any slice of {cg} channels")
+    if not plans:  # no slice fits the fused kernel's layout: the two-pass one
+        return BwdPlan(vec, *[0] * 12, 2 * b * hw * c * itemsize, False)
+    sector = [p for p in plans if p.cs * itemsize >= _SECTOR_BYTES]
+    if not sector:  # fewer channels than a sector: the widest slice
+        plan = max(plans, key=lambda p: p.cs)
+    else:  # fused; then 64 bytes or more; then the narrowest
+        plan = min(sector, key=lambda p: (not p.fused, p.cs * itemsize < _SEGMENT_BYTES, p.cs))
+    return plan if plan.fused else plan._replace(reread_bytes=2 * b * hw * c * itemsize)
+
+
+def _bwd_plan(b, hw, c, group, itemsize, n_blocks, smem_per_block, vec, cs) -> BwdPlan | None:
+    nv = group * cs // vec
+    ne = nv * vec
+    unit = math.lcm(32, nv)  # whole warps of whole pixel rows
+    threads = _BWD_THREADS // unit * unit
+    rows = threads // nv
+    shfl = 32 % nv == 0  # sums by butterflies within a warp
+    groups = threads // 32 if shfl else rows
+    width = cs if shfl else ne
+    scratch = 16 * _MAX_RING_STEPS + 4 * _BUFFERS * 2 * (groups * width + cs)
+    step_bytes = 2 * threads * vec * itemsize
+    ring_steps = min(_MAX_RING_STEPS,
+                     (smem_per_block - _BWD_SMEM_RESERVE - scratch) // step_bytes)
+    if ring_steps < 1:  # shared memory holds no step
+        return None
+    needed = -(-(-(-hw // rows)) // max(1, ring_steps // 3))
+    parts = min(hw, next((d for d in range(needed, n_blocks + 1) if n_blocks % d == 0),
+                         n_blocks))
+    part_px = -(-hw // parts)
+    parts = -(-hw // part_px)
+    steps = -(-part_px // rows)
+    nslices = c // group // cs
+    pieces = b * nslices * parts
+    return BwdPlan(vec, cs, nslices, nv, rows, threads, parts, part_px, steps, ring_steps,
+                   min(n_blocks, pieces), ring_steps * step_bytes + scratch, pieces, 0,
+                   _PAIRS_A_ROUND * parts <= n_blocks and steps <= ring_steps)
+
+
+def bwd_pieces(plan: BwdPlan, b: int, hw: int, block: int) -> list:
+    """(image, slice, part, first pixel, end pixel) of each piece that
+    ``block`` takes, in its order."""
+    out = []
+    for g in range(block, plan.pieces, plan.grid):
+        pair, part = divmod(g, plan.parts)
+        img, j = divmod(pair, plan.nslices)
+        p0 = part * plan.part_px
+        out.append((img, j, part, p0, min(p0 + plan.part_px, hw)))
+    return out
 
 
 def _torch_forward(x, scale_c, bias_c, eps, negative_slope, group):
@@ -155,24 +294,72 @@ def _cuda_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
     x, dy, mean, rstd = x.contiguous(), dy.contiguous(), mean.contiguous(), rstd.contiguous()
     scale_c, bias_c = _f32(scale_c), _f32(bias_c)
     cg = c // group
-    chunk_px, nchunk = chunking(h * w, c, x.element_size())
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partials = torch.empty((b, nchunk, 2, c), **f32)
-    img_sums = torch.empty((b, 2, cg), **f32)
-    count = torch.empty(b, dtype=torch.int32, device=x.device)
     dx = torch.empty_like(x)
-    dscale, dbias = torch.empty(cg, **f32), torch.empty(cg, **f32)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
+    vec = 16 // x.element_size() if c % (16 // x.element_size()) == 0 and aligned else 1
+    plan = bwd_plan(b, h * w, c, group, x.element_size(),
+                    *_build.device_limits(x.device.index), vec)
+    stream = _build.stream_of(x)
+    if not plan.fused:
+        return _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, group,
+                                  stream)
+    rows, tag = _bwd_rows(x.device, stream, plan.pieces * 2 * plan.cs)
+    # dscale, dbias, img_sums (b, 2, cg) and the pairs' counts (zeroed by the
+    # entry point) in one allocation.
+    sums = torch.empty(2 * (b + 1) * cg + b * plan.nslices, dtype=torch.float32, device=x.device)
+    dscale, dbias = sums[:cg], sums[cg:2 * cg]
+    base = sums.data_ptr()
     fn = _build.kernel_function("unet_instance_norm_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         code = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                  scale_c.data_ptr(), bias_c.data_ptr(), partials.data_ptr(),
-                  img_sums.data_ptr(), count.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-                  dbias.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], b, h * w, c, group, chunk_px, nchunk,
-                  negative_slope, _build.stream_of(x))
+                  scale_c.data_ptr(), bias_c.data_ptr(), rows.data_ptr(), base + 8 * cg,
+                  base + 4 * 2 * (b + 1) * cg, dx.data_ptr(), base, base + 4 * cg,
+                  _build.DTYPE_CODES[x.dtype], b, h * w, c, group, plan.vec, plan.cs,
+                  plan.parts, plan.part_px, plan.rows, plan.ring_steps, plan.grid, tag,
+                  negative_slope, stream)
     _build.check(code, "unet_instance_norm_bwd")
     fused_instance_norm.backward_launches += 1
     return dx, dscale, dbias
+
+
+def _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, group, stream):
+    """The two-pass kernel (a statistics pass, then an apply pass, each reading
+    x and dy), on the forward's chunking."""
+    b, h, w, c = x.shape
+    cg = c // group
+    chunk_px, nchunk = chunking(h * w, c, x.element_size())
+    sums = torch.empty(2 * b * nchunk * c + 2 * (b + 1) * cg + b, dtype=torch.float32,
+                       device=x.device)
+    partials, img_sums, dscale, dbias, count = sums.split(
+        [2 * b * nchunk * c, 2 * b * cg, cg, cg, b])
+    fn = _build.kernel_function("unet_instance_norm_bwd_two_pass", _TWO_PASS_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                  scale_c.data_ptr(), bias_c.data_ptr(), partials.data_ptr(), img_sums.data_ptr(),
+                  count.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], b, h * w, c, group, chunk_px, nchunk,
+                  negative_slope, stream)
+    _build.check(code, "unet_instance_norm_bwd_two_pass")
+    fused_instance_norm.backward_launches += 1
+    return dx, dscale, dbias
+
+
+# The backward kernel's rows of partials, per (device, stream): 64-bit words
+# that carry the tag of the call that wrote them, and the last tag used. The
+# buffer is the kernel's own and starts zeroed, so a word holds a call's tag
+# only once that call has written it; tags run 1, 2, ... and wrap past 0.
+_BWD_ROWS: dict = {}
+
+
+def _bwd_rows(device: torch.device, stream: int, words: int) -> tuple[torch.Tensor, int]:
+    """The tagged-row buffer of (device, stream), at least ``words`` long,
+    and the tag of a new call."""
+    rows, tag = _BWD_ROWS.get((device.index, stream), (None, 0))
+    if rows is None or rows.numel() < words:
+        rows, tag = torch.zeros(words, dtype=torch.int64, device=device), 0
+    tag = tag % 0xFFFFFFFF + 1
+    _BWD_ROWS[(device.index, stream)] = (rows, tag)
+    return rows, tag
 
 
 def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
