@@ -15,7 +15,7 @@ K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
 K3 (the fused s2d block tail) and K4/K4f (the Winograd s2d conv, with the
 unfolded and the folded U).
 
-Phases (any failure makes the script exit non-zero without a result line):
+Phases (any failure makes the script exit non-zero without the kernels line):
 
 1. Card and build: the card's name and power limit, then nvcc's register,
    shared-memory and spill report for every kernel; K3's bf16 conv kernel
@@ -157,21 +157,59 @@ Phases (any failure makes the script exit non-zero without a result line):
    (22/5/10). Printed, not gated: each recipe's time per step after its first
    batch, beside phase 7's isolated step and the runs of phases 8-10 without
    augmentation.
+12. Gradient accumulation and data parallelism, ``unet_6stage`` at 512² with
+   float32 parameters. (a) One b32 step as ACCUM=4 microbatches of b8
+   (``make_accum_train_step``, float32 compute, kernels, cuDNN deterministic)
+   against the sequential oracle with the same kernels (four plain b8
+   forward and backward passes of ``batch[i::4]`` with the microbatches'
+   dropout generators, gradients summed in float32, one update): loss and
+   updated parameters within ACCUM_REL relative, a second call bit for bit,
+   launches K1/K2a/K1bwd 88/20/88 per step. Printed, not gated: the bf16
+   times and peak memory of b32 as 4 x b8 and b128 as 4 x b32, beside phase
+   7's b32 step, and for one more step when the host returns from it against
+   when the card finishes it (close together: bound by the host's dispatch). (b) ``cli our_unet train --grad_accum 4`` and ``cli ae_recon
+   train --grad_accum 2``, one epoch each on phase 8's dataset (phase 8's CSV
+   and checkpoint checks, the config's ``grad_accum``). (c) The
+   ``DistributedDataParallel`` step (``parallel/mesh.py::wrap``) over NCCL at
+   world size 1, the group joined by ``maybe_initialize_distributed`` from a
+   torchrun-style environment, against the plain step: b8 bf16, parameters
+   within DDP_REL. (d) DP_RANKS processes (this script with ``--dp-worker``)
+   over gloo on the one card (NCCL refuses two ranks on one device), each
+   with b8 of a global b16, float32 and dropout rates 0: each rank's updated
+   parameters and global loss within DP_REL of one process's b16 step, the
+   ranks equal, 22/5/22 launches each; then ``python -m
+   torch.distributed.run --nproc_per_node 2 chip_smoke.py --cli-worker
+   our_unet train ...`` (each rank joins over gloo and runs ``cli.main``)
+   for one epoch from warm decode caches of each rank's stripe: one CSV row,
+   the global ``batch_size`` in the config, each rank's 128-image stripe, and
+   checkpoints that load strictly. The two gloo ranks time-slice the card, so
+   their times mean nothing; a failed rank fails the phase.
+
+``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
+comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
+phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups) and
+phase 8's ``cli our_unet train`` for 2 epochs at b32 (epoch 2's time per
+step after its first batch), from phase 8's dataset written under ROOT. The
+timing program uses only the package's entry points, so it runs against an
+earlier checkout as well.
 
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3 and 6-11).
+runs of the main paths in this process (phases 3 and 6-12).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
+phase the last line is ``{"ok": false, "failed": [...]}`` and the exit code 1.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -206,12 +244,15 @@ from unet_implementations_tpu_torch.models.s2d import (
 from unet_implementations_tpu_torch.models.unet import (
     DEFAULT_FEATURES,
     S2D_LAYOUT,
+    UNet,
     autoencoder_6stage,
     encoder_param_names,
     unet_6stage,
 )
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear, upsample2x_nhwc
+from unet_implementations_tpu_torch.parallel import distributed
+from unet_implementations_tpu_torch.parallel import mesh as dp_mesh
 from unet_implementations_tpu_torch.recipes import clip_unet
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training.checkpoint import (
@@ -220,9 +261,12 @@ from unet_implementations_tpu_torch.training.checkpoint import (
     save_checkpoint,
 )
 from unet_implementations_tpu_torch.training.steps import (
+    make_accum_train_step,
     make_reconstruction_train_step,
     make_segmentation_eval_step,
+    make_segmentation_loss_fn,
     make_segmentation_train_step,
+    microbatch_generator,
     to_device,
 )
 from unet_implementations_tpu_torch.training.loop import AE_CSV_HEADER, SEG_CSV_HEADER
@@ -344,6 +388,25 @@ OVERHEAD_REPEATS = 3
 AUG_BATCH = 32
 AUG_IMAGE_MAX_ABS = 1e-4
 AUG_MASK_AGREEMENT = 0.999
+# Gradient accumulation and data parallelism (phase 12). The accumulated
+# step: b32 as ACCUM microbatches of b8 against the sequential oracle (float32,
+# relative ACCUM_REL), and b128 as ACCUM x b32, timed. The DDP step at world
+# size 1 over NCCL against the plain step (DDP_REL), and DP_RANKS gloo ranks
+# on the one card, each with b8 of a global b16, against one process's b16
+# step (DP_REL). NCCL refuses two ranks on one device, so the two ranks speak
+# gloo (the card's tensors cross the host); their times mean nothing.
+ACCUM = 4
+ACCUM_REL = 1e-4
+ACCUM_BIG_BATCH = 4 * TRAIN_BATCH
+ACCUM_TIMED, ACCUM_WARMUP = 3, 1
+DDP_REL = 1e-6
+DP_RANKS = 2
+DP_BATCH = 16
+DP_REL = 1e-4
+DP_TIMEOUT_S = 420
+# One checkout's run of ``--ab-steps`` (its kernels' build included).
+AB_TIMEOUT_S = 600
+PER_ACCUM_STEP = {k: v * ACCUM for k, v in PER_STEP["dense"].items()}
 AUG_TIMED, AUG_WARMUP = 5, 2
 
 # Original sizes of the eight images of a request batch.
@@ -2017,7 +2080,7 @@ def write_recon_caches(data: Path, cache: Path) -> None:
 def check_csv(path: Path, header: str, lr: list, lr_col: int, loss_cols: slice) -> list:
     """The rows of a training_log.csv; fails unless its header, epochs and
     learning rates are ``header``, 1..n and ``lr``, its losses finite, and
-    epoch 2's train loss below epoch 1's."""
+    (with two epochs or more) epoch 2's train loss below epoch 1's."""
     lines = path.read_text().splitlines()
     log("\n".join([f"{path.parent.name}/training_log.csv:", *lines]))
     if lines[0] != header:
@@ -2029,7 +2092,7 @@ def check_csv(path: Path, header: str, lr: list, lr_col: int, loss_cols: slice) 
         raise AssertionError(f"learning rates {[r[lr_col] for r in rows]}, want {lr}")
     if not all(math.isfinite(float(v)) for r in rows for v in r[loss_cols]):
         raise AssertionError(f"a CSV value is not finite: {rows}")
-    if not float(rows[1][1]) < float(rows[0][1]):
+    if len(rows) > 1 and not float(rows[1][1]) < float(rows[0][1]):
         raise AssertionError(f"epoch 2's train loss {rows[1][1]} is not below epoch 1's "
                              f"{rows[0][1]}")
     return rows
@@ -2688,6 +2751,441 @@ def phase_augment(root: Path):
            else ""))
 
 
+def params_of(model: torch.nn.Module) -> dict:
+    return {k: v.detach().float().clone() for k, v in model.state_dict().items()}
+
+
+def worst_rel(params: dict, ref: dict, groups: dict) -> tuple[float, str]:
+    """The largest rel-L2 of a parameter group (``grad_groups``: a conv's
+    bias goes with its weight where an InstanceNorm cancels the bias, whose
+    exact gradient is zero) of ``params`` to ``ref``, and the group's
+    name."""
+    rel = group_rel_l2(params, ref, groups)
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def moved(params: dict, before: dict) -> float:
+    """The rel-L2 of one update: all parameters after it against before."""
+    return rel_l2(torch.cat([params[k].reshape(-1) for k in before]),
+                  torch.cat([before[k].float().reshape(-1) for k in before]))
+
+
+def accum_run(state: dict, batch: dict) -> tuple[float, dict]:
+    """One float32 b32 step as ACCUM microbatches (counted: PER_ACCUM_STEP):
+    the loss and the updated parameters."""
+    model = train_model("dense", state, torch.float32)
+    step = make_accum_train_step(model, sgd_nesterov(model.parameters()),
+                                 make_segmentation_loss_fn(), ACCUM)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with deterministic():
+        loss = counted_path(lambda: float(step(batch, gen)), PER_ACCUM_STEP)
+    return loss, params_of(model)
+
+
+def accum_oracle(state: dict, batch: dict) -> tuple[float, dict]:
+    """The accumulated step spelled out: ACCUM plain forward and backward
+    passes of the microbatches ``batch[i::ACCUM]`` with the kernels, each with
+    ``microbatch_generator``'s dropout, their gradients summed in float32 and
+    divided by ACCUM, one update."""
+    model = train_model("dense", state, torch.float32)
+    optimizer = sgd_nesterov(model.parameters())
+    loss_fn = make_segmentation_loss_fn()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = list(model.parameters())
+    sums = [torch.zeros_like(p) for p in params]
+    losses = []
+
+    def passes():
+        model.train()
+        for i in range(ACCUM):
+            micro = {k: v[i::ACCUM].contiguous() for k, v in batch.items()}
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(model, micro, microbatch_generator(gen, i))
+            loss.backward()
+            for acc, p in zip(sums, params):
+                acc += p.grad
+            losses.append(float(loss.detach()))
+
+    with deterministic():
+        counted(passes, PER_ACCUM_STEP)
+    for acc, p in zip(sums, params):
+        p.grad = acc / ACCUM
+    optimizer.step()
+    return sum(losses) / ACCUM, params_of(model)
+
+
+def accum_steps() -> None:
+    """(a): the accumulated step against its oracle, repeated bit for bit,
+    then the bf16 times of b32 as 4 x b8 and b128 as 4 x b32."""
+    model = unet_6stage(dtype=torch.float32, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 12))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    groups = grad_groups(model)
+    del model
+    check = device_batch(as_uint8(synthetic_batch(SEED + 12, TRAIN_BATCH, IMG)))
+    loss, params = accum_run(state, check)
+    oracle_loss, oracle = accum_oracle(state, check)
+    loss2, params2 = accum_run(state, check)
+    loss_rel = abs(loss - oracle_loss) / abs(oracle_loss)
+    rel, worst = worst_rel(params, oracle, groups)
+    repeat = loss2 == loss and all(torch.equal(params2[k], params[k]) for k in params)
+    log(f"accumulated b{TRAIN_BATCH} = {ACCUM} x b{TRAIN_BATCH // ACCUM} step, float32, kernels: "
+        f"loss {loss:.7f}, oracle {oracle_loss:.7f} (rel {loss_rel:.3e}); updated parameters "
+        f"worst group rel-L2 {rel:.3e} ({worst}), the update itself {moved(params, state):.3e}; "
+        f"a second call bit for bit: {repeat}; launches per step "
+        f"{ {k: v for k, v in PER_ACCUM_STEP.items() if v} }")
+    if not (loss_rel <= ACCUM_REL and rel <= ACCUM_REL and repeat and math.isfinite(loss)):
+        raise AssertionError(f"the accumulated step misses its gates (loss rel {loss_rel:.3e}, "
+                             f"params {rel:.3e}, repeat {repeat}; bound {ACCUM_REL:g})")
+    report["accum"] = {"loss_rel": loss_rel, "param_rel": rel}
+    del check, params, params2, oracle
+    torch.cuda.empty_cache()
+
+    phase7 = report.get("train", {}).get("dense", {})
+    for batch_size in (TRAIN_BATCH, ACCUM_BIG_BATCH):
+        model = train_model("dense", state, torch.bfloat16)
+        step = make_accum_train_step(model, sgd_nesterov(model.parameters()),
+                                     make_segmentation_loss_fn(), ACCUM)
+        batch = device_batch(as_uint8(synthetic_batch(SEED + 13, batch_size, IMG)))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_times(lambda b: counted_path(lambda: step(b, gen), PER_ACCUM_STEP), [batch],
+                        iters=ACCUM_TIMED, warmup=ACCUM_WARMUP)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # One more step by the host clock: when the host returns from it
+        # (every op enqueued, no synchronize inside) and when the card is done.
+        # Close together, the step is bound by the host's dispatch.
+        t0 = time.perf_counter()
+        loss = counted_path(lambda: step(batch, gen), PER_ACCUM_STEP)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        last = float(loss)
+        done_ms = (time.perf_counter() - t0) * 1e3
+        med = statistics.median(ms)
+        log(f"b{batch_size} as {ACCUM} x b{batch_size // ACCUM}, bf16: {spread(ms)}, "
+            f"{batch_size / med * 1e3:.1f} img/s, peak memory {peak:.2f} GiB, loss {last:.4f}; "
+            f"one more step: the host returned after {host_ms:.3f} ms, the card finished after "
+            f"{done_ms:.3f} ms; phase 7's plain b{TRAIN_BATCH} step "
+            f"{phase7.get('step_ms', float('nan')):.3f} ms, peak "
+            f"{phase7.get('peak_gib', float('nan')):.2f} GiB")
+        if not math.isfinite(last):
+            raise AssertionError(f"the b{batch_size} accumulated loss is not finite")
+        report["accum"][f"b{batch_size}"] = {"ms": med, "peak_gib": peak, "host_ms": host_ms}
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+
+def accum_recipes(root: Path) -> None:
+    """(b): ``cli our_unet train --grad_accum 4`` and ``cli ae_recon train
+    --grad_accum 2``, one epoch each on phase 8's dataset."""
+    data, cache = recipe_data(root)
+    recon = loader.cache_path(cache, data / "Train" / "resized", None, (IMG, IMG),
+                              mode="reconstruction")
+    if not (recon / loader.MANIFEST).exists():
+        write_recon_caches(data, cache)
+    common = ["--data_dir", str(data), "--batch_size", str(RECIPE_BATCH), "--decode_cache",
+              str(cache), "--save_every", "1", "--epochs", "1"]
+    runs = (("our_unet", ACCUM, SEG_CSV_HEADER, f"{poly_lr(5e-3, 1)(0):.7f}", 7, slice(1, 7),
+             "our_unet"),
+            ("ae_recon", 2, AE_CSV_HEADER, f"{cosine_lr(1e-3, 1)(0):.7f}", 5, slice(1, 5),
+             "ae_recon"))
+    for recipe, accum, header, lr, lr_col, loss_cols, arch in runs:
+        out = root / f"{recipe}_accum"
+        per_step = {k: v * accum for k, v in PER_STEP["dense"].items()}
+        result = counted_path(lambda: cli.main([recipe, "train", "--output_dir", str(out),
+                                                "--grad_accum", str(accum), *common]),
+                              per_epoch(per_step, 1))
+        check_csv(out / "training_log.csv", header, [lr], lr_col, loss_cols)
+        config = json.loads((out / "training_config.json").read_text())
+        if config["grad_accum"] != accum:
+            raise AssertionError(f"{recipe}: training_config.json grad_accum "
+                                 f"{config['grad_accum']}")
+        for d in (out / "checkpoints" / "epoch_1", out / "best_model"):
+            if not ((d / "model.pth").is_file() and (d / "meta.json").is_file()):
+                raise AssertionError(f"{d} lacks model.pth or meta.json")
+        convert.load_reference_checkpoint(out / "best_model" / "model.pth", device="cuda",
+                                          arch=arch)
+        log(f"{recipe} train --grad_accum {accum}: 1 epoch, "
+            f"{result['epochs'][-1]['steps']} steps of {accum} x b{RECIPE_BATCH // accum} "
+            f"({steady_step_ms(result):.3f} ms a step after the first batch); CSV, config and "
+            f"checkpoints as phase 8's; best_model loads strictly")
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_world_one() -> None:
+    """(c): a DDP-wrapped step over NCCL at world size 1, the process group
+    joined by ``maybe_initialize_distributed`` from a torchrun-style
+    environment, against the plain step."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 14))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    groups = grad_groups(model)
+    del model
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 14, CHECK_BATCH, IMG)))
+
+    def one_step(wrap: bool):
+        model = train_model("dense", state, torch.bfloat16)
+        trained = dp_mesh.wrap(model) if wrap else model
+        step = make_segmentation_train_step(trained, sgd_nesterov(model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with deterministic():
+            loss = counted_path(lambda: float(step(batch, gen)), PER_STEP["dense"])
+        return loss, params_of(model)
+
+    with mock.patch.dict(os.environ, env):
+        if not distributed.maybe_initialize_distributed():
+            raise AssertionError("maybe_initialize_distributed joined no process group")
+        try:
+            backend = torch.distributed.get_backend()
+            device = str(torch.device("cuda", distributed.local_rank()))
+            ddp_loss, ddp = one_step(wrap=True)
+        finally:
+            distributed.shutdown()
+    loss, plain = one_step(wrap=False)
+    rel, worst = worst_rel(ddp, plain, groups)
+    loss_rel = abs(ddp_loss - loss) / abs(loss)
+    log(f"DDP at world size 1 ({backend}, {device}), b{CHECK_BATCH} bf16 step against the plain "
+        f"step: loss {ddp_loss:.7f} / {loss:.7f} (rel {loss_rel:.3e}), parameters worst group "
+        f"rel-L2 {rel:.3e} ({worst}); bound {DDP_REL:g}")
+    if backend != "nccl" or rel > DDP_REL or loss_rel > DDP_REL:
+        raise AssertionError(f"DDP at world size 1: backend {backend}, params {rel:.3e}, loss "
+                             f"{loss_rel:.3e}")
+
+
+def dp_model() -> UNet:
+    """The full-width UNet with dropout rates 0 (the ranks and the reference
+    must draw no masks), float32."""
+    return UNet(encoder_dropout_rates=(0.0,) * len(DEFAULT_FEATURES),
+                decoder_dropout_rates=(0.0,) * (len(DEFAULT_FEATURES) - 1),
+                generator=torch.Generator().manual_seed(SEED + 15))
+
+
+def dp_worker(rank: int, port: int, d: Path) -> int:
+    """One gloo rank on the card: b8 of the global b16 through the wrapped
+    model's step; writes its parameters, its global loss and its launches."""
+    torch.backends.cudnn.allow_tf32 = False  # as main(): float32 is compared
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.maybe_initialize_distributed(f"tcp://localhost:{port}", DP_RANKS, rank,
+                                             backend="gloo", device="cuda:0")
+    try:
+        model = dp_model().to("cuda:0")
+        model.load_state_dict(torch.load(d / "init.pt"), strict=True)
+        step = make_segmentation_train_step(dp_mesh.wrap(model), sgd_nesterov(model.parameters()))
+        rows = slice(rank * DP_BATCH // DP_RANKS, (rank + 1) * DP_BATCH // DP_RANKS)
+        batch = device_batch({k: v[rows] for k, v in np.load(d / "batch.npz").items()})
+        reset_launches()
+        loss = float(step(batch, None))
+        torch.save({"params": {k: v.cpu() for k, v in params_of(model).items()}, "loss": loss,
+                    "launches": launches()}, d / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def cli_worker(argv: list) -> int:
+    """One rank of ``torch.distributed.run`` on the one card: joins the
+    launcher's group over gloo (NCCL refuses two ranks on one device), then
+    runs ``cli.main(argv)``."""
+    distributed.maybe_initialize_distributed(backend="gloo", device="cuda:0")
+    try:
+        cli.main(argv)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def run_ranks(cmds: list, label: str, **kwargs) -> list[str]:
+    """Start every command at once and wait for all; fails if one fails or
+    runs out of time (every process is stopped either way)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH", "")]))
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, **kwargs) for cmd in cmds]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = [i for i, proc in enumerate(procs) if proc.returncode != 0]
+    if bad:
+        raise AssertionError(f"{label}: process {bad} failed:\n" + "\n".join(
+            outs[i][-3000:] if i < len(outs) else "(no output)" for i in bad))
+    return outs
+
+
+def write_stripe_caches(data: Path, cache: Path, ranks: int) -> None:
+    """The warm decode caches of each rank's stripe of the Train split (the
+    cache keys on the stripe), from phase 8's cache with the loader's
+    functions; the stripes are the loader's equal contiguous shards."""
+    size = (IMG, IMG)
+    labels, n = RECIPE_SPLITS["Train"]
+    images_dir, masks_dir = data / "Train" / "resized", data / "Train" / labels
+    files = sorted(images_dir.glob("*.jpg"))
+    full = loader.open_cache(loader.cache_path(cache, images_dir, masks_dir, size))
+    per = n // ranks
+    for r in range(ranks):
+        rows = range(r * per, (r + 1) * per)
+        items = ({k: full[k][i] for k in ("image", "mask", "original_dims")} for i in rows)
+        loader.write_cache(loader.cache_path(cache, images_dir, masks_dir, size, r, ranks),
+                           loader.cache_identity(files[r * per:(r + 1) * per], size, True),
+                           items, per, size, True)
+
+
+def dp_two_ranks(root: Path) -> None:
+    """(d): DP_RANKS gloo ranks on the one card against one process's step,
+    then ``cli our_unet train`` for one epoch under ``torch.distributed.run``
+    with DP_RANKS ranks."""
+    d = root / "dp"
+    d.mkdir()
+    model = dp_model()
+    torch.save(model.state_dict(), d / "init.pt")
+    batch = as_uint8(synthetic_batch(SEED + 16, DP_BATCH, IMG))
+    np.savez(d / "batch.npz", image=batch["image"], mask=batch["mask"])
+    torch.cuda.empty_cache()
+    port = free_port()
+    run_ranks([[sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(r), str(port),
+                str(d)] for r in range(DP_RANKS)], "the data-parallel step")
+    ranks = [torch.load(d / f"rank{r}.pt") for r in range(DP_RANKS)]
+
+    model = model.cuda()
+    groups = grad_groups(model)
+    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    loss = counted_path(lambda: float(step(device_batch(batch), None)), PER_STEP["dense"])
+    ref = params_of(model)
+    del model, step
+    torch.cuda.empty_cache()
+    for r, out in enumerate(ranks):
+        params = {k: v.cuda() for k, v in out["params"].items()}
+        rel, worst = worst_rel(params, ref, groups)
+        loss_rel = abs(out["loss"] - loss) / abs(loss)
+        same = all(torch.equal(out["params"][k], ranks[0]["params"][k]) for k in out["params"])
+        log(f"gloo rank {r} of {DP_RANKS} (b{DP_BATCH // DP_RANKS} of a global b{DP_BATCH}, "
+            f"float32) against one process's b{DP_BATCH} step: global loss {out['loss']:.7f} / "
+            f"{loss:.7f} (rel {loss_rel:.3e}), parameters worst group rel-L2 {rel:.3e} ({worst}); "
+            f"equal to rank 0's: {same}; launches {out['launches']}")
+        if not (rel <= DP_REL and loss_rel <= DP_REL and same
+                and out["launches"] == PER_STEP["dense"]):
+            raise AssertionError(f"gloo rank {r}: params {rel:.3e}, loss {loss_rel:.3e}, same "
+                                 f"{same}, launches {out['launches']} (bound {DP_REL:g})")
+
+    data, cache = recipe_data(root)
+    write_stripe_caches(data, cache, DP_RANKS)
+    out = root / "dp_run"
+    t0 = time.perf_counter()
+    logs = run_ranks([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                       str(DP_RANKS), "--master_addr", "localhost", "--master_port",
+                       str(free_port()), str(Path(__file__).resolve()), "--cli-worker",
+                       "our_unet", "train", "--data_dir", str(data), "--output_dir", str(out),
+                       "--batch_size", str(RECIPE_BATCH), "--epochs", "1", "--save_every", "1",
+                       "--decode_cache", str(cache), "--device", "cuda:0", "--num_threads",
+                       "4"]], "torch.distributed.run our_unet train",
+                     cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    lines = (out / "training_log.csv").read_text().splitlines()
+    check_csv(out / "training_log.csv", SEG_CSV_HEADER, [f"{poly_lr(5e-3, 1)(0):.7f}"], 7,
+              slice(1, 7))
+    config = json.loads((out / "training_config.json").read_text())
+    sizes = [ln for ln in logs[0].splitlines() if "Training dataset size" in ln]
+    for ck in (out / "checkpoints" / "epoch_1", out / "best_model"):
+        convert.load_reference_checkpoint(ck / "model.pth", device="cuda")
+    log(f"torch.distributed.run --nproc_per_node {DP_RANKS} cli our_unet train (gloo, one "
+        f"card): {wall:.1f} s for 1 epoch; {len(lines) - 1} CSV row; config batch_size "
+        f"{config['batch_size']}; {sizes}; epoch_1 and best_model load strictly")
+    if config["batch_size"] != RECIPE_BATCH or len(sizes) != DP_RANKS or any(
+            not ln.endswith(str(RECIPE_SPLITS["Train"][1] // DP_RANKS)) for ln in sizes):
+        raise AssertionError(f"the two-rank recipe: config {config}, dataset sizes {sizes}")
+
+
+@phase(f"12. gradient accumulation ({ACCUM} microbatches) and data parallelism: unet_6stage "
+       f"512², the accumulated step, the recipes, DDP over NCCL and {DP_RANKS} gloo ranks")
+def phase_parallel(root: Path):
+    accum_steps()
+    accum_recipes(root)
+    ddp_world_one()
+    torch.cuda.empty_cache()
+    dp_two_ranks(root)
+
+
+# ``--ab-steps``: one checkout's phase-7 step and phase-8 recipe, through the
+# package's entry points only. Arguments: LABEL DATA CACHE.
+AB_PROGRAM = f"""
+import statistics, sys, tempfile
+import torch
+from unet_implementations_tpu_torch import cli
+from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
+from unet_implementations_tpu_torch.kernels import _build
+from unet_implementations_tpu_torch.models.unet import unet_6stage
+from unet_implementations_tpu_torch.training.steps import make_segmentation_train_step
+from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
+
+label, data, cache = sys.argv[1:]
+_build.library()
+model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator().manual_seed({SEED + 5}))
+step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+batch = {{k: torch.from_numpy(v).to("cuda")
+         for k, v in as_uint8(synthetic_batch({SEED + 4}, {TRAIN_BATCH}, {IMG})).items()}}
+gen = torch.Generator(device="cuda").manual_seed({SEED})
+for _ in range(3):
+    step(batch, gen)
+events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(10)]
+torch.cuda.synchronize()
+for start, end in events:
+    start.record()
+    step(batch, gen)
+    end.record()
+torch.cuda.synchronize()
+ms = [start.elapsed_time(end) for start, end in events]
+del model, step, batch
+torch.cuda.empty_cache()
+with tempfile.TemporaryDirectory() as out:
+    result = cli.main(["our_unet", "train", "--data_dir", data, "--output_dir", out,
+                       "--batch_size", "{RECIPE_BATCH}", "--epochs", "2", "--save_every",
+                       "100", "--decode_cache", cache])
+epoch = result["epochs"][-1]
+recipe = (epoch["train_s"] - epoch["first_batch_s"]) / epoch["steps"] * 1e3
+print(f"{{label}} b{TRAIN_BATCH} dense train step: median {{statistics.median(ms):.4f}} ms "
+      f"(min {{min(ms):.4f}}, max {{max(ms):.4f}}, n {{len(ms)}}); our_unet recipe, epoch 2 "
+      f"after its first batch: {{recipe:.3f}} ms a step", flush=True)
+"""
+
+
+def ab_steps(root: Path, versions: list) -> int:
+    """``--ab-steps``: AB_PROGRAM from each ``LABEL=DIR`` of ``versions`` in
+    turn, each in a process that imports the package from DIR."""
+    log(f"nvidia-smi: {nvidia_smi_card()}")
+    data, cache = recipe_data(root.resolve())
+    for version in versions:
+        label, checkout = version.split("=", 1)
+        checkout = Path(checkout).resolve()
+        out = subprocess.run([sys.executable, "-c", AB_PROGRAM, label, str(data), str(cache)],
+                             cwd=checkout, env=dict(os.environ, PYTHONPATH=str(checkout)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             timeout=AB_TIMEOUT_S)
+        lines = out.stdout.splitlines()
+        if out.returncode != 0:
+            print("\n".join(lines[-40:]), file=sys.stderr)
+            raise AssertionError(f"--ab-steps {label}: exit code {out.returncode}")
+        log(lines[-1])
+    return 0
+
+
 def kernels_line() -> dict:
     rows = report["rows"]
     bound_by = report["bound_by"]
@@ -2719,7 +3217,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3 and 6-11).
+            # The counted runs of the main paths (phases 3 and 6-12).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2757,9 +3255,12 @@ def main() -> int:
             phase_clip(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_augment(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_parallel(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
+        print(json.dumps({"ok": False, "failed": failures}))
         return 1
     print(report["card"])
     print(json.dumps(kernels_line()))
@@ -2770,4 +3271,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--cli-worker"]:
+        sys.exit(cli_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ab-steps"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is available")
+        sys.exit(ab_steps(Path(sys.argv[2]), sys.argv[3:]))
     sys.exit(main())

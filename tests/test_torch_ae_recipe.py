@@ -37,7 +37,7 @@ from unet_implementations_tpu_torch.recipes import ae_recon, ae_transfer, common
 from unet_implementations_tpu_torch.training import checkpoint
 from unet_implementations_tpu_torch.training.loop import AE_CSV_HEADER, SEG_CSV_HEADER
 
-from test_torch_recipe import SPLITS, count_calls, write_split
+from test_torch_recipe import SPLITS, count_calls, reaches_config, write_split
 
 DEMO = Path(__file__).resolve().parents[1] / "demo" / "four_recipes"
 
@@ -223,15 +223,20 @@ class TestCli:
         assert "--pretrained_encoder" in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv,error,match", [
-        (["ae_recon", "train", "--grad_accum", "2"], NotImplementedError, "item 7"),
+        (["ae_recon", "train", "--grad_accum", "2"], None, "grad_accum"),
         (["ae_recon", "train", "--grad_accum", "3"], ValueError, "does not divide"),
         (["ae_transfer", "train", "--pretrained_encoder", "p", "--grad_accum", "2"],
-         NotImplementedError, "item 7"),
+         None, "grad_accum"),
     ])
-    def test_train_flags_not_ported_raise(self, tmp_path, argv, error, match):
+    def test_train_flags_not_ported_raise(self, tmp_path, monkeypatch, argv, error, match):
+        argv = [*argv, "--data_dir", str(tmp_path / "none"), "--output_dir", str(tmp_path / "o"),
+                "--device", "cpu"]
+        if error is None:  # ported: the value reaches the recipe and its config
+            module = ae_recon if argv[0] == "ae_recon" else ae_transfer
+            assert reaches_config(monkeypatch, module, argv, tmp_path / "o")[match] == 2
+            return
         with pytest.raises(error, match=match):
-            cli.main([*argv, "--data_dir", str(tmp_path / "none"),
-                      "--output_dir", str(tmp_path / "o"), "--device", "cpu"])
+            cli.main(argv)
         assert not (tmp_path / "o").exists()
 
     @pytest.mark.parametrize("flags", [["--analyze_latent_space"], ["--visualize_samples", "1"]])

@@ -39,7 +39,8 @@ import pytest
 import torch
 
 from test_torch_ae_recipe import _captured_config, _options
-from test_torch_recipe import SPLITS, write_split
+from test_torch_recipe import (SPLITS, DatasetsReached, reaches_config, stop_at_datasets,
+                               write_split)
 from unet_implementations_tpu.cli import build_parser as jax_build_parser
 from unet_implementations_tpu.data import loader as jax_loader
 from unet_implementations_tpu.data import pipeline as jax_pipeline
@@ -400,18 +401,27 @@ class TestCli:
         assert {k: getattr(ref, k) for k in want} == want
 
     @pytest.mark.parametrize("argv,error,match", [
-        (["--grad_accum", "2"], NotImplementedError, "item 7"),
+        (["--grad_accum", "2"], None, "grad_accum"),
         (["--grad_accum", "3"], ValueError, "does not divide"),
     ])
-    def test_train_flags_not_ported_raise(self, tmp_path, argv, error, match):
+    def test_train_flags_not_ported_raise(self, tmp_path, monkeypatch, argv, error, match):
+        argv = ["clip_unet", "train", *argv, "--data_dir", str(tmp_path / "none"),
+                "--output_dir", str(tmp_path / "o"), "--device", "cpu"]
+        if error is None:  # ported: the value reaches the recipe and its config
+            assert reaches_config(monkeypatch, clip_unet, argv, tmp_path / "o")[match] == 2
+            return
         with pytest.raises(error, match=match):
-            cli.main(["clip_unet", "train", *argv, "--data_dir", str(tmp_path / "none"),
-                      "--output_dir", str(tmp_path / "o"), "--device", "cpu"])
+            cli.main(argv)
         assert not (tmp_path / "o").exists()
 
-    def test_not_ported_raise(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    def test_not_ported_raise(self, tmp_path, monkeypatch):
+        # use_mesh=True is ported: one process (no process group) trains as
+        # without it, so the call gets as far as its datasets.
+        monkeypatch.setattr(clip_unet, "make_datasets", stop_at_datasets)
+        with pytest.raises(DatasetsReached):
             clip_unet.train(tmp_path, tmp_path / "o", use_mesh=True, device="cpu")
+        assert json.loads((tmp_path / "o" / "training_config.json").read_text())[
+            "with_clip_features"] is True
         with pytest.raises(NotImplementedError, match="item 8"):
             cli.main(["clip_unet", "evaluate", "--model_path", str(tmp_path / "m"),
                       "--data_dir", str(tmp_path), "--device", "cpu",

@@ -667,3 +667,97 @@ def test_clip_tower_on_cuda_launches_no_kernel():
     assert counts == [0, 0, 0, 0, 0]
     assert float((got.cpu() - want).norm() / want.norm()) <= 1e-5
     assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def test_accum_step_matches_its_sequential_oracle(monkeypatch):
+    """The accumulated step with the kernels (b4 at 64² as 2 microbatches,
+    float32, dropout on) against its contract spelled out with the same
+    kernels: two plain forward and backward passes of ``batch[i::2]`` with
+    ``microbatch_generator``'s dropout, the gradients summed in float32 and
+    halved, one update. Loss and parameters to 1e-4 relative (cuDNN
+    deterministic); launches K1/K2a/K1bwd 44/10/44, twice the plain step's."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in as_uint8(synthetic_batch(3, 4, 64)).items()}
+    state = _narrow().cuda().state_dict()
+    loss_fn = steps.make_segmentation_loss_fn()
+
+    model = _narrow().cuda()
+    model.load_state_dict(state)
+    step = steps.make_accum_train_step(model, train_state.sgd_nesterov(model.parameters()),
+                                       loss_fn, 2)
+    counts, loss = _counted(lambda: float(step(batch, torch.Generator("cuda").manual_seed(4))))
+    assert counts == [44, 10, 0, 0, 44]
+
+    oracle = _narrow().cuda()
+    oracle.load_state_dict(state)
+    optimizer = train_state.sgd_nesterov(oracle.parameters())
+    gen = torch.Generator("cuda").manual_seed(4)
+    params = list(oracle.parameters())
+    sums = [torch.zeros_like(p) for p in params]
+    losses = []
+    oracle.train()
+    for i in range(2):
+        oracle.zero_grad(set_to_none=True)
+        micro = {k: v[i::2].contiguous() for k, v in batch.items()}
+        micro_loss = loss_fn(oracle, micro, steps.microbatch_generator(gen, i))
+        micro_loss.backward()
+        for acc, p in zip(sums, params):
+            acc += p.grad
+        losses.append(float(micro_loss.detach()))
+    for acc, p in zip(sums, params):
+        p.grad = acc / 2
+    optimizer.step()
+    assert abs(loss - np.mean(losses)) <= 1e-4 * abs(np.mean(losses))
+    want = oracle.state_dict()
+    for key, value in model.state_dict().items():
+        assert _rel_l2(value, want[key]) <= 1e-4, key
+
+
+def test_ddp_step_at_world_size_one_over_nccl(monkeypatch):
+    """The ``DistributedDataParallel`` step over NCCL at world size 1 (the
+    group joined from a torchrun-style environment) equals the plain step:
+    its loss reduces its class counts and CE denominator over one rank, and
+    DDP averages over one rank."""
+    _need_cuda()
+    import socket
+
+    from unet_implementations_tpu_torch.parallel import distributed, mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batch = as_uint8(synthetic_batch(5, 2, 64))
+    state = _narrow().cuda().state_dict()
+
+    def one_step(wrap: bool):
+        model = _narrow().cuda()
+        model.load_state_dict(state)
+        trained = mesh.wrap(model) if wrap else model
+        step = steps.make_segmentation_train_step(trained, train_state.sgd_nesterov(
+            model.parameters()))
+        counts, loss = _counted(lambda: float(step(batch, torch.Generator("cuda").manual_seed(6))))
+        assert counts == [22, 5, 0, 0, 22]
+        return loss, model.state_dict()
+
+    assert distributed.maybe_initialize_distributed()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        assert mesh.create_mesh() is None  # one rank: no data parallelism in the recipes
+        ddp_loss, ddp = one_step(wrap=True)
+    finally:
+        distributed.shutdown()
+    loss, plain = one_step(wrap=False)
+    assert abs(ddp_loss - loss) <= 1e-6 * abs(loss)
+    for key, value in ddp.items():
+        assert _rel_l2(value, plain[key]) <= 1e-6, key

@@ -263,5 +263,5 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
                  "data.loader", "training.early_stopping", "training.checkpoint",
                  "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",
                  "recipes.ae_transfer", "models.clip", "recipes.clip_unet", "data.pipeline",
-                 "data.augment", "cli"):
+                 "data.augment", "parallel", "parallel.distributed", "parallel.mesh", "cli"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

@@ -165,6 +165,24 @@ class TestRecipe:
         assert meta["config"] == our_unet.ARCH_CONFIG == jax_our_unet.ARCH_CONFIG
 
 
+class DatasetsReached(Exception):
+    pass
+
+
+def stop_at_datasets(*args, **kwargs):
+    raise DatasetsReached
+
+
+def reaches_config(monkeypatch, module, argv, output_dir) -> dict:
+    """Run ``cli.main(argv)`` up to the recipe's ``make_datasets`` (which
+    raises here) and return the ``training_config.json`` the recipe wrote
+    from the values it was given."""
+    monkeypatch.setattr(module, "make_datasets", stop_at_datasets)
+    with pytest.raises(DatasetsReached):
+        cli.main(argv)
+    return json.loads((output_dir / "training_config.json").read_text())
+
+
 def count_calls(monkeypatch, module, name):
     """Count the calls of ``module.name`` (still calling it)."""
     calls = []
@@ -256,14 +274,19 @@ class TestCli:
 
     @pytest.mark.parametrize("flags,error,item", [
         (["--spatial", "2"], NotImplementedError, "item 7"),
-        (["--grad_accum", "2"], NotImplementedError, "item 7"),
+        (["--grad_accum", "2"], None, "grad_accum"),
         (["--grad_accum", "3"], ValueError, "does not divide"),
         (["--grad_accum", "0"], ValueError, ">= 1"),
     ])
-    def test_train_flags_not_ported_raise(self, tmp_path, flags, error, item):
+    def test_train_flags_not_ported_raise(self, tmp_path, monkeypatch, flags, error, item):
+        argv = ["our_unet", "train", "--data_dir", str(tmp_path / "none"),
+                "--output_dir", str(tmp_path / "o"), "--device", "cpu", *flags]
+        if error is None:  # ported: the value reaches the recipe and its config
+            assert reaches_config(monkeypatch, our_unet, argv, tmp_path / "o")[item] == \
+                int(flags[1])
+            return
         with pytest.raises(error, match=item):
-            cli.main(["our_unet", "train", "--data_dir", str(tmp_path / "none"),
-                      "--output_dir", str(tmp_path / "o"), "--device", "cpu", *flags])
+            cli.main(argv)
         assert not (tmp_path / "o").exists()
 
     def test_visualize_samples_raises(self, tmp_path):

@@ -25,6 +25,8 @@ keeps the reference's module names so each counterpart is easy to find:
                  ``clip_unet`` recipes (train, evaluate; CLIP embedding
                  tables; online augmentation), dataset evaluation and the
                  serving path (``predict_segmentation``).
+- ``parallel`` — data parallelism: one process per GPU under
+                 ``torch.distributed``, with the global batch's loss.
 - ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate``,
                  ``clip_unet train|evaluate|embed``, ``clip_resize``,
                  ``augment`` and ``predict``.
@@ -42,7 +44,9 @@ __version__ = "0.1.0"
 
 
 def default_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else CUDA.
+    """The device an entry point runs on: ``device`` when given, else CUDA:
+    ``cuda:LOCAL_RANK`` under a process group (``parallel/distributed.py``),
+    so each rank of a launch takes its own card, else ``cuda``.
 
     Raises when no device is given and no CUDA card is visible — the port
     never runs on the CPU unless the caller asked for it.
@@ -54,4 +58,8 @@ def default_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU"
         )
+    from unet_implementations_tpu_torch.parallel import distributed
+
+    if distributed.is_initialized():
+        return torch.device("cuda", distributed.local_rank())
     return torch.device("cuda")

@@ -18,6 +18,23 @@
     python -m unet_implementations_tpu_torch.cli predict \\
         --model_path model.pth --input <image-or-dir> --output_dir predictions
 
+Data-parallel training runs one process per GPU under a launcher:
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m unet_implementations_tpu_torch.cli our_unet train ...
+
+Each ``train`` command joins the process group the launcher describes
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
+``parallel/distributed.py``), takes the card ``cuda:LOCAL_RANK`` and trains
+on its stripe of the training files; ``--batch_size`` is the global batch,
+split evenly over the ranks (and their ``--grad_accum`` microbatches), and
+the loss is the global batch's. Only rank 0 writes files. ``--no_mesh`` keeps
+such a launch from wrapping the model: every rank then trains the same model
+alone on the whole training set, and rank 0 writes. The backend is NCCL on a
+card and gloo on the CPU. ``evaluate`` stays one process: JAX's
+mesh there spreads one process's batch over its local chips, which a
+one-process-per-GPU port has no counterpart of.
+
 The flags of ``our_unet``, ``ae_recon``, ``ae_transfer``, ``clip_unet``,
 ``clip_resize`` and ``augment`` are the JAX package's
 (``unet_implementations_tpu/cli.py``), with its defaults; ``clip_unet embed``
@@ -27,12 +44,13 @@ open_clip or TorchScript; random weights from seed 0 without it).
 ``--device`` is the torch device (default: CUDA; ``cpu`` runs the plain
 PyTorch path). ``--num_workers`` is an alias of ``--num_threads``;
 ``--decode_cache DIR`` sets ``UNET_TPU_DECODE_CACHE`` for every dataset the
-command opens. ``--no_mesh``, ``--amp`` and ``--reduced_complexity`` are
-accepted and do nothing, and so is ``clip_unet train --use_clip``.
+command opens. ``--amp`` and ``--reduced_complexity`` are accepted and do
+nothing, and so is ``clip_unet train --use_clip``. ``--grad_accum N`` trains
+each batch as N sequential microbatches with one optimizer update.
 ``--online_augment`` augments each training batch on the device (and, in
 ``clip_unet``, extracts its CLIP features live). Not ported yet, and refused:
-``--spatial`` > 1, ``--grad_accum`` > 1, ``--visualize_samples`` > 0 (so it
-defaults to 0 here, 3 in JAX) and ``--analyze_latent_space``.
+``--spatial`` > 1, ``--visualize_samples`` > 0 (so it defaults to 0 here, 3
+in JAX) and ``--analyze_latent_space``.
 
 ``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
 ``.pth``; that of ``predict`` is a reference ``.pth``, such as the JAX
@@ -71,9 +89,14 @@ def _add_common_train_flags(p: argparse.ArgumentParser, batch_size: int = 32) ->
     p.add_argument("--patience", type=int, default=15)
     p.add_argument("--resume", default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--no_mesh", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--no_mesh", action="store_true",
+                   help="under a launch with several ranks, do not train data-parallel: every "
+                        "rank trains the same model alone and rank 0 writes; a single "
+                        "process trains as without it")
     p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
-    p.add_argument("--grad_accum", type=int, default=1, help="not ported: only 1")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="split each batch into this many sequential microbatches, one "
+                        "optimizer update per batch")
     _add_compat_flags(p)
 
 
@@ -97,6 +120,10 @@ def _add_eval_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--output_dir", default="evaluation_results")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--visualize_samples", type=int, default=0, help="not ported: only 0")
+    # JAX's evaluate spreads one process's batch over its local chips; one
+    # process per GPU has no counterpart of that.
+    p.description = ("Evaluation runs in one process on one device, also under a launcher "
+                     "of several ranks.")
     p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
     _add_compat_flags(p)
 
@@ -224,18 +251,31 @@ def _seg_train_kwargs(args) -> dict:
         patience=args.patience, save_every=args.save_every, resume=args.resume,
         seed=args.seed, dtype=_dtype(args), device=args.device,
         num_threads=_num_threads(args), online_augment=args.online_augment,
-        grad_accum=args.grad_accum,
+        grad_accum=args.grad_accum, use_mesh=not args.no_mesh,
     )
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Run one command; returns what its recipe returns (the training
     loop's result, the evaluation results, or the number of images
-    predicted)."""
+    predicted). A ``train`` command joins the launcher's process group
+    first, if there is one, and leaves it when it returns."""
     args = build_parser().parse_args(argv)
     if getattr(args, "decode_cache", None):
         os.environ["UNET_TPU_DECODE_CACHE"] = args.decode_cache
+    if getattr(args, "cmd", None) != "train":
+        return _run(args)
+    from unet_implementations_tpu_torch.parallel import distributed
 
+    joined = not distributed.is_initialized() and distributed.maybe_initialize_distributed(device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run(args):
     if args.command in ("our_unet", "ae_transfer"):
         from unet_implementations_tpu_torch.recipes import ae_transfer, our_unet
 
@@ -263,6 +303,7 @@ def main(argv: Optional[Sequence[str]] = None):
                 patience=args.patience, save_every=args.save_every, resume=args.resume,
                 seed=args.seed, dtype=_dtype(args), device=args.device,
                 num_threads=_num_threads(args), grad_accum=args.grad_accum,
+                use_mesh=not args.no_mesh,
             )
         return ae_recon.evaluate(
             args.model_path, args.data_dir, args.output_dir,

@@ -7,9 +7,18 @@ whatever the logits' dtype. The class weights are recomputed per batch from
 inverse pixel frequency, in one-hot arithmetic (out-of-range labels, such as
 255, one-hot to all zeros, as ``jax.nn.one_hot`` does).
 
+Under data parallelism (``parallel/mesh.py``) the segmentation loss takes the
+process ``group``: the class counts and the CE denominator are all-reduced,
+so the loss is the global batch's, as on JAX's mesh. Both come from the masks
+alone, so no gradient crosses a reduction. Without a group (None, the
+default) nothing is reduced and the results are the single-process ones.
+
 Reconstruction (NHWC images in [0, 1]): MSE, per-image PSNR, Gaussian-window
 SSIM, the perceptual (feature-space) MSE and their weighted sum, all in
-float32.
+float32. Each is a mean over the batch's elements, so with equal local
+batches the mean of the ranks' losses (what ``DistributedDataParallel``'s
+gradient average differentiates) is the global batch's loss: they take no
+group.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear
@@ -34,15 +44,27 @@ def _one_hot(mask: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (mask.unsqueeze(-1) == classes).to(torch.float32)
 
 
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group`` (``t`` carries no
+    gradient)."""
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
 def compute_class_weights(mask: torch.Tensor, num_classes: int = 3,
-                          ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                          ignore_index: int = IGNORE_INDEX, group=None) -> torch.Tensor:
     """Inverse-frequency class weights of a batch of masks: ``w_c = valid
     pixels / count_c`` with zero counts clamped to 1, normalized so that
-    ``sum(w) == num_classes``."""
+    ``sum(w) == num_classes``. With a process ``group`` the counts are the
+    global batch's (one all-reduce)."""
     valid = _valid_mask(mask, ignore_index)
     onehot = _one_hot(mask, num_classes)
     counts = (onehot * valid.unsqueeze(-1)).sum(dim=tuple(range(mask.ndim)))
     total = valid.sum()
+    if group is not None:
+        both = _all_reduce(torch.cat([counts, total.reshape(1)]), group)
+        counts, total = both[:-1], both[-1]
     counts = torch.where(counts == 0, torch.ones_like(counts), counts)
     weights = total / counts
     return weights * (num_classes / weights.sum())
@@ -50,10 +72,14 @@ def compute_class_weights(mask: torch.Tensor, num_classes: int = 3,
 
 def weighted_cross_entropy(logits: torch.Tensor, mask: torch.Tensor,
                            class_weights: Optional[torch.Tensor] = None,
-                           ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                           ignore_index: int = IGNORE_INDEX, group=None) -> torch.Tensor:
     """Class-weighted CE with an ignore label, torch ``CrossEntropyLoss``
     semantics: ``sum_i w[y_i]·nll_i / sum_i w[y_i]`` over valid pixels (the
-    plain mean when ``class_weights`` is None)."""
+    plain mean when ``class_weights`` is None).
+
+    With a process ``group`` of W ranks the denominator is the global
+    batch's, and the result is this rank's share scaled by W: ``W·sum_local
+    / sum_global``, whose mean over the ranks is the global CE."""
     num_classes = logits.shape[-1]
     logits = logits.to(torch.float32)
     valid = _valid_mask(mask, ignore_index)
@@ -63,6 +89,9 @@ def weighted_cross_entropy(logits: torch.Tensor, mask: torch.Tensor,
         pixel_w = valid
     else:
         pixel_w = (onehot * class_weights.to(torch.float32)).sum(dim=-1) * valid
+    if group is not None:
+        denom = torch.clamp(_all_reduce(pixel_w.sum(), group), min=1e-12)
+        return dist.get_world_size(group) * (nll * pixel_w).sum() / denom
     denom = torch.clamp(pixel_w.sum(), min=1e-12)
     return (nll * pixel_w).sum() / denom
 
@@ -88,16 +117,23 @@ def soft_dice_loss(logits: torch.Tensor, mask: torch.Tensor, ignore_index: int =
 def segmentation_loss(logits: torch.Tensor, mask: torch.Tensor, weight_ce: float = 1.0,
                       weight_dice: float = 1.0, class_weights: Optional[torch.Tensor] = None,
                       dynamic_weights: bool = True, ignore_index: int = IGNORE_INDEX,
-                      smooth: float = 1e-5) -> torch.Tensor:
+                      smooth: float = 1e-5, group=None) -> torch.Tensor:
     """``weight_ce·CE + weight_dice·Dice``. With ``dynamic_weights`` (and no
     ``class_weights``) the CE weights are recomputed from this batch; given
     ``class_weights`` are static; neither gives unweighted CE. Logits at
-    another size than the mask are resized to it bilinearly first."""
+    another size than the mask are resized to it bilinearly first.
+
+    With a process ``group`` (each rank holding an equal share of the
+    global batch) this is the rank's share of the global batch's loss: the
+    class weights and the CE denominator are global, the CE term is scaled
+    by the world size, and the batch-mean Dice is the rank's own. The mean
+    of the ranks' values is then the global loss, and so is the gradient
+    that ``DistributedDataParallel`` averages."""
     if tuple(logits.shape[1:3]) != tuple(mask.shape[1:3]):
         logits = resize_bilinear(logits, tuple(mask.shape[1:3]))
     if dynamic_weights and class_weights is None:
-        class_weights = compute_class_weights(mask, logits.shape[-1], ignore_index)
-    ce = weighted_cross_entropy(logits, mask, class_weights, ignore_index)
+        class_weights = compute_class_weights(mask, logits.shape[-1], ignore_index, group)
+    ce = weighted_cross_entropy(logits, mask, class_weights, ignore_index, group)
     dice = soft_dice_loss(logits, mask, ignore_index, smooth)
     return weight_ce * ce + weight_dice * dice
 

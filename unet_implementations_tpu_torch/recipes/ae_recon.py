@@ -14,9 +14,12 @@ on random weights, ``models/vgg.py``) or ``ssim_weight`` turn on the combined
 loss. Its phase-2 counterpart, ``recipes/ae_transfer.py``, grafts this
 model's encoder from ``best_model``.
 
-Entry points run on CUDA unless ``device`` names another device. Not ported
-(each raises ``NotImplementedError``): gradient accumulation and the latent
-space analysis. The reconstruction snapshots and comparison grids (matplotlib)
+Entry points run on CUDA unless ``device`` names another device. Gradient
+accumulation and data parallelism work as in ``recipes/our_unet.py``; the
+MSE (like every reconstruction term) is a mean over equal local batches, so
+the ranks' averaged gradient is the global batch's with no reduction in the
+loss. Not ported (it raises ``NotImplementedError``): the latent space
+analysis. The reconstruction snapshots and comparison grids (matplotlib)
 are not drawn; ``checkpoint_callback`` is the hook where they would go.
 """
 
@@ -33,12 +36,15 @@ from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterato
 from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage
 from unet_implementations_tpu_torch.ops.losses import FeatureFns, reconstruction_loss
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.parallel.mesh import create_mesh, stripe, wrap
 from unet_implementations_tpu_torch.recipes.common import check_grad_accum, evaluate_reconstruction
 from unet_implementations_tpu_torch.recipes.our_unet import not_ported
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
 from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
 from unet_implementations_tpu_torch.training.steps import (
+    make_accum_train_step,
     make_reconstruction_eval_step,
+    make_reconstruction_loss_fn,
     make_reconstruction_train_step,
     to_device,
 )
@@ -58,13 +64,16 @@ def build_model(dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0)
                               generator=torch.Generator().manual_seed(seed))
 
 
-def make_datasets(data_dir: str | Path, emit_uint8: bool = True):
+def make_datasets(data_dir: str | Path, emit_uint8: bool = True, process_index: int = 0,
+                  process_count: int = 1):
     """Train and validation datasets in reconstruction mode (no masks).
     ``emit_uint8`` leaves the pixels uint8; the steps scale them to [0, 1]
-    on the device."""
+    on the device. The training set is the ``process_index``-th of
+    ``process_count`` stripes; validation is not striped."""
     data_dir = Path(data_dir)
     train = PetDataset(data_dir / "Train" / "resized", None, include_augmented=True,
-                       mode="reconstruction", emit_uint8=emit_uint8)
+                       mode="reconstruction", emit_uint8=emit_uint8,
+                       process_index=process_index, process_count=process_count)
     val = PetDataset(data_dir / "Val" / "resized", None, include_augmented=False,
                      mode="reconstruction", emit_uint8=emit_uint8)
     return train, val
@@ -115,16 +124,17 @@ def train(
     device=None,
     num_threads: int = 8,
     grad_accum: int = 1,
+    use_mesh: bool = True,
     checkpoint_callback: Optional[Callable[[nn.Module, int], None]] = None,
     verbose: bool = True,
 ) -> Dict:
     """Train the autoencoder from scratch (or from ``resume``, a checkpoint
     directory) and return the loop's result. ``checkpoint_callback(model,
-    epoch)`` runs after each checkpoint is written."""
-    check_grad_accum(batch_size, grad_accum)
-    if grad_accum > 1:
-        raise not_ported("--grad_accum", 7)
+    epoch)`` runs after each checkpoint is written (by rank 0 alone under
+    data parallelism)."""
+    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
     device = default_device(device)
+    mesh = create_mesh(device) if use_mesh else None
     output_dir = Path(output_dir)
     write_training_config(output_dir, dict(
         data_dir=str(data_dir), output_dir=str(output_dir), batch_size=batch_size,
@@ -133,7 +143,7 @@ def train(
         save_every=save_every, seed=seed, dtype=str(dtype), grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir)
+    train_ds, val_ds = make_datasets(data_dir, **stripe(mesh))
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -147,10 +157,6 @@ def train(
         # Random weights, as the reference's VGG16(weights=None).
         feature_fns = make_features_fn(torch.Generator().manual_seed(seed + 2), dtype=dtype,
                                        device=device)
-    train_step = make_train_step(model, optimizer, mse_weight, perceptual_weight, ssim_weight,
-                                 feature_fns)
-    eval_step = make_reconstruction_eval_step(model)
-
     start_epoch, best, es_state, step = 0, None, None, 0
     if resume:
         meta = restore_checkpoint(resume, model, optimizer)
@@ -161,15 +167,22 @@ def train(
         if verbose:
             print(f"Resumed from epoch {start_epoch}")
 
+    trained = wrap(model) if mesh is not None else model
+    train_step = make_accum_train_step(
+        trained, optimizer, make_reconstruction_loss_fn(
+            make_loss_fn(mse_weight, perceptual_weight, ssim_weight, feature_fns)), grad_accum)
+    eval_step = make_reconstruction_eval_step(model)
+    local_batch = mesh.local_batch(batch_size) if mesh is not None else batch_size
+
     def train_batches(epoch):
-        return batch_iterator(train_ds, batch_size, shuffle=True, seed=seed * 1000 + epoch,
+        return batch_iterator(train_ds, local_batch, shuffle=True, seed=seed * 1000 + epoch,
                               drop_last=True, num_threads=num_threads)
 
     def val_batches():
         return batch_iterator(val_ds, batch_size, num_threads=num_threads)
 
     return train_loop(
-        model, optimizer,
+        trained, optimizer,
         train_step=train_step,
         eval_step=eval_step,
         train_batches=train_batches,
@@ -187,6 +200,7 @@ def train(
         early_stopping_state=es_state,
         arch_config=ARCH_CONFIG,
         checkpoint_callback=checkpoint_callback,
+        mesh=mesh,
         verbose=verbose,
     )
 

@@ -12,8 +12,8 @@ gradients and its 12 InstanceNorm backwards) never runs.
 
 Everything else is the ``our_unet`` recipe: SGD-Nesterov, poly LR, Dice +
 weighted CE, early stopping on mean foreground Dice, online augmentation,
-and its evaluation. Not ported (it raises ``NotImplementedError``): gradient
-accumulation.
+gradient accumulation (the frozen encoder takes no gradient in any
+microbatch), data parallelism, and its evaluation.
 """
 
 from __future__ import annotations
@@ -25,12 +25,12 @@ import torch
 
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models.unet import encoder_param_names
+from unet_implementations_tpu_torch.parallel.mesh import create_mesh, stripe
 from unet_implementations_tpu_torch.recipes import our_unet
 from unet_implementations_tpu_torch.recipes.common import check_grad_accum
 from unet_implementations_tpu_torch.recipes.our_unet import (
     build_model,
     make_datasets,
-    not_ported,
     online_augmenter,
 )
 from unet_implementations_tpu_torch.training.checkpoint import extract_encoder_params
@@ -66,15 +66,15 @@ def train(
     num_threads: int = 8,
     online_augment: bool = False,
     grad_accum: int = 1,
+    use_mesh: bool = True,
     verbose: bool = True,
 ) -> Dict:
     """Train the segmentation decoders on the frozen encoder of
     ``pretrained_encoder`` (an ``ae_recon`` checkpoint directory or its
     ``.pth``) and return the loop's result."""
-    check_grad_accum(batch_size, grad_accum)
-    if grad_accum > 1:
-        raise not_ported("--grad_accum", 7)
+    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
     device = default_device(device)
+    mesh = create_mesh(device) if use_mesh else None
     output_dir = Path(output_dir)
     write_training_config(output_dir, dict(
         data_dir=str(data_dir), output_dir=str(output_dir),
@@ -85,7 +85,8 @@ def train(
         grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment)
+    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment,
+                                     **stripe(mesh))
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -102,5 +103,6 @@ def train(
                         static_weights=static_weights, dice_weight=dice_weight,
                         ce_weight=ce_weight, patience=patience, save_every=save_every,
                         resume=resume, seed=seed, num_threads=num_threads,
-                        arch_config=ARCH_CONFIG, verbose=verbose,
-                        augment=online_augmenter(seed, device) if online_augment else None)
+                        arch_config=ARCH_CONFIG, verbose=verbose, grad_accum=grad_accum,
+                        mesh=mesh,
+                        augment=online_augmenter(seed, device, mesh) if online_augment else None)

@@ -22,9 +22,11 @@ the tower embeds the 224² view of each augmented batch live
 computed, and validation keeps its table. Without ``clip_weights`` the tower
 runs on random weights drawn from seed 0 in every command, so tables and live
 extraction agree. Evaluation conditions on the features unless
-``use_clip_features=False`` (the reference evaluator's quirk). Not ported
-(each raises ``NotImplementedError``): gradient accumulation and a device
-mesh, and the evaluation's visualizations.
+``use_clip_features=False`` (the reference evaluator's quirk). Gradient
+accumulation splits the features with their rows, and training is
+data-parallel under a process group as in ``recipes/our_unet.py`` (each rank
+builds the tables of its own stripe). Not ported (it raises
+``NotImplementedError``): the evaluation's visualizations.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.models.clip import CLIP_CONFIGS, ClipFeatureExtractor
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
+from unet_implementations_tpu_torch.parallel.mesh import create_mesh, stripe
 from unet_implementations_tpu_torch.recipes import our_unet
 from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
@@ -72,12 +75,15 @@ def build_model(dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0,
 
 
 def make_datasets(data_dir: str | Path, include_augmented: bool = True,
-                  emit_uint8: bool = True, train_clip_view: bool = True):
+                  emit_uint8: bool = True, train_clip_view: bool = True,
+                  process_index: int = 0, process_count: int = 1):
     """Train and validation datasets with the CLIP view from each split's
     ``resized_clip/`` (or one resize of each file's decode where it is
     missing). ``emit_uint8``: uint8 pixels and views, normalized on the
     device. ``train_clip_view=False`` leaves the view out of the training
-    items (online augmentation makes its own from the augmented pixels)."""
+    items (online augmentation makes its own from the augmented pixels).
+    The training set is the ``process_index``-th of ``process_count``
+    stripes; validation is not striped."""
     data_dir = Path(data_dir)
     train = PetDataset(
         data_dir / "Train" / "resized",
@@ -85,6 +91,8 @@ def make_datasets(data_dir: str | Path, include_augmented: bool = True,
         include_augmented=include_augmented,
         emit_uint8=emit_uint8,
         clip_dir=data_dir / "Train" / "resized_clip" if train_clip_view else None,
+        process_index=process_index,
+        process_count=process_count,
     )
     val = PetDataset(
         data_dir / "Val" / "resized",
@@ -207,7 +215,7 @@ def train(
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
-    use_mesh: bool = False,
+    use_mesh: bool = True,
     num_threads: int = 8,
     online_augment: bool = False,
     grad_accum: int = 1,
@@ -218,12 +226,9 @@ def train(
     else tables computed once here; with ``online_augment`` the training
     batches' features are extracted live from the augmented pixels. Returns
     the loop's result."""
-    check_grad_accum(batch_size, grad_accum)
-    if grad_accum > 1:
-        raise not_ported("--grad_accum", 7)
-    if use_mesh:
-        raise not_ported("a device mesh", 7)
+    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
     device = default_device(device)
+    mesh = create_mesh(device) if use_mesh else None
     output_dir = Path(output_dir)
     write_training_config(output_dir, dict(
         data_dir=str(data_dir), output_dir=str(output_dir),
@@ -238,7 +243,7 @@ def train(
     ))
 
     train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment,
-                                     train_clip_view=not online_augment)
+                                     train_clip_view=not online_augment, **stripe(mesh))
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -260,7 +265,8 @@ def train(
     for split in missing:
         tables[split] = _embedding_table(extractor, datasets[split])
     augment = (functools.partial(wrap_online_augment_clip, seed=seed, device=device,
-                                 extractor=extractor) if online_augment else None)
+                                 extractor=extractor, rank=mesh.rank if mesh else 0)
+               if online_augment else None)
     del extractor  # the tower stays only for live extraction
 
     clip_dim = CLIP_CONFIGS[clip_model].output_dim
@@ -271,7 +277,7 @@ def train(
         lr=lr, weighted_ce=weighted_ce, static_weights=static_weights,
         dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
         save_every=save_every, resume=resume, seed=seed, num_threads=num_threads,
-        arch_config=arch_config(clip_dim), verbose=verbose,
+        arch_config=arch_config(clip_dim), verbose=verbose, grad_accum=grad_accum, mesh=mesh,
         features=lambda batches, split: _attach_features(batches, tables[split]),
         augment=augment)
 

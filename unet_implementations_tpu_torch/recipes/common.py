@@ -33,6 +33,7 @@ from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterato
 from unet_implementations_tpu_torch.ops.losses import psnr, ssim
 from unet_implementations_tpu_torch.ops.metrics import SegmentationMetrics
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.parallel.distributed import world_size
 from unet_implementations_tpu_torch.training.steps import to_device
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
@@ -47,42 +48,47 @@ def not_ported(what: str, item: int) -> NotImplementedError:
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
 
 
-def augment_generator(seed: int, epoch: int, i: int, device) -> torch.Generator:
+def augment_generator(seed: int, epoch: int, i: int, device, rank: int = 0) -> torch.Generator:
     """The generator of batch ``i`` of ``epoch``'s online augmentation, on
     ``device``, seeded from ``(seed + 7, epoch, i)`` mixed by numpy's
-    ``SeedSequence``. Both wrappers draw from it, so they apply the same
-    transforms to the same batch."""
+    ``SeedSequence``, and the ``rank`` of a data-parallel process after them
+    (rank 0 draws what one process draws; JAX draws per image over the global
+    batch, so the ranks' images must not share their draws). Both wrappers
+    draw from it, so they apply the same transforms to the same batch."""
     mixed = np.random.SeedSequence([(seed + 7) & 0xFFFFFFFF, epoch & 0xFFFFFFFF,
-                                    i & 0xFFFFFFFF])
+                                    i & 0xFFFFFFFF] + ([rank] if rank else []))
     return torch.Generator(device=device).manual_seed(
         int(mixed.generate_state(1, np.uint64)[0]))
 
 
-def _augmented(batches: Iterable[Dict], epoch: int, seed: int, device, policy, clip: bool):
+def _augmented(batches: Iterable[Dict], epoch: int, seed: int, device, policy, clip: bool,
+               rank: int):
     device = torch.device(device)
     tables = policy_arrays(policy, device)
     augment = augment_and_normalize_with_clip if clip else augment_and_normalize
     for i, batch in enumerate(batches):
-        out = augment(augment_generator(seed, epoch, i, device),
+        out = augment(augment_generator(seed, epoch, i, device, rank),
                       to_device(batch["image"], device), to_device(batch["mask"], device),
                       policy=tables)
         yield batch, out
 
 
 def wrap_online_augment(batches: Iterable[Dict], epoch: int, seed: int, device,
-                        policy=None) -> Iterator[Dict]:
+                        policy=None, rank: int = 0) -> Iterator[Dict]:
     """Augment each host batch on ``device`` (the model's): its uint8 pixels
     and masks cross through pinned memory (``to_device``), are augmented
     under ``policy`` (the built-in table by default; classes from the masks)
     and ImageNet-normalized there. Yields the batch with ``image`` float32
     and ``mask`` (its dtype kept) as tensors on ``device``; the train step's
-    ``normalize_image`` passes the float image through."""
-    for batch, (image, mask) in _augmented(batches, epoch, seed, device, policy, clip=False):
+    ``normalize_image`` passes the float image through. ``rank``: see
+    ``augment_generator``."""
+    for batch, (image, mask) in _augmented(batches, epoch, seed, device, policy, clip=False,
+                                           rank=rank):
         yield dict(batch, image=image, mask=mask)
 
 
 def wrap_online_augment_clip(batches: Iterable[Dict], epoch: int, seed: int, device,
-                             extractor, policy=None) -> Iterator[Dict]:
+                             extractor, policy=None, rank: int = 0) -> Iterator[Dict]:
     """``wrap_online_augment`` with live CLIP extraction: the frozen
     ``extractor`` embeds the 224² view of each AUGMENTED batch, so the
     features follow the pixels the model sees (tables cannot: the pixels
@@ -90,22 +96,35 @@ def wrap_online_augment_clip(batches: Iterable[Dict], epoch: int, seed: int, dev
     ``device``, a plain tensor that a training forward may save, and drops
     the loader's ``clip_image``."""
     for batch, (image, mask, clip_image) in _augmented(batches, epoch, seed, device, policy,
-                                                       clip=True):
+                                                       clip=True, rank=rank):
         out = dict(batch, image=image, mask=mask, clip_features=extractor(clip_image).clone())
         out.pop("clip_image", None)
         yield out
 
 
-def check_grad_accum(batch_size: int, grad_accum: int) -> None:
+def check_grad_accum(batch_size: int, grad_accum: int, use_mesh: bool = False) -> None:
     """Fail fast on an indivisible accumulation split, before the datasets
     load (the train loops drop the last partial batch, so every training
-    batch is ``batch_size``)."""
+    batch is ``batch_size``).
+
+    With ``use_mesh`` under a process group of W ranks, ``batch_size`` (the
+    global batch) must also split into W × ``grad_accum`` equal parts: each
+    rank's stripe, then its microbatches. JAX only warns when the
+    microbatch does not divide its device count, since XLA reshards; with
+    one process per GPU an uneven split cannot be laid out, so this
+    raises."""
     if grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {grad_accum}")
     if batch_size % grad_accum:
         raise ValueError(
             f"--grad_accum {grad_accum} does not divide --batch_size "
             f"{batch_size} into equal microbatches"
+        )
+    ranks = world_size() if use_mesh else 1
+    if batch_size % (ranks * grad_accum):
+        raise ValueError(
+            f"--batch_size {batch_size} does not divide into {ranks} ranks x "
+            f"{grad_accum} microbatches of equal size"
         )
 
 

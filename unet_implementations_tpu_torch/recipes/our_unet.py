@@ -12,8 +12,14 @@ float32 parameters and bf16 compute unless ``dtype`` says otherwise. Entry
 points run on CUDA unless ``device`` names another device. With
 ``online_augment`` each training batch is augmented on that device
 (``recipes/common.py::wrap_online_augment``) and ``Train/augmented/`` is not
-read. Not ported yet (each raises ``NotImplementedError``): spatial and
-gradient-accumulation training, and the evaluation's visualizations.
+read. ``grad_accum`` > 1 splits each batch into that many sequential
+microbatches, one optimizer update per batch
+(``training/steps.py::make_accum_train_step``). Under a process group of
+several ranks (``parallel/``) training is data-parallel unless
+``use_mesh=False``: each rank trains on its stripe of the training files,
+``batch_size`` stays the global batch, and the loss is the global batch's.
+Not ported yet (each raises ``NotImplementedError``): spatial training and
+the evaluation's visualizations.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
+from unet_implementations_tpu_torch.parallel.mesh import DataParallel, create_mesh, stripe, wrap
 from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
@@ -36,8 +43,9 @@ from unet_implementations_tpu_torch.recipes.common import (
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
 from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
 from unet_implementations_tpu_torch.training.steps import (
+    make_accum_train_step,
     make_segmentation_eval_step,
-    make_segmentation_train_step,
+    make_segmentation_loss_fn,
     to_device,
 )
 from unet_implementations_tpu_torch.training.train_state import poly_lr, sgd_nesterov
@@ -86,10 +94,13 @@ def make_datasets(
     include_augmented: bool = True,
     normalize_train: bool = True,
     emit_uint8: bool = True,
+    process_index: int = 0,
+    process_count: int = 1,
 ):
     """Train and validation datasets for the training loop. ``emit_uint8``
     (on for training) leaves the pixels uint8; the steps normalize them on
-    the device."""
+    the device. The training set is the ``process_index``-th of
+    ``process_count`` stripes of the files; validation is not striped."""
     data_dir = Path(data_dir)
     train = PetDataset(
         data_dir / "Train" / "resized",
@@ -97,6 +108,8 @@ def make_datasets(
         include_augmented=include_augmented,
         normalize=normalize_train,
         emit_uint8=emit_uint8,
+        process_index=process_index,
+        process_count=process_count,
     )
     val = PetDataset(
         data_dir / "Val" / "resized",
@@ -130,17 +143,17 @@ def train(
     online_augment: bool = False,
     spatial: int = 0,
     grad_accum: int = 1,
+    use_mesh: bool = True,
     verbose: bool = True,
 ) -> Dict:
     """Train from scratch (or from ``resume``, a checkpoint directory) and
     return the loop's result (``best_metric``, ``epochs_run``, ``step`` and
     each epoch's timers)."""
-    check_grad_accum(batch_size, grad_accum)
+    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
     if spatial and spatial > 1:
         raise not_ported("--spatial", 7)
-    if grad_accum > 1:
-        raise not_ported("--grad_accum", 7)
     device = default_device(device)
+    mesh = create_mesh(device) if use_mesh else None
     output_dir = Path(output_dir)
     write_training_config(output_dir, dict(
         data_dir=str(data_dir), output_dir=str(output_dir), batch_size=batch_size,
@@ -151,7 +164,8 @@ def train(
         online_augment=online_augment, spatial=spatial, grad_accum=grad_accum,
     ))
 
-    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment)
+    train_ds, val_ds = make_datasets(data_dir, include_augmented=not online_augment,
+                                     **stripe(mesh))
     if verbose:
         print(f"Training dataset size: {len(train_ds)}")
         print(f"Validation dataset size: {len(val_ds)}")
@@ -162,27 +176,35 @@ def train(
                epochs=epochs, lr=lr, weighted_ce=weighted_ce, static_weights=static_weights,
                dice_weight=dice_weight, ce_weight=ce_weight, patience=patience,
                save_every=save_every, resume=resume, seed=seed, num_threads=num_threads,
-               arch_config=ARCH_CONFIG, verbose=verbose,
-               augment=online_augmenter(seed, device) if online_augment else None)
+               arch_config=ARCH_CONFIG, verbose=verbose, grad_accum=grad_accum, mesh=mesh,
+               augment=online_augmenter(seed, device, mesh) if online_augment else None)
 
 
-def online_augmenter(seed: int, device) -> Callable[[Iterable[Dict], int], Iterable[Dict]]:
+def online_augmenter(seed: int, device, mesh: Optional[DataParallel] = None
+                     ) -> Callable[[Iterable[Dict], int], Iterable[Dict]]:
     """``fit``'s ``augment`` hook for ``online_augment``: each epoch's
-    training batches augmented on ``device``."""
-    return lambda batches, epoch: wrap_online_augment(batches, epoch, seed, device)
+    training batches augmented on ``device`` (with the rank's own draws
+    under ``mesh``)."""
+    rank = mesh.rank if mesh is not None else 0
+    return lambda batches, epoch: wrap_online_augment(batches, epoch, seed, device, rank=rank)
 
 
 def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         val_ds: PetDataset, output_dir: Path, *, batch_size: int, epochs: int, lr: float,
         weighted_ce: bool, static_weights: bool, dice_weight: float, ce_weight: float,
         patience: int, save_every: int, resume: Optional[str], seed: int, num_threads: int,
-        arch_config: Dict, verbose: bool,
+        arch_config: Dict, verbose: bool, grad_accum: int = 1,
+        mesh: Optional[DataParallel] = None,
         features: Optional[Callable[[Iterable[Dict], str], Iterable[Dict]]] = None,
         augment: Optional[Callable[[Iterable[Dict], int], Iterable[Dict]]] = None) -> Dict:
     """The segmentation training of ``model`` by ``optimizer`` (shared with
     ``recipes/ae_transfer.py`` and ``recipes/clip_unet.py``): the loss's
-    class weights, the train and eval steps, a resume, and ``train_loop``
-    with poly LR decay and early stopping on mean foreground Dice.
+    class weights, the train step (``grad_accum`` microbatches a batch) and
+    the eval step, a resume, and ``train_loop`` with poly LR decay and early
+    stopping on mean foreground Dice. Under ``mesh`` the model is wrapped
+    for data parallelism after the resume, ``train_ds`` is this rank's
+    stripe read in batches of ``batch_size / world_size``, and validation
+    runs the whole of ``val_ds`` at ``batch_size`` on the bare model.
     ``features(batches, split)`` ("Train" or "Val") attaches each batch's
     ``clip_features``; the steps then feed them to the model.
     ``augment(batches, epoch)``, when given, takes the place of ``features``
@@ -197,8 +219,6 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
     loss_kw = dict(weight_ce=ce_weight, weight_dice=dice_weight,
                    dynamic_weights=weighted_ce and not static_weights, static_weights=sw)
     use_clip = features is not None
-    train_step = make_segmentation_train_step(model, optimizer, use_clip=use_clip, **loss_kw)
-    eval_step = make_segmentation_eval_step(model, use_clip=use_clip, **loss_kw)
 
     start_epoch, best, es_state, step = 0, None, None, 0
     if resume:
@@ -210,11 +230,17 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         if verbose:
             print(f"Resumed from epoch {start_epoch}")
 
+    trained = wrap(model) if mesh is not None else model
+    train_step = make_accum_train_step(
+        trained, optimizer, make_segmentation_loss_fn(use_clip=use_clip, **loss_kw), grad_accum)
+    eval_step = make_segmentation_eval_step(model, use_clip=use_clip, **loss_kw)
+    local_batch = mesh.local_batch(batch_size) if mesh is not None else batch_size
+
     def attach(batches, split):
         return batches if features is None else features(batches, split)
 
     def train_batches(epoch):
-        batches = batch_iterator(train_ds, batch_size, shuffle=True, seed=seed * 1000 + epoch,
+        batches = batch_iterator(train_ds, local_batch, shuffle=True, seed=seed * 1000 + epoch,
                                  drop_last=True, num_threads=num_threads)
         return attach(batches, "Train") if augment is None else augment(batches, epoch)
 
@@ -222,7 +248,7 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         return attach(batch_iterator(val_ds, batch_size, num_threads=num_threads), "Val")
 
     return train_loop(
-        model, optimizer,
+        trained, optimizer,
         train_step=train_step,
         eval_step=eval_step,
         train_batches=train_batches,
@@ -239,6 +265,7 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         best_metric=best,
         early_stopping_state=es_state,
         arch_config=arch_config,
+        mesh=mesh,
         verbose=verbose,
     )
 

@@ -17,7 +17,9 @@ writes Orbax directories. A checkpoint here is a directory too
   the JAX package's sidecar.
 
 ``restore_params`` also takes a bare reference ``.pth``. The learning rate
-has no state: it is a function of the epoch.
+has no state: it is a function of the epoch. A model wrapped for data
+parallelism is saved as the module inside it (no ``module.`` prefix), so its
+checkpoints load strictly into a bare ``UNet``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from unet_implementations_tpu_torch.parallel.mesh import unwrap
 
 MODEL_FILE = "model.pth"
 META_FILE = "meta.json"
@@ -63,6 +67,7 @@ def save_checkpoint(
 ) -> None:
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
+    model = unwrap(model)
     ckpt = {
         "epoch": int(epoch),
         "model_state_dict": {k: v.detach().to("cpu", torch.float32).contiguous()

@@ -19,6 +19,16 @@ would have. Losses stay on the device: the host waits only for the step
 ``run_ahead`` steps back (env ``UNET_TPU_RUN_AHEAD``, default 4) and reads
 the epoch's losses once. ``UNET_TPU_STEP_HEARTBEAT=N`` prints the timers
 every N steps.
+
+Under data parallelism (``mesh``, ``parallel/mesh.py``) every rank runs this
+loop on its stripe of the training set with the wrapped model. Only rank 0
+writes the CSV, the checkpoints (the unwrapped module's state dict) and
+``training_config.json``; the other ranks wait at a barrier after each write.
+Each rank draws its own dropout masks (the rank is folded into the
+generator's seed). Validation is not striped, as in JAX: every rank runs the
+whole validation set and so reaches the same early-stopping decision without
+communicating; the loop all-reduces the decision once an epoch and raises if
+the ranks disagree.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from unet_implementations_tpu_torch.parallel.distributed import barrier, is_primary
+from unet_implementations_tpu_torch.parallel.mesh import DataParallel, unwrap
 from unet_implementations_tpu_torch.training.checkpoint import save_checkpoint
 from unet_implementations_tpu_torch.training.early_stopping import EarlyStopping
 from unet_implementations_tpu_torch.training.train_state import set_learning_rate
@@ -47,16 +59,24 @@ PROFILED_STEPS = 3
 
 
 def write_training_config(output_dir: Path, config: Dict) -> None:
-    output_dir.mkdir(parents=True, exist_ok=True)
-    with open(output_dir / "training_config.json", "w") as f:
-        json.dump(config, f, indent=4, default=str)
+    """``training_config.json``, written by rank 0 (or the only process);
+    every process of a group waits for it."""
+    if is_primary():
+        output_dir.mkdir(parents=True, exist_ok=True)
+        with open(output_dir / "training_config.json", "w") as f:
+            json.dump(config, f, indent=4, default=str)
+    barrier()
 
 
-def dropout_generator(dropout_seed: int, step: int, device: torch.device) -> torch.Generator:
+def dropout_generator(dropout_seed: int, step: int, device: torch.device,
+                      rank: int = 0) -> torch.Generator:
     """The generator of global step ``step``, seeded from ``(dropout_seed,
     step)`` mixed by numpy's ``SeedSequence`` (the CPU generator keeps only
-    the low 32 bits of its seed, so both must reach them)."""
-    mixed = np.random.SeedSequence([dropout_seed & 0xFFFFFFFF, step & 0xFFFFFFFF])
+    the low 32 bits of its seed, so both must reach them), and a
+    data-parallel ``rank`` after them (rank 0 draws what one process
+    draws)."""
+    mixed = np.random.SeedSequence([dropout_seed & 0xFFFFFFFF, step & 0xFFFFFFFF]
+                                   + ([rank] if rank else []))
     return torch.Generator(device=device).manual_seed(int(mixed.generate_state(1, np.uint64)[0]))
 
 
@@ -128,6 +148,7 @@ def train_loop(
     profile_dir: Optional[str | Path] = None,
     checkpoint_callback: Optional[Callable[[nn.Module, int], None]] = None,
     early_stopping_state: Optional[Dict] = None,
+    mesh: Optional[DataParallel] = None,
     verbose: bool = True,
 ) -> Dict[str, Any]:
     """Run the training loop from ``start_epoch`` (global step ``step``);
@@ -141,10 +162,13 @@ def train_loop(
 
     ``train_batches(epoch)`` and ``val_batches()`` yield host numpy batch
     dicts; ``task`` selects the validation protocol and the CSV schema.
+    ``mesh``: the data-parallel context of a wrapped ``model`` (see the
+    module's docstring); only the primary process writes files.
     """
     output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
     device = next(model.parameters()).device
+    primary = is_primary()
+    rank = mesh.rank if mesh is not None else 0
 
     monitor_mode = "max" if task == "segmentation" else "min"
     if best_metric is None:
@@ -157,10 +181,14 @@ def train_loop(
 
     log_file = output_dir / "training_log.csv"
     header = SEG_CSV_HEADER if task == "segmentation" else AE_CSV_HEADER
-    if start_epoch == 0 or not log_file.exists():
-        log_file.write_text(header + "\n")
-    else:
-        _truncate_log(log_file, header, start_epoch)
+    if primary:
+        output_dir.mkdir(parents=True, exist_ok=True)
+        if start_epoch == 0 or not log_file.exists():
+            log_file.write_text(header + "\n")
+        else:
+            _truncate_log(log_file, header, start_epoch)
+    if mesh is not None:
+        barrier()
 
     run_ahead = int(os.environ.get("UNET_TPU_RUN_AHEAD", "4"))
     heartbeat = int(os.environ.get("UNET_TPU_STEP_HEARTBEAT", "0"))
@@ -190,7 +218,7 @@ def train_loop(
             if batch is None:
                 break
             t0 = time.perf_counter()
-            losses.append(train_step(batch, dropout_generator(dropout_seed, step, device)))
+            losses.append(train_step(batch, dropout_generator(dropout_seed, step, device, rank)))
             step += 1
             window.push()
             step_time += time.perf_counter() - t0
@@ -230,8 +258,9 @@ def train_loop(
                 f"{epoch + 1},{train_loss:.6f},{val['loss']:.6f},"
                 f"{val['mse']:.6f},{val['psnr']:.4f},{lr:.7f},{epoch_time:.2f}"
             )
-        with open(log_file, "a") as f:
-            f.write(row + "\n")
+        if primary:
+            with open(log_file, "a") as f:
+                f.write(row + "\n")
         if verbose:
             print(f"Epoch {epoch + 1}/{epochs}: train={train_loss:.4f} "
                   f"val={val['loss']:.4f} metric={metric:.4f} lr={lr:.6f} "
@@ -249,8 +278,10 @@ def train_loop(
         # state reflects this epoch and a resume stops where an
         # uninterrupted run would.
         stop = early_stopping(metric)
+        if mesh is not None:
+            mesh.check_agree(is_best=is_best, stop=stop)
 
-        if (epoch + 1) % save_every == 0 or is_best:
+        if primary and ((epoch + 1) % save_every == 0 or is_best):
             dirs = [output_dir / "checkpoints" / f"epoch_{epoch + 1}"]
             if is_best:
                 dirs.append(output_dir / "best_model")
@@ -258,7 +289,9 @@ def train_loop(
                 save_checkpoint(d, model, optimizer, epoch + 1, best_metric, arch_config,
                                 early_stopping=early_stopping.state_dict(), step=step)
             if checkpoint_callback is not None:
-                checkpoint_callback(model, epoch + 1)
+                checkpoint_callback(unwrap(model), epoch + 1)
+        if mesh is not None:
+            barrier()
 
         epochs_run = epoch + 1
         if stop:
