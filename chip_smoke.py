@@ -184,6 +184,40 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    the global ``batch_size`` in the config, each rank's 128-image stripe, and
    checkpoints that load strictly. The two gloo ranks time-slice the card, so
    their times mean nothing; a failed rank fails the phase.
+13. Spatial partitioning (``parallel/spatial.py``): SP_RANKS processes (this
+   script with ``--sp-worker``) over gloo on the one card, one space group,
+   each rank holding half of every image's rows. (a) Float32, full-width
+   ``unet_6stage`` dense at 512² b2, dropout rates 0: the spatial forward
+   with the kernels (``spatial_forward``, gathered) against one process's
+   forward with the kernels (rel-L2 SP_FWD_REL); the spatial step with the
+   kernels (``spatial_train_step``) against one process's step (the loss
+   within SP_LOSS_REL relative, the parameters, worst group rel-L2, within
+   phase 7's TRAIN_F32_PLAIN_GRAD_REL: the ranks' K1 sums run in another
+   order, and slopes flip as in phase 7) and against the rank's own step
+   with the split K1's values differentiated as the plain version (the same
+   forward and slopes; parameters within SP_PARAM_REL); the ranks'
+   parameters equal. (b) Per rank, per forward and per step, K1/K2a 22/5
+   and K1bwd 22, every K1 split around its all-reduce and every K1bwd
+   two-pass (the split counts 22 and 22); the step with the split K1's
+   values K1 22 alone; the same forward and step through the plain versions
+   (K1's plain forward and backward with the space group, K2a's plain
+   halo'd call): no launch. (c) In this process, the halo'd K2a
+   (``upsample2x_nhwc_halo``) on two row shards of each K2a input of the b2
+   forward, float32 and bf16, against the unsharded K2a: bit for bit. (e)
+   ``python -m torch.distributed.run --nproc_per_node 2 chip_smoke.py
+   --cli-worker our_unet train --spatial 2`` for one epoch on phase 8's
+   dataset (one CSV row, ``spatial`` 2 in the config, checkpoints that load
+   strictly), then ``... --cli-worker predict --spatial 2 --f32`` on
+   SP_SERVE images against one process's ``cli predict``: the masks equal
+   wherever one process's top logit leads the next by SP_MARGIN or more,
+   with at most SP_TIE_SHARE of the pixels within it. (d) Printed beside the
+   card, not gated: the bf16 step
+   at SP_BIG² b1 (``unet_6stage`` with its dropout, the same generator on both
+   ranks), its ms (host clock around a synchronized step, median of
+   SP_BIG_STEPS after one) and each rank's peak memory, against one
+   process's. The ranks time-slice the card and their collectives cross the
+   host, so those times are correctness-run times; the peaks are what
+   spatial partitioning is for.
 
 ``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
 comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
@@ -193,10 +227,18 @@ step after its first batch), from phase 8's dataset written under ROOT. The
 timing program uses only the package's entry points, so it runs against an
 earlier checkout as well.
 
+``python3 chip_smoke.py --spatial-cards`` runs spatial partitioning as a user
+launches it on a machine of four or more cards, one rank a card over NCCL:
+``python -m torch.distributed.run --nproc_per_node N -m
+unet_implementations_tpu_torch.cli our_unet train --spatial N`` for one epoch
+(one space group), the same with ``--spatial N/2`` (two data ranks), and
+``predict --spatial N --f32`` against one process, with phase 13's checks
+and TF32 off in every process (``NVIDIA_TF32_OVERRIDE=0``).
+
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths in this process (phases 3 and 6-12).
+runs of the main paths (phases 3 and 6-13; phase 13's in its ranks).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
@@ -253,6 +295,7 @@ from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear, upsample2x_nhwc
 from unet_implementations_tpu_torch.parallel import distributed
 from unet_implementations_tpu_torch.parallel import mesh as dp_mesh
+from unet_implementations_tpu_torch.parallel import spatial
 from unet_implementations_tpu_torch.recipes import clip_unet
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.training.checkpoint import (
@@ -404,6 +447,32 @@ DP_RANKS = 2
 DP_BATCH = 16
 DP_REL = 1e-4
 DP_TIMEOUT_S = 420
+# Spatial partitioning (phase 13): SP_RANKS gloo ranks on the one card, one
+# space group. (a) float32, b2 at 512², against one process with the same
+# kernels: the forward's rel-L2 and the step's loss (relative). A rank's K1
+# sums its half's chunks, then the halves: another order than one process's,
+# so pre-activations within a float32 rounding of zero take the other slope
+# and the gradients jump, as in phase 7. On an H100 (80GB HBM3, 700 W) it read
+# 6.544e-3 (worst group, an InstanceNorm bias at level 4, whose update from 0
+# is its gradient) against one process's step, so that comparison takes phase 7's
+# TRAIN_F32_PLAIN_GRAD_REL; SP_PARAM_REL holds the step against the rank's
+# own step with the split K1's values and the plain backward (the same
+# slopes), as phase 7's TRAIN_F32_GRAD_REL does. (d) the bf16 step at SP_BIG²
+# b1, timed over SP_BIG_STEPS steps after one. (e) the served masks: equal
+# where one process's top-two logit margin is at least SP_MARGIN; within it,
+# at most SP_TIE_SHARE of the pixels.
+SP_RANKS = 2
+SP_BATCH = 2
+SP_FWD_REL = 1e-4
+SP_LOSS_REL = 1e-5
+SP_PARAM_REL = 1e-4
+SP_BIG = 2048
+SP_BIG_STEPS = 3
+SP_SERVE = 4
+SP_MARGIN = 1e-3
+SP_TIE_SHARE = 1e-3
+# Per rank, of a forward and of a step: every K1 split, every K1bwd two-pass.
+SP_SPLIT = {"K1 split": sum(K1_CALLS), "K1bwd split": sum(K1_CALLS)}
 # One checkout's run of ``--ab-steps`` (its kernels' build included).
 AB_TIMEOUT_S = 600
 PER_ACCUM_STEP = {k: v * ACCUM for k, v in PER_STEP["dense"].items()}
@@ -550,6 +619,8 @@ def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     k1.fused_instance_norm.backward_launches = 0
+    k1.fused_instance_norm.split_launches = 0
+    k1.fused_instance_norm.split_backward_launches = 0
     k4.winograd_conv_s2d.launches = 0
     k4.winograd_conv_s2d.launches_folded = 0
 
@@ -583,8 +654,35 @@ def times(expected: dict, n: int) -> dict:
     return {k: v * n for k, v in expected.items()}
 
 
-def k1_plain(x, s, b, eps, slope, group=1):
+class _SpaceK1(torch.autograd.Function):
+    """K1 on row shards (a space group) under one autograd node whose backward
+    is the plain version (``_torch_backward``, its sums all-reduced): the
+    forward is the plain version too (the wrapper's route for CPU tensors, on
+    the card), or with ``kernel`` the split kernel's values (one launch)."""
+
+    @staticmethod
+    def forward(ctx, x, s, b, eps, slope, group, space_group, kernel):
+        run = k1._cuda_forward if kernel else k1._torch_forward
+        y, mean, rstd = run(x, s, b, eps, slope, group, space_group)
+        ctx.save_for_backward(x, s, b, mean, rstd)
+        ctx.args = (slope, group, space_group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, ds, db = k1._torch_backward(*ctx.saved_tensors, dy, *ctx.args)
+        return dx, ds, db, None, None, None, None, None
+
+
+def k1_plain(x, s, b, eps, slope, group=1, space_group=None):
+    if space_group is not None:
+        return _SpaceK1.apply(x, s, b, eps, slope, group, space_group, False)
     return k1._torch_forward(x, s, b, eps, slope, group)[0]
+
+
+def k2_halo_plain(x, above, below):
+    """The plain version of ``upsample2x_nhwc_halo``."""
+    return upsample2x_nhwc(torch.cat([above, x, below], dim=1))[:, 2:2 * x.shape[1] + 2]
 
 
 class _Values(torch.autograd.Function):
@@ -600,10 +698,14 @@ class _Values(torch.autograd.Function):
         return grad, None
 
 
-def k1_kernel_values(x, s, b, eps, slope, group=1):
+def k1_kernel_values(x, s, b, eps, slope, group=1, space_group=None):
     """K1's output, mean and rstd (one launch), differentiated as the plain
     version: its op sequence with the kernel's statistics in value, so the
-    LeakyReLU takes the slope K1's backward takes at every element."""
+    LeakyReLU takes the slope K1's backward takes at every element. On row
+    shards (``space_group``): the split kernel's values under one node whose
+    backward is the plain one."""
+    if space_group is not None:
+        return _SpaceK1.apply(x, s, b, eps, slope, group, space_group, True)
     with torch.no_grad():
         y_k, mean_k, rstd_k = k1._cuda_forward(x, s, b, eps, slope, group)
     _, mean, rstd = k1._torch_forward(x, s, b, eps, slope, group)
@@ -614,10 +716,10 @@ def k1_kernel_values(x, s, b, eps, slope, group=1):
     return _Values.apply(y, y_k)
 
 
-def k1_reordered(x, s, b, eps, slope, group=1):
+def k1_reordered(x, s, b, eps, slope, group=1, space_group=None):
     """The plain version with its sums over the spatially flipped input: the
     same function, its float32 sums in another order."""
-    return k1_plain(x.flip((1, 2)), s, b, eps, slope, group).flip((1, 2))
+    return k1_plain(x.flip((1, 2)), s, b, eps, slope, group, space_group).flip((1, 2))
 
 
 @contextmanager
@@ -625,9 +727,9 @@ def plain_versions(k1_version=k1_plain):
     """Route the model's blocks through the plain PyTorch versions (K1
     through ``k1_version``)."""
     names = ("fused_instance_norm", "upsample2x_nhwc_fast", "upsample2x_into_s2d_fast",
-             "fused_s2d_tail")
+             "fused_s2d_tail", "upsample2x_nhwc_halo")
     saved = [getattr(blocks, name) for name in names]
-    plain = (k1_version, upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail)
+    plain = (k1_version, upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail, k2_halo_plain)
     for name, fn in zip(names, plain):
         setattr(blocks, name, fn)
     try:
@@ -2995,6 +3097,8 @@ def cli_worker(argv: list) -> int:
     """One rank of ``torch.distributed.run`` on the one card: joins the
     launcher's group over gloo (NCCL refuses two ranks on one device), then
     runs ``cli.main(argv)``."""
+    torch.backends.cudnn.allow_tf32 = False  # as main(): float32 is compared
+    torch.backends.cuda.matmul.allow_tf32 = False
     distributed.maybe_initialize_distributed(backend="gloo", device="cuda:0")
     try:
         cli.main(argv)
@@ -3119,6 +3223,340 @@ def phase_parallel(root: Path):
     ddp_world_one()
     torch.cuda.empty_cache()
     dp_two_ranks(root)
+
+
+def sp_launches() -> dict:
+    return {**launches(), "K1 split": k1.fused_instance_norm.split_launches,
+            "K1bwd split": k1.fused_instance_norm.split_backward_launches}
+
+
+def sp_counted(fn, expected: dict, out: dict, key: str):
+    """``fn()`` with the counts set to 0 just before it; their reading just
+    after goes into ``out[key]`` beside ``expected`` (the parent checks)."""
+    reset_launches()
+    result = fn()
+    torch.cuda.synchronize()
+    out[key] = {"got": sp_launches(), "expected": expected}
+    return result
+
+
+def no_backward(expected: dict) -> dict:
+    return {**expected, "K1bwd": 0, "K1bwd split": 0}
+
+
+# Phase 13's step variants: the version of K1 the blocks run (None: the
+# wrappers, with the kernels), and the launches of a step.
+SP_MODES = {
+    "kernels": (None, {**PER_STEP["dense"], **SP_SPLIT}),
+    "kernel values": (k1_kernel_values, {**NO_LAUNCHES, "K1": sum(K1_CALLS),
+                                        "K1 split": sum(K1_CALLS), "K1bwd split": 0}),
+    "plain": (k1_plain, {**NO_LAUNCHES, "K1 split": 0, "K1bwd split": 0}),
+}
+
+
+def sp_worker(rank: int, port: int, d: Path) -> int:
+    """One gloo rank of the space group on the card: (a) and (b) the float32
+    spatial forward and step in each of SP_MODES, (d) the bf16 step at
+    SP_BIG² b1; writes what the parent compares."""
+    torch.backends.cudnn.allow_tf32 = False  # as main(): float32 is compared
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.maybe_initialize_distributed(f"tcp://localhost:{port}", SP_RANKS, rank,
+                                             backend="gloo", device="cuda:0")
+    try:
+        grid = spatial.create_mesh_dp_sp(SP_RANKS, device="cuda:0")
+        data = dict(np.load(d / "batch.npz"))
+        batch = device_batch({k: data[k] for k in ("image", "mask")})
+        x = torch.from_numpy(data["x"]).cuda()
+        out = {}
+        for mode, (k1_version, expected) in SP_MODES.items():
+            model = dp_model().to("cuda:0")
+            model.load_state_dict(torch.load(d / "init.pt"), strict=True)
+            step = spatial.spatial_train_step(model, sgd_nesterov(model.parameters()), grid)
+            with deterministic(), plain_versions(k1_version) if k1_version else nullcontext():
+                logits = sp_counted(lambda: spatial.spatial_forward(model, grid, x),
+                                    no_backward(expected), out, f"{mode} forward")
+                out[f"{mode} logits"] = spatial.gather_rows(logits, grid.context).cpu()
+                out[f"{mode} loss"] = sp_counted(lambda: float(step(batch, None)), expected,
+                                                 out, f"{mode} step")
+            out[f"{mode} params"] = {k: v.cpu() for k, v in params_of(model).items()}
+            del model, step
+        torch.cuda.empty_cache()
+
+        big = device_batch(dict(np.load(d / "big.npz")))
+        model = unet_6stage(dtype=torch.bfloat16, device="cuda:0",
+                            generator=torch.Generator().manual_seed(SEED + 18))
+        step = spatial.spatial_train_step(model, sgd_nesterov(model.parameters()), grid)
+        gen = torch.Generator(device="cuda:0").manual_seed(SEED)  # alike on both ranks
+        torch.cuda.reset_peak_memory_stats()
+        sp_counted(lambda: step(big, gen), SP_MODES["kernels"][1], out, "big step")
+        ms = []
+        for _ in range(SP_BIG_STEPS):
+            t0 = time.perf_counter()
+            step(big, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["big ms"], out["big peak"] = ms, torch.cuda.max_memory_allocated()
+        torch.save(out, d / f"sp_rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def sp_halo_k2() -> None:
+    """(c): the halo'd K2a on two row shards of each K2a input of the b2
+    forward against the unsharded K2a, bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for side, c in K2_INPUTS:
+            x = k2_input(SP_BATCH, side, c, seed=SEED + 19, dtype=dtype)
+            full = k2.upsample2x_nhwc_fast(x)
+            h = side // 2
+            top = k2.upsample2x_nhwc_halo(x[:, :h], x[:, :1], x[:, h:h + 1])
+            bottom = k2.upsample2x_nhwc_halo(x[:, h:], x[:, h - 1:h], x[:, -1:])
+            if not torch.equal(torch.cat([top, bottom], dim=1), full):
+                raise AssertionError(f"halo'd K2a {tuple(x.shape)} {dtype}: rows differ from "
+                                     f"the unsharded K2a")
+    log(f"(c) halo'd K2a on two row shards of each of the {len(K2_INPUTS)} K2a inputs (b"
+        f"{SP_BATCH}, float32 and bf16): bit for bit the unsharded K2a")
+
+
+def sp_check_launches(ranks: list) -> None:
+    """(b): every counted run of every rank read its expected launches; the
+    runs with the kernels go into the kernels line."""
+    for r, out in enumerate(ranks):
+        for key in [f"{m} {run}" for m in SP_MODES for run in ("forward", "step")] + ["big step"]:
+            got, expected = out[key]["got"], out[key]["expected"]
+            if got != expected:
+                raise AssertionError(f"rank {r} {key}: launches {got}, expected {expected}")
+            if key.startswith("kernels") or key == "big step":
+                for name in KERNELS:
+                    report["path_launches"][name] += got[name]
+    log(f"(b) launches a rank: forward {ranks[0]['kernels forward']['got']}, step "
+        f"{ranks[0]['kernels step']['got']}; kernel values {ranks[0]['kernel values step']['got']}"
+        f"; plain versions none")
+
+
+def sp_one_process(state: dict, data: dict) -> dict:
+    """The one-process float32 forward and step on the same inputs, with the
+    kernels."""
+    model = dp_model().cuda()
+    model.load_state_dict(state, strict=True)
+    x = torch.from_numpy(data["x"]).cuda()
+    batch = device_batch({k: data[k] for k in ("image", "mask")})
+    model.eval()
+    with deterministic(), torch.no_grad():
+        logits = counted_path(lambda: model(x), PER_FORWARD["dense"]).cpu()
+    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    with deterministic():
+        loss = counted_path(lambda: float(step(batch, None)), PER_STEP["dense"])
+    return {"logits": logits, "loss": loss, "params": params_of(model)}
+
+
+def sp_big_one_process(big: dict) -> tuple[list, int]:
+    """One process's bf16 step at SP_BIG² b1: ms (as the ranks time it) and
+    peak memory."""
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 18))
+    step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = device_batch(big)
+    torch.cuda.reset_peak_memory_stats()
+    counted_path(lambda: step(batch, gen), PER_STEP["dense"])
+    ms = []
+    for _ in range(SP_BIG_STEPS):
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def sp_step_gates(ranks: list, ref: dict, groups: dict) -> None:
+    """(a)'s step gates: each rank's step with the kernels against one
+    process's (the loss, and the parameters at the bound K1's summation order
+    allows) and against its own step with the split K1's values
+    differentiated as the plain version (the parameters at SP_PARAM_REL)."""
+    ref_params = {k: v.cuda() for k, v in ref["params"].items()}
+    for r, out in enumerate(ranks):
+        got = {k: v.cuda() for k, v in out["kernels params"].items()}
+        loss_rel = abs(out["kernels loss"] - ref["loss"]) / abs(ref["loss"])
+        rel, worst = worst_rel(got, ref_params, groups)
+        values = {k: v.cuda() for k, v in out["kernel values params"].items()}
+        v_rel, v_worst = worst_rel(got, values, groups)
+        p_rel, p_worst = worst_rel({k: v.cuda() for k, v in out["plain params"].items()},
+                                   ref_params, groups)
+        log(f"(a) rank {r} spatial step with the kernels: loss {out['kernels loss']:.7f} / one "
+            f"process {ref['loss']:.7f} (rel {loss_rel:.3e}, bound {SP_LOSS_REL:g}); parameters "
+            f"worst group rel-L2 {rel:.3e} ({worst}; bound {TRAIN_F32_PLAIN_GRAD_REL:g}) against "
+            f"one process's, {v_rel:.3e} ({v_worst}; bound {SP_PARAM_REL:g}) against its step "
+            f"with the split K1's values and the plain backward; the plain versions' step "
+            f"{p_rel:.3e} ({p_worst}) against one process's")
+        if not (loss_rel <= SP_LOSS_REL and rel <= TRAIN_F32_PLAIN_GRAD_REL
+                and v_rel <= SP_PARAM_REL):
+            raise AssertionError(f"rank {r} spatial step: loss {loss_rel:.3e}, parameters "
+                                 f"{rel:.3e} / {v_rel:.3e}")
+    for key in ranks[0]["kernels params"]:
+        if not all(torch.equal(out["kernels params"][key], ranks[0]["kernels params"][key])
+                   for out in ranks):
+            raise AssertionError(f"the ranks' parameters differ at {key}")
+
+
+def sp_ranks(root: Path) -> None:
+    """(a), (b) and (d): the ranks against one process."""
+    d = root / "sp"
+    d.mkdir()
+    model = dp_model()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(state, d / "init.pt")
+    groups = grad_groups(model)
+    del model
+    rng = np.random.default_rng(SEED + 17)
+    batch = as_uint8(synthetic_batch(SEED + 17, SP_BATCH, IMG))
+    data = {"image": batch["image"], "mask": batch["mask"],
+            "x": rng.normal(size=(SP_BATCH, IMG, IMG, 3)).astype(np.float32)}
+    np.savez(d / "batch.npz", **data)
+    big = as_uint8(synthetic_batch(SEED + 18, 1, SP_BIG))
+    np.savez(d / "big.npz", image=big["image"], mask=big["mask"])
+    torch.cuda.empty_cache()
+    port = free_port()
+    run_ranks([[sys.executable, str(Path(__file__).resolve()), "--sp-worker", str(r), str(port),
+                str(d)] for r in range(SP_RANKS)], "the spatial ranks")
+    ranks = [torch.load(d / f"sp_rank{r}.pt") for r in range(SP_RANKS)]
+    sp_check_launches(ranks)
+
+    ref = sp_one_process(state, data)
+    fwd = rel_l2(ranks[0]["kernels logits"], ref["logits"])
+    same = all(torch.equal(out["kernels logits"], ranks[0]["kernels logits"]) for out in ranks)
+    log(f"(a) spatial forward (b{SP_BATCH} 512² float32, kernels) against one process's: "
+        f"rel-L2 {fwd:.3e} (bound {SP_FWD_REL:g}); the ranks' gathered logits equal: {same}; "
+        f"with the plain versions {rel_l2(ranks[0]['plain logits'], ref['logits']):.3e}")
+    if not (fwd <= SP_FWD_REL and same):
+        raise AssertionError(f"the spatial forward: rel-L2 {fwd:.3e}, ranks equal {same}")
+    sp_step_gates(ranks, ref, groups)
+
+    torch.cuda.empty_cache()
+    one_ms, one_peak = sp_big_one_process({k: big[k] for k in ("image", "mask")})
+    gib = 2.0 ** 30
+    log(f"(d) bf16 step at {SP_BIG}² b1 ({report['card']}): one process "
+        f"{statistics.median(one_ms):.1f} ms ({spread(one_ms)}), peak {one_peak / gib:.3f} GiB; "
+        + "; ".join(f"rank {r} of {SP_RANKS} {statistics.median(out['big ms']):.1f} ms "
+                    f"({spread(out['big ms'])}), peak {out['big peak'] / gib:.3f} GiB"
+                    for r, out in enumerate(ranks)))
+
+
+def sp_launch(argv: list, label: str, ranks: int = SP_RANKS, nccl: bool = False) -> float:
+    """``cli.main(argv)`` in ``ranks`` ranks under ``torch.distributed.run``,
+    each joined over gloo on the one card (``--cli-worker``), or with
+    ``nccl`` as a user launches it, one card a rank; returns the wall time."""
+    entry = (["-m", "unet_implementations_tpu_torch.cli"] if nccl
+             else [str(Path(__file__).resolve()), "--cli-worker"])
+    t0 = time.perf_counter()
+    run_ranks([[sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(ranks),
+                "--master_addr", "localhost", "--master_port", str(free_port()), *entry,
+                *argv]], label, cwd=Path(__file__).resolve().parent)
+    return time.perf_counter() - t0
+
+
+def sp_train(root: Path, spatial: int, ranks: int = SP_RANKS, nccl: bool = False) -> None:
+    """``cli our_unet train --spatial`` for one epoch at b32 on phase 8's
+    dataset: one CSV row, ``spatial`` in the config, checkpoints that load
+    strictly."""
+    data, cache = recipe_data(root)
+    if ranks // spatial > 1:  # the data ranks read their stripes
+        write_stripe_caches(data, cache, ranks // spatial)
+    out = root / f"sp_run_{ranks}_{spatial}"
+    device = [] if nccl else ["--device", "cuda:0"]
+    label = f"torch.distributed.run --nproc_per_node {ranks} our_unet train --spatial {spatial}"
+    wall = sp_launch(["our_unet", "train", "--data_dir", str(data), "--output_dir", str(out),
+                      "--batch_size", str(RECIPE_BATCH), "--epochs", "1", "--save_every", "1",
+                      "--decode_cache", str(cache), "--num_threads", "4", "--spatial",
+                      str(spatial), *device], label, ranks, nccl)
+    lines = (out / "training_log.csv").read_text().splitlines()
+    check_csv(out / "training_log.csv", SEG_CSV_HEADER, [f"{poly_lr(5e-3, 1)(0):.7f}"], 7,
+              slice(1, 7))
+    config = json.loads((out / "training_config.json").read_text())
+    for ck in (out / "checkpoints" / "epoch_1", out / "best_model"):
+        convert.load_reference_checkpoint(ck / "model.pth", device="cuda")
+    log(f"(e) {label} ({'NCCL' if nccl else 'gloo, one card'}): {wall:.1f} s for 1 epoch of "
+        f"b{RECIPE_BATCH}; {len(lines) - 1} CSV row; config spatial {config['spatial']}; "
+        f"epoch_1 and best_model load strictly")
+    if config["spatial"] != spatial:
+        raise AssertionError(f"the spatial recipe's config: {config}")
+
+
+def sp_predict(root: Path, ranks: int = SP_RANKS, nccl: bool = False) -> None:
+    """``cli predict --spatial`` on SP_SERVE jpgs of phase 3's original sizes
+    against one process's ``cli predict`` (float32): the masks equal wherever
+    one process's top logit leads the next by SP_MARGIN."""
+    import cv2
+
+    from unet_implementations_tpu_torch.recipes.common import resize_nearest_np
+
+    d = root / f"sp_predict_{ranks}"
+    images = d / "images"
+    images.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 20)
+    sizes = SIZES[:SP_SERVE]
+    for i, (h, w) in enumerate(sizes):
+        cv2.imwrite(str(images / f"p{i}.jpg"), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    # The reference schema has the dropout slots: unet_6stage's own rates.
+    model = unet_6stage(dtype=torch.float32, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 20)).eval()
+    pth = d / "model.pth"
+    convert.save_reference_checkpoint(model, pth)
+    flags = ["--model_path", str(pth), "--input", str(images), "--f32", "--no_overlay"]
+    device = [] if nccl else ["--device", "cuda:0"]
+    wall = sp_launch(["predict", *flags, "--output_dir", str(d / "spatial"), "--spatial",
+                      str(ranks), *device], f"torch.distributed.run predict --spatial {ranks}",
+                     ranks, nccl)
+    with deterministic():
+        counted_path(lambda: cli.main(["predict", *flags, "--output_dir", str(d / "one")]),
+                     PER_FORWARD["dense"])
+    for i, (h, w) in enumerate(sizes):
+        rgb = cv2.cvtColor(cv2.imread(str(images / f"p{i}.jpg")), cv2.COLOR_BGR2RGB)
+        pixels = torch.from_numpy(cv2.resize(rgb, (IMG, IMG), interpolation=cv2.INTER_LINEAR))
+        with torch.no_grad():
+            top2 = model(normalize_image(pixels[None].cuda()))[0].topk(2, dim=-1).values
+        ties = resize_nearest_np((top2[..., 0] - top2[..., 1] < SP_MARGIN).cpu().numpy(), (h, w))
+        got = cv2.imread(str(d / "spatial" / f"p{i}_mask.png"), cv2.IMREAD_GRAYSCALE)
+        want = cv2.imread(str(d / "one" / f"p{i}_mask.png"), cv2.IMREAD_GRAYSCALE)
+        differ = got != want
+        log(f"(e) predict --spatial {ranks} p{i} ({h}x{w}): {int(differ.sum())} pixels differ "
+            f"from one process's mask, {int((differ & ~ties).sum())} outside the margin "
+            f"{SP_MARGIN:g}; pixels within it {ties.mean():.2e} (at most {SP_TIE_SHARE:g})")
+        if (differ & ~ties).any() or ties.mean() > SP_TIE_SHARE:
+            raise AssertionError(f"predict --spatial {ranks}: p{i}'s mask differs from one "
+                                 f"process's")
+    log(f"(e) torch.distributed.run --nproc_per_node {ranks} cli predict --spatial {ranks} "
+        f"({'NCCL' if nccl else 'gloo, one card'}): {wall:.1f} s for {SP_SERVE} images")
+
+
+@phase(f"13. spatial partitioning: unet_6stage dense, {SP_RANKS} gloo ranks of one space group "
+       f"on the card, against one process")
+def phase_spatial(root: Path):
+    sp_halo_k2()
+    sp_ranks(root)
+    torch.cuda.empty_cache()
+    sp_train(root, SP_RANKS)
+    sp_predict(root)
+
+
+def spatial_cards(root: Path) -> int:
+    """``--spatial-cards``: the user's launch over NCCL, one rank a card of
+    this machine (four or more: its cards must divide into space groups of
+    two), from the package's entry point: ``our_unet train --spatial N`` for
+    one epoch on N ranks (one space group) and on a (data 2, space N/2) grid,
+    and ``predict --spatial N`` against one process."""
+    n = torch.cuda.device_count()
+    log(f"nvidia-smi: {nvidia_smi_card()} x{n}")
+    if n < 4 or n % 2:
+        raise SystemExit(f"--spatial-cards needs an even number of cards, four or more; have {n}")
+    # Float32 is compared: TF32 off in every process the launcher starts.
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    _build.library()  # once, before the ranks load it
+    for spatial in (n, n // 2):
+        sp_train(root, spatial, n, nccl=True)
+    sp_predict(root, n, nccl=True)
+    return 0
 
 
 # ``--ab-steps``: one checkout's phase-7 step and phase-8 recipe, through the
@@ -3257,6 +3695,8 @@ def main() -> int:
             phase_augment(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_parallel(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_spatial(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
@@ -3273,8 +3713,17 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--cli-worker"]:
         sys.exit(cli_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--spatial-cards"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is available")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with tempfile.TemporaryDirectory() as cards_root:
+            sys.exit(spatial_cards(Path(cards_root)))
     if sys.argv[1:2] == ["--ab-steps"]:
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device is available")

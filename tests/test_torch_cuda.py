@@ -26,7 +26,10 @@ the plain version, +25% on relative L2. The reasons are set out in
 same inputs and statistics: float32 dx, dscale and dbias to 1e-4 of their
 largest magnitude (sum orders, and its factored sums: Σdpre times scale where
 the plain version sums dpre·scale); bfloat16 dx within one bf16 ulp plus
-1e-4, dscale and dbias (float32) to 1e-4 of their largest magnitude. K2's
+1e-4, dscale and dbias (float32) to 1e-4 of their largest magnitude. Under
+a space group of one rank, K1's split forward and backward against the
+one-launch forward (statistics to 1e-6) and the two-pass backward (bit for
+bit). K2's
 backward is plain torch on both devices: its gradients are held to the CPU's.
 SSIM's blur is elementwise float32, so with TF32 allowed in cuDNN it still
 equals a float64 computation on the CPU to 1e-5. The CLIP tower launches no
@@ -326,6 +329,62 @@ def test_instance_norm_backward_repeats_bitwise(dtype, shape, group):
         else:
             dx, dx_want = (v.float().cpu().numpy() for v in (result[0], want[0]))
             assert bf16_ulps(dx, dx_want, 1e-4).max() <= 1.0
+
+
+@pytest.fixture
+def one_rank_space_group(monkeypatch):
+    """A process group of this process alone (NCCL, joined from a
+    torchrun-style environment) and a space group of its one rank."""
+    import socket
+
+    from unet_implementations_tpu_torch.parallel import distributed
+
+    _need_cuda()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    assert distributed.maybe_initialize_distributed()
+    try:
+        yield torch.distributed.new_group([0])
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,group", [((2, 64, 64, 32), 1), ((2, 128, 128, 128), 1),
+                                         ((2, 32, 32, 64), 4), ((2, 7, 9, 6), 1)])
+def test_instance_norm_split_over_one_rank(dtype, shape, group, one_rank_space_group):
+    """Under a space group of one rank, the split forward (statistics without
+    their finalize, the all-reduce, the finalize, the apply) gives the
+    one-launch forward's statistics to float32 rounding (its chunk sums are
+    added in another order) and its y within K1's tolerance; the split
+    backward (the two-pass kernel in two calls around the all-reduce, also
+    where ``bwd_plan`` picks the fused kernel) gives the two-pass kernel's
+    dx, dscale and dbias bit for bit. Each counts one launch and one split."""
+    x, scale, bias, _, _, dy = _k1_backward_case(shape, group, DTYPES[dtype])
+    fn = torch_in.fused_instance_norm
+    before = (fn.launches, fn.split_launches, fn.backward_launches, fn.split_backward_launches)
+    with torch.no_grad():
+        y, mean, rstd = torch_in._cuda_forward(x, scale, bias, 1e-5, 0.01, group,
+                                               one_rank_space_group)
+        want_y, want_mean, want_rstd = torch_in._cuda_forward(x, scale, bias, 1e-5, 0.01, group)
+    for got, want in ((mean, want_mean), (rstd, want_rstd)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if dtype == "f32":
+        torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    else:
+        assert bf16_ulps(y.float().cpu().numpy(), want_y.float().cpu().numpy(), 1e-4).max() <= 1
+    split = torch_in._cuda_backward(x, scale, bias, mean, rstd, dy, 0.01, group,
+                                    one_rank_space_group)
+    two_pass = torch_in._two_pass_backward(x, scale, bias, mean, rstd, dy, torch.empty_like(x),
+                                           0.01, group, torch.cuda.current_stream().cuda_stream)
+    for a, b in zip(split, two_pass):
+        assert torch.equal(a, b)
+    after = (fn.launches, fn.split_launches, fn.backward_launches, fn.split_backward_launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 1, 2, 1]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

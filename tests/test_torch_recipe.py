@@ -273,7 +273,7 @@ class TestCli:
                                        "--data_dir", "d"])) == 8
 
     @pytest.mark.parametrize("flags,error,item", [
-        (["--spatial", "2"], NotImplementedError, "item 7"),
+        (["--spatial", "2"], ValueError, "needs a process group"),
         (["--grad_accum", "2"], None, "grad_accum"),
         (["--grad_accum", "3"], ValueError, "does not divide"),
         (["--grad_accum", "0"], ValueError, ">= 1"),

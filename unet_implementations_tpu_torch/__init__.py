@@ -26,7 +26,9 @@ keeps the reference's module names so each counterpart is easy to find:
                  tables; online augmentation), dataset evaluation and the
                  serving path (``predict_segmentation``).
 - ``parallel`` — data parallelism: one process per GPU under
-                 ``torch.distributed``, with the global batch's loss.
+                 ``torch.distributed``, with the global batch's loss; and
+                 spatial partitioning, each image's rows over the ranks of
+                 a (data, space) grid.
 - ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate``,
                  ``clip_unet train|evaluate|embed``, ``clip_resize``,
                  ``augment`` and ``predict``.
@@ -63,3 +65,10 @@ def default_device(device=None) -> torch.device:
     if distributed.is_initialized():
         return torch.device("cuda", distributed.local_rank())
     return torch.device("cuda")
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error of a JAX feature the port does not have yet: ``item`` is its
+    entry in ROADMAP.md's queue 1."""
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")

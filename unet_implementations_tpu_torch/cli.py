@@ -35,6 +35,19 @@ card and gloo on the CPU. ``evaluate`` stays one process: JAX's
 mesh there spreads one process's batch over its local chips, which a
 one-process-per-GPU port has no counterpart of.
 
+Spatial partitioning shards each image's rows over N ranks, in training and
+in serving:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m unet_implementations_tpu_torch.cli our_unet train --spatial N ...
+    python -m torch.distributed.run --nproc_per_node N \
+        -m unet_implementations_tpu_torch.cli predict --spatial N ...
+
+The launch may hold a multiple of N ranks: they form a (data, space) grid
+whose space groups each train on one stripe of the files (``--batch_size``
+then splits over the data ranks). ``predict --spatial`` joins the launcher's
+group as ``train`` does; rank 0 writes the masks.
+
 The flags of ``our_unet``, ``ae_recon``, ``ae_transfer``, ``clip_unet``,
 ``clip_resize`` and ``augment`` are the JAX package's
 (``unet_implementations_tpu/cli.py``), with its defaults; ``clip_unet embed``
@@ -49,8 +62,8 @@ nothing, and so is ``clip_unet train --use_clip``. ``--grad_accum N`` trains
 each batch as N sequential microbatches with one optimizer update.
 ``--online_augment`` augments each training batch on the device (and, in
 ``clip_unet``, extracts its CLIP features live). Not ported yet, and refused:
-``--spatial`` > 1, ``--visualize_samples`` > 0 (so it defaults to 0 here, 3
-in JAX) and ``--analyze_latent_space``.
+``--visualize_samples`` > 0 (so it defaults to 0 here, 3 in JAX) and
+``--analyze_latent_space``.
 
 ``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
 ``.pth``; that of ``predict`` is a reference ``.pth``, such as the JAX
@@ -149,7 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
     t = our_sub.add_parser("train")
     _add_common_train_flags(t)
     _add_seg_train_flags(t)
-    t.add_argument("--spatial", type=int, default=0, help="not ported: only 0 or 1")
+    t.add_argument("--spatial", type=int, default=0,
+                   help="shard image ROWS over N ranks during training (a (data, space) grid "
+                        "of processes: halo exchanges and the InstanceNorm and loss "
+                        "reductions across ranks) — the beyond-HBM image-size configuration. "
+                        "Requires H divisible by 32·N and a launch of a multiple of N ranks")
     _add_eval_flags(our_sub.add_parser("evaluate"))
 
     ae = sub.add_parser("ae_recon", help="train or evaluate the reconstruction autoencoder")
@@ -225,6 +242,9 @@ def build_parser() -> argparse.ArgumentParser:
     pred.add_argument("--batch_size", type=int, default=32)
     pred.add_argument("--no_overlay", action="store_true")
     pred.add_argument("--f32", action="store_true", help="run in float32 instead of bfloat16")
+    pred.add_argument("--spatial", type=int, default=0,
+                      help="shard image rows over this many ranks of the launch on a "
+                           "(data, space) grid — batch-1 latency scaling")
     pred.add_argument("--device", default=None,
                       help="torch device, e.g. cuda:1 or cpu (default: cuda)")
     return parser
@@ -258,12 +278,13 @@ def _seg_train_kwargs(args) -> dict:
 def main(argv: Optional[Sequence[str]] = None):
     """Run one command; returns what its recipe returns (the training
     loop's result, the evaluation results, or the number of images
-    predicted). A ``train`` command joins the launcher's process group
-    first, if there is one, and leaves it when it returns."""
+    predicted). A ``train`` command, and ``predict --spatial``, joins the
+    launcher's process group first, if there is one, and leaves it when it
+    returns."""
     args = build_parser().parse_args(argv)
     if getattr(args, "decode_cache", None):
         os.environ["UNET_TPU_DECODE_CACHE"] = args.decode_cache
-    if getattr(args, "cmd", None) != "train":
+    if getattr(args, "cmd", None) != "train" and getattr(args, "spatial", 0) <= 1:
         return _run(args)
     from unet_implementations_tpu_torch.parallel import distributed
 
@@ -360,7 +381,7 @@ def _run(args):
         return predict_segmentation(
             args.model_path, args.input, args.output_dir,
             batch_size=args.batch_size, dtype=_dtype(args),
-            overlay=not args.no_overlay, device=args.device,
+            overlay=not args.no_overlay, device=args.device, spatial=args.spatial,
         )
 
 

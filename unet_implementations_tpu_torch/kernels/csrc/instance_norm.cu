@@ -31,6 +31,12 @@
 //   1. in_stats_kernel: per (image, chunk, channel) partials of x and x*x; an
 //      image's last block turns them into its mean and rstd.
 //   2. in_apply_kernel: normalize and activate.
+// When an image's rows are spread over several processes (spatial
+// partitioning, parallel/spatial.py), the statistics pass runs without its
+// finalize (unet_instance_norm_partials), the caller adds the partials up over
+// the processes, in_finalize_kernel turns the sums into mean and rstd with the
+// whole image's pixel count (unet_instance_norm_finalize), and the apply pass
+// follows.
 //
 // Backward (dx in x's dtype, dscale and dbias float32), by shape
 // (kernels/instance_norm.py::bwd_plan):
@@ -73,7 +79,9 @@
 // (levels 0 and 1 of the 6-stage model at 512², its s2d norms, images of
 // 1024²): there every piece waits on a pair spread over most of the card,
 // its reduce, wait and apply run in series, and the fused kernel was measured
-// slower (PERF.md). Three launches on a (nchunk, B) grid:
+// slower (PERF.md); and for every shape when an image's rows are spread over
+// several processes, whose sums are added up over them between the reduce
+// and the apply. Three launches on a (nchunk, B) grid:
 //   1. in_bwd_reduce_kernel: the partials of dpre and dpre * xhat; an image's
 //      last block adds them into the image's Σdpre and Σ(dpre * xhat).
 //   2. in_bwd_apply_kernel: dx as above, reading x and dy again, walking the
@@ -1236,47 +1244,60 @@ cudaError_t bwd_fused(BwdArgs<T> a, int vec, float* dscale, float* dbias, int gr
               : launch_bwd_fused<T, 1, false>(a, dscale, dbias, grid, stream);
 }
 
+// `passes`: 1 the reduce (and dscale, dbias from this call's own sums), 2 the
+// apply on the img_sums already in place with the pixel count `n`, 3 both.
 template <typename T, int VEC>
 cudaError_t launch_two_pass(const T* x, const T* dy, const float* mean, const float* rstd,
-                       const float* scale, const float* bias, float* partials, float* img_sums,
-                       unsigned* count, T* dx, float* dscale, float* dbias, long long b,
-                       long long hw, int c, int group, int chunk_px, int nchunk, float slope,
-                       cudaStream_t stream) {
+                            const float* scale, const float* bias, float* partials,
+                            float* img_sums, unsigned* count, T* dx, float* dscale, float* dbias,
+                            long long b, long long hw, int c, int group, int chunk_px,
+                            int nchunk, float n, float slope, int passes, cudaStream_t stream) {
   const Tiling t = tiling<VEC>(c);
   const int cg = c / group;
   const size_t smem = reduce_smem(t, c, group);
   if (t.threads > 1024 || smem > kSmemLimit) return cudaErrorInvalidValue;
   const dim3 grid(nchunk, static_cast<unsigned>(b));
-  in_bwd_reduce_kernel<T, VEC><<<grid, t.threads, smem, stream>>>(
-      x, dy, mean, rstd, scale, bias, partials, img_sums, count, hw, c, group, chunk_px, nchunk,
-      slope);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  in_bwd_apply_kernel<T, VEC><<<grid, t.threads, 0, stream>>>(
-      x, dy, mean, rstd, scale, bias, img_sums, dx, hw, c, group, chunk_px,
-      static_cast<float>(hw * group), slope);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  in_bwd_params_kernel<<<(cg + 255) / 256, 256, 0, stream>>>(img_sums, dscale, dbias, b, cg);
-  return cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    in_bwd_reduce_kernel<T, VEC><<<grid, t.threads, smem, stream>>>(
+        x, dy, mean, rstd, scale, bias, partials, img_sums, count, hw, c, group, chunk_px,
+        nchunk, slope);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    in_bwd_apply_kernel<T, VEC><<<grid, t.threads, 0, stream>>>(
+        x, dy, mean, rstd, scale, bias, img_sums, dx, hw, c, group, chunk_px, n, slope);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 1) {
+    in_bwd_params_kernel<<<(cg + 255) / 256, 256, 0, stream>>>(img_sums, dscale, dbias, b, cg);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 template <typename T>
 cudaError_t bwd_two_pass(const void* xv, const void* dyv, const float* mean, const float* rstd,
-                const float* scale, const float* bias, float* partials, float* img_sums,
-                unsigned* count, void* dxv, float* dscale, float* dbias, long long b,
-                long long hw, int c, int group, int chunk_px, int nchunk, float slope,
-                cudaStream_t stream) {
+                         const float* scale, const float* bias, float* partials, float* img_sums,
+                         unsigned* count, void* dxv, float* dscale, float* dbias, long long b,
+                         long long hw, int c, int group, int chunk_px, int nchunk, float n,
+                         float slope, int passes, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const T* dy = static_cast<const T*>(dyv);
   T* dx = static_cast<T*>(dxv);
   constexpr int kWide = 16 / sizeof(T);
-  const bool wide = vec_width<T>(c, xv, dxv) == kWide && vec_width<T>(c, dyv, dyv) == kWide;
+  // The reduce alone writes no dx: its pointer may be null.
+  const void* out = (passes & 2) ? dxv : xv;
+  const bool wide = vec_width<T>(c, xv, out) == kWide && vec_width<T>(c, dyv, dyv) == kWide;
   return wide
       ? launch_two_pass<T, kWide>(x, dy, mean, rstd, scale, bias, partials, img_sums, count, dx,
-                             dscale, dbias, b, hw, c, group, chunk_px, nchunk, slope, stream)
-      : launch_two_pass<T, 1>(x, dy, mean, rstd, scale, bias, partials, img_sums, count, dx, dscale,
-                         dbias, b, hw, c, group, chunk_px, nchunk, slope, stream);
+                                  dscale, dbias, b, hw, c, group, chunk_px, nchunk, n, slope,
+                                  passes, stream)
+      : launch_two_pass<T, 1>(x, dy, mean, rstd, scale, bias, partials, img_sums, count, dx,
+                              dscale, dbias, b, hw, c, group, chunk_px, nchunk, n, slope, passes,
+                              stream);
 }
 
 }  // namespace
@@ -1477,19 +1498,27 @@ extern "C" int unet_instance_norm_bwd(const void* x, const void* dy, const void*
 }
 
 // The two-pass backward, for the shapes whose (image, slice) pairs need every
-// block (kernels/instance_norm.py::bwd_plan): x, dy, dx, mean, rstd, scale,
-// bias as above. Scratch: partials (B, nchunk, 2, C) and img_sums (B, 2,
-// C / group) float32, count (B,) uint32 (zeroed here). Each block covers
+// block (kernels/instance_norm.py::bwd_plan), and for every shape when an
+// image's rows are spread over several processes: x, dy, dx, mean, rstd,
+// scale, bias as above. Scratch: partials (B, nchunk, 2, C) and img_sums (B,
+// 2, C / group) float32, count (B,) uint32 (zeroed here). Each block covers
 // chunk_px pixels of an image, nchunk blocks an image (chunking, as the
-// forward).
+// forward). `passes`: 1 the reduce, which leaves the image's Σdpre and
+// Σ(dpre * xhat) in img_sums and writes dscale and dbias from them; 2 the
+// apply, which writes dx from the img_sums in place (another process's sums
+// may have been added to them in between) with `n` values a channel pools;
+// 3 both, with n = H * W * group.
 extern "C" int unet_instance_norm_bwd_two_pass(const void* x, const void* dy, const void* mean,
                                                const void* rstd, const void* scale,
                                                const void* bias, void* partials, void* img_sums,
                                                void* count, void* dx, void* dscale, void* dbias,
                                                int dtype, long long b, long long hw, int c,
-                                               int group, int chunk_px, int nchunk, float slope,
-                                               void* stream) {
-  if (bad_geometry(b, hw, c, group, chunk_px, nchunk)) return cudaErrorInvalidValue;
+                                               int group, int chunk_px, int nchunk, float n,
+                                               float slope, int passes, void* stream) {
+  if (bad_geometry(b, hw, c, group, chunk_px, nchunk) || passes < 1 || passes > 3 ||
+      !(n > 0.f)) {
+    return cudaErrorInvalidValue;
+  }
   auto s = static_cast<cudaStream_t>(stream);
   auto me = static_cast<const float*>(mean);
   auto rs = static_cast<const float*>(rstd);
@@ -1500,16 +1529,47 @@ extern "C" int unet_instance_norm_bwd_two_pass(const void* x, const void* dy, co
   auto cn = static_cast<unsigned*>(count);
   auto ds = static_cast<float*>(dscale);
   auto db = static_cast<float*>(dbias);
-  const cudaError_t err = cudaMemsetAsync(cn, 0, b * sizeof(unsigned), s);
-  if (err != cudaSuccess) return err;
+  if (passes & 1) {
+    const cudaError_t err = cudaMemsetAsync(cn, 0, b * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
+  }
   switch (dtype) {
     case unet::kFloat32:
       return unet::bwd_two_pass<float>(x, dy, me, rs, sc, bi, pa, is, cn, dx, ds, db, b, hw, c,
-                                       group, chunk_px, nchunk, slope, s);
+                                       group, chunk_px, nchunk, n, slope, passes, s);
     case unet::kBFloat16:
       return unet::bwd_two_pass<__nv_bfloat16>(x, dy, me, rs, sc, bi, pa, is, cn, dx, ds, db, b,
-                                               hw, c, group, chunk_px, nchunk, slope, s);
+                                               hw, c, group, chunk_px, nchunk, n, slope, passes,
+                                               s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The forward's statistics pass without its finalize, for an image whose rows
+// are spread over several processes: partials (B, nchunk, 2, C) float32 of
+// this process's rows, which the caller adds up over the processes before
+// unet_instance_norm_finalize. x as in the forward.
+extern "C" int unet_instance_norm_partials(const void* x, void* partials, int dtype, long long b,
+                                           long long hw, int c, int chunk_px, int nchunk,
+                                           void* stream) {
+  if (bad_geometry(b, hw, c, 1, chunk_px, nchunk)) return cudaErrorInvalidValue;
+  return unet::in_stats(x, dtype, static_cast<float*>(partials), b, hw, c, chunk_px, nchunk,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// mean and rstd (B, C) float32 from partials (B, nchunk, 2, C) summed over
+// the processes, each original channel pooling its `group` q blocks and `n`
+// values in all (the whole image's H * W * group). The forward's apply pass
+// (unet_instance_norm_fwd, passes 2) then runs on them.
+extern "C" int unet_instance_norm_finalize(const void* partials, void* mean, void* rstd,
+                                           long long b, int nchunk, int c, int group, float n,
+                                           float eps, void* stream) {
+  if (b <= 0 || b > 65535 || nchunk <= 0 || c <= 0 || group <= 0 || c % group != 0 ||
+      !(n > 0.f)) {
+    return cudaErrorInvalidValue;
+  }
+  return unet::in_finalize(static_cast<const float*>(partials), static_cast<float*>(mean),
+                           static_cast<float*>(rstd), b, nchunk, c, group, n, eps,
+                           static_cast<cudaStream_t>(stream));
 }

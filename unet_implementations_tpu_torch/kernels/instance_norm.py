@@ -22,6 +22,17 @@ the larger shapes (levels 0 and 1 of the 6-stage model at 512²) take the
 two-pass backward, which reads them twice (``bwd_plan`` says which, and
 why). See the source for the designs.
 
+Spatial partitioning (``parallel/spatial.py``) spreads an image's rows over
+the ranks of a ``space_group``. Then each image's statistics are those of
+all its rows: the forward runs its statistics pass without the finalize,
+all-reduces the float32 partials over the group, finalizes with the whole
+image's pixel count and applies; the backward takes the two-pass kernel
+whatever the shape (the one-read kernel cannot pause between its statistics
+and its apply) and all-reduces each image's Σdpre and Σ(dpre·xhat) between
+its two passes. ``dscale`` and ``dbias`` stay the rank's own rows' sums, so
+that the gradient reduction over the ranks counts each row once. Without a
+group nothing changes: one forward launch, and ``bwd_plan``'s choice.
+
 On CPU tensors ``fused_instance_norm`` runs the plain versions
 ``_torch_forward`` and ``_torch_backward``; on CUDA tensors it launches the
 kernels or raises. ``_torch_backward`` is the JAX ``_bwd_impl`` in plain torch
@@ -40,6 +51,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from unet_implementations_tpu_torch.kernels import _build
 
@@ -48,7 +60,8 @@ from unet_implementations_tpu_torch.kernels import _build
 # the image's shape alone, so an image's result does not depend on its batch.
 _MAX_CHUNKS = 32
 _MIN_CHUNK_BYTES = 64 * 1024
-# ``passes`` of the forward entry point.
+# ``passes`` of the forward entry point and of the two-pass backward's: the
+# first pass, the second, or both.
 STATS, APPLY, BOTH = 1, 2, 3
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [
@@ -61,7 +74,14 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [
 ]
 _TWO_PASS_ARGTYPES = [ctypes.c_void_p] * 12 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
+_PARTIALS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+_FINALIZE_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p,
 ]
 # The backward kernel (csrc/instance_norm.cu::in_bwd_fused_kernel): compute
 # threads a block at most (three role warps join them), the least bytes a
@@ -113,7 +133,7 @@ class BwdPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(b: int, hw: int, c: int, group: int, itemsize: int, n_blocks: int,
-             smem_per_block: int, vec: int | None = None) -> BwdPlan:
+             smem_per_block: int, vec: int | None = None, split: bool = False) -> BwdPlan:
     """The backward kernel's plan for x of (b, hw, c) with ``itemsize``-byte
     elements, on a card of ``n_blocks`` SMs whose blocks may take
     ``smem_per_block`` bytes of shared memory. ``vec``, the elements of a
@@ -134,10 +154,15 @@ def bwd_plan(b: int, hw: int, c: int, group: int, itemsize: int, n_blocks: int,
     0 and 1 of the 6-stage model at 512², and its s2d norms) takes the
     two-pass kernel instead, which reads x and dy twice (``reread_bytes``):
     there the fused kernel's pieces wait on a pair spread over most of the
-    card, and on an H100 it was measured slower (PERF.md)."""
+    card, and on an H100 it was measured slower (PERF.md). So does every
+    shape with ``split``, when an image's rows are spread over processes: the
+    two-pass kernel can pause between its passes for their sums to be added
+    up, the fused one cannot."""
     cg = c // group
     if vec is None:
         vec = 16 // itemsize if c % (16 // itemsize) == 0 else 1
+    if split:
+        return BwdPlan(vec, *[0] * 12, 2 * b * hw * c * itemsize, False)
 
     def takes(d):  # a slice of d channels the kernel's layout takes
         nv = group * d // vec
@@ -199,10 +224,24 @@ def bwd_pieces(plan: BwdPlan, b: int, hw: int, block: int) -> list:
     return out
 
 
-def _torch_forward(x, scale_c, bias_c, eps, negative_slope, group):
+def _space_sum(t: torch.Tensor, space_group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``space_group`` (in place), or ``t``
+    without one."""
+    if space_group is not None:
+        dist.all_reduce(t, group=space_group)
+    return t
+
+
+def _space_size(space_group) -> int:
+    return 1 if space_group is None else dist.get_world_size(space_group)
+
+
+def _torch_forward(x, scale_c, bias_c, eps, negative_slope, group, space_group=None):
     """Plain version: the op sequence of the JAX ``_jnp_forward``.
 
-    x: (B, H, W, C); scale_c, bias_c: (C // group,) float32.
+    x: (B, H, W, C); scale_c, bias_c: (C // group,) float32. With a
+    ``space_group`` the sums are all-reduced over its ranks (each holding
+    equal row shards of the images) before the mean and variance.
     Returns (y in x.dtype, mean (B, C), rstd (B, C)).
     """
     b, h, w, c = x.shape
@@ -216,6 +255,9 @@ def _torch_forward(x, scale_c, bias_c, eps, negative_slope, group):
         n = h * w
         s1 = xf.sum(dim=(1, 2))
         s2 = (xf * xf).sum(dim=(1, 2))
+    if space_group is not None:
+        s1, s2 = _space_sum(torch.stack([s1, s2]), space_group)
+        n *= _space_size(space_group)
     mean_g = s1 / n
     var_g = torch.clamp(s2 / n - mean_g * mean_g, min=0.0)
     rstd_g = torch.rsqrt(var_g + eps)
@@ -269,17 +311,47 @@ def launch_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group, pass
     _build.check(code, "unet_instance_norm_fwd")
 
 
-def _cuda_forward(x, scale_c, bias_c, eps, negative_slope, group):
+def launch_split_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group,
+                         space_group):
+    """The forward of row shards whose images ``space_group``'s ranks share,
+    on ``forward_buffers(x)``: the statistics pass without its finalize, the
+    partials all-reduced over the group, the finalize with the whole image's
+    pixel count, the apply pass. Counts nothing."""
+    b, h, w, c = x.shape
+    chunk_px, nchunk = chunking(h * w, c, x.element_size())
+    _, partials, _, mean, rstd = buffers
+    stream = _build.stream_of(x)
+    fn = _build.kernel_function("unet_instance_norm_partials", _PARTIALS_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), partials.data_ptr(), _build.DTYPE_CODES[x.dtype], b, h * w, c,
+                  chunk_px, nchunk, stream)
+    _build.check(code, "unet_instance_norm_partials")
+    _space_sum(partials, space_group)
+    fn = _build.kernel_function("unet_instance_norm_finalize", _FINALIZE_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(partials.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, nchunk, c, group,
+                  float(h * w * group * _space_size(space_group)), eps, stream)
+    _build.check(code, "unet_instance_norm_finalize")
+    launch_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group, APPLY)
+
+
+def _cuda_forward(x, scale_c, bias_c, eps, negative_slope, group, space_group=None):
     _check("fused_instance_norm", x, scale_c, bias_c, group)
     x, scale_c, bias_c = x.contiguous(), _f32(scale_c), _f32(bias_c)
     buffers = forward_buffers(x)
-    launch_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group)
+    if space_group is None:
+        launch_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group)
+    else:
+        launch_split_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group,
+                             space_group)
+        fused_instance_norm.split_launches += 1
     fused_instance_norm.launches += 1
     y, _, _, mean, rstd = buffers
     return y, mean, rstd
 
 
-def _cuda_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
+def _cuda_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group,
+                   space_group=None):
     _check("fused_instance_norm backward", x, scale_c, bias_c, group)
     b, h, w, c = x.shape
     if dy.shape != x.shape or dy.dtype != x.dtype:
@@ -298,11 +370,11 @@ def _cuda_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
     vec = 16 // x.element_size() if c % (16 // x.element_size()) == 0 and aligned else 1
     plan = bwd_plan(b, h * w, c, group, x.element_size(),
-                    *_build.device_limits(x.device.index), vec)
+                    *_build.device_limits(x.device.index), vec, space_group is not None)
     stream = _build.stream_of(x)
     if not plan.fused:
         return _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, group,
-                                  stream)
+                                  stream, space_group)
     rows, tag = _bwd_rows(x.device, stream, plan.pieces * 2 * plan.cs)
     # dscale, dbias, img_sums (b, 2, cg) and the pairs' counts (zeroed by the
     # entry point) in one allocation.
@@ -322,9 +394,13 @@ def _cuda_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
     return dx, dscale, dbias
 
 
-def _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, group, stream):
+def _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, group, stream,
+                       space_group=None):
     """The two-pass kernel (a statistics pass, then an apply pass, each reading
-    x and dy), on the forward's chunking."""
+    x and dy), on the forward's chunking. With a ``space_group`` it is two
+    calls: the reduce, which also writes dscale and dbias from this rank's own
+    sums, then the images' sums all-reduced over the group, then the apply
+    with the whole image's pixel count."""
     b, h, w, c = x.shape
     cg = c // group
     chunk_px, nchunk = chunking(h * w, c, x.element_size())
@@ -333,13 +409,24 @@ def _two_pass_backward(x, scale_c, bias_c, mean, rstd, dy, dx, negative_slope, g
     partials, img_sums, dscale, dbias, count = sums.split(
         [2 * b * nchunk * c, 2 * b * cg, cg, cg, b])
     fn = _build.kernel_function("unet_instance_norm_bwd_two_pass", _TWO_PASS_ARGTYPES)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                  scale_c.data_ptr(), bias_c.data_ptr(), partials.data_ptr(), img_sums.data_ptr(),
-                  count.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], b, h * w, c, group, chunk_px, nchunk,
-                  negative_slope, stream)
-    _build.check(code, "unet_instance_norm_bwd_two_pass")
+    n = float(h * w * group * _space_size(space_group))
+
+    def call(passes):
+        with torch.cuda.device(x.device):
+            code = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                      scale_c.data_ptr(), bias_c.data_ptr(), partials.data_ptr(),
+                      img_sums.data_ptr(), count.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                      dbias.data_ptr(), _build.DTYPE_CODES[x.dtype], b, h * w, c, group,
+                      chunk_px, nchunk, n, negative_slope, passes, stream)
+        _build.check(code, "unet_instance_norm_bwd_two_pass")
+
+    if space_group is None:
+        call(BOTH)
+    else:
+        call(STATS)
+        _space_sum(img_sums, space_group)
+        call(APPLY)
+        fused_instance_norm.split_backward_launches += 1
     fused_instance_norm.backward_launches += 1
     return dx, dscale, dbias
 
@@ -362,8 +449,22 @@ def _bwd_rows(device: torch.device, stream: int, words: int) -> tuple[torch.Tens
     return rows, tag
 
 
-def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
-    """The JAX ``_bwd_impl``: (dx in x's dtype, dscale, dbias) float32."""
+def _image_means(a: torch.Tensor, b: torch.Tensor, dims: tuple, space_group):
+    """The means of ``a`` and ``b`` over ``dims`` (kept), over the whole
+    images when ``space_group``'s ranks hold equal row shards of them."""
+    if space_group is None:
+        return a.mean(dim=dims, keepdim=True), b.mean(dim=dims, keepdim=True)
+    sums = _space_sum(torch.stack([a.sum(dim=dims, keepdim=True),
+                                   b.sum(dim=dims, keepdim=True)]), space_group)
+    n = math.prod(a.shape[d] for d in dims) * _space_size(space_group)
+    return sums[0] / n, sums[1] / n
+
+
+def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group,
+                    space_group=None):
+    """The JAX ``_bwd_impl``: (dx in x's dtype, dscale, dbias) float32. With a
+    ``space_group`` the input gradient's means are the whole images' (summed
+    over the group's ranks); dscale and dbias stay this rank's rows' sums."""
     b, h, w, c = x.shape
     xf = x.to(torch.float32)
     dyf = dy.to(torch.float32)
@@ -384,31 +485,30 @@ def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group):
     if group > 1:
         shape_g = (b, h, w, group, c // group)  # q-major sub-pixel axis
         dxhat_g, xhat_g = dxhat.reshape(shape_g), xhat.reshape(shape_g)
-        m1 = dxhat_g.mean(dim=(1, 2, 3), keepdim=True)
-        m2 = (dxhat_g * xhat_g).mean(dim=(1, 2, 3), keepdim=True)
+        m1, m2 = _image_means(dxhat_g, dxhat_g * xhat_g, (1, 2, 3), space_group)
         dx = (dxhat_g - m1 - xhat_g * m2).reshape(b, h, w, c)
     else:
-        m1 = dxhat.mean(dim=(1, 2), keepdim=True)
-        m2 = (dxhat * xhat).mean(dim=(1, 2), keepdim=True)
+        m1, m2 = _image_means(dxhat, dxhat * xhat, (1, 2), space_group)
         dx = dxhat - m1 - xhat * m2
     return (dx * rstd_b).to(x.dtype), dscale, dbias
 
 
 class _FusedInstanceNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, negative_slope, group):
+    def forward(ctx, x, scale, bias, eps, negative_slope, group, space_group):
         run = _cuda_forward if _build.uses_kernel(x, scale, bias) else _torch_forward
-        y, mean, rstd = run(x, scale, bias, eps, negative_slope, group)
+        y, mean, rstd = run(x, scale, bias, eps, negative_slope, group, space_group)
         ctx.save_for_backward(x, scale, bias, mean, rstd)
-        ctx.negative_slope, ctx.group = negative_slope, group
+        ctx.negative_slope, ctx.group, ctx.space_group = negative_slope, group, space_group
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, scale, bias, mean, rstd = ctx.saved_tensors
         run = _cuda_backward if _build.uses_kernel(x, dy) else _torch_backward
-        dx, dscale, dbias = run(x, scale, bias, mean, rstd, dy, ctx.negative_slope, ctx.group)
-        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None
+        dx, dscale, dbias = run(x, scale, bias, mean, rstd, dy, ctx.negative_slope, ctx.group,
+                                ctx.space_group)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None
 
 
 def fused_instance_norm(
@@ -418,18 +518,24 @@ def fused_instance_norm(
     eps: float = 1e-5,
     negative_slope: float = 0.01,
     group: int = 1,
+    space_group=None,
 ) -> torch.Tensor:
     """``leaky_relu(instance_norm(x) * scale + bias)`` of an NHWC tensor.
 
     ``x`` is (B, H, W, C), dense or space-to-depth q-major with ``group=4``;
     ``scale``/``bias`` have one float32 entry per original channel (C // group).
+    ``space_group``: a process group whose ranks each hold an equal row shard
+    of the same images, whose statistics are then the whole images'.
     """
     if x.ndim != 4:
         raise ValueError(f"fused_instance_norm takes (B, H, W, C), got {tuple(x.shape)}")
-    return _FusedInstanceNorm.apply(x, scale, bias, eps, negative_slope, group)
+    return _FusedInstanceNorm.apply(x, scale, bias, eps, negative_slope, group, space_group)
 
 
 # Kernel launches since the counts were last set to 0, of the forward and of
-# the backward (CPU calls do not count).
+# the backward (CPU calls do not count); of those, the ones split around an
+# all-reduce over a space group.
 fused_instance_norm.launches = 0
 fused_instance_norm.backward_launches = 0
+fused_instance_norm.split_launches = 0
+fused_instance_norm.split_backward_launches = 0

@@ -24,6 +24,13 @@ q-major layout (``F.pixel_unshuffle`` is c-major, channel c·4 + q).
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
 
+Under spatial partitioning (``parallel/spatial.py``) a rank holds a row shard
+of each image. ``upsample2x_nhwc_halo`` runs K2a unchanged on the shard with
+one halo row on each side (the neighbours' edge rows, or the shard's own
+edge row repeated at the image's top and bottom, which is the kernel's edge
+clamp) and keeps output rows [2, 2h + 2): each is computed from the same
+input values as the unsharded kernel's row, so it is that row bit for bit.
+
 Both are differentiable. The backward is the transpose of the plain version,
 as the JAX package's is (``jax.linear_transpose`` of the reference,
 upsample.py:211-216), with JAX's roundings: per axis, in the reverse order of
@@ -143,6 +150,18 @@ def upsample2x_into_s2d_fast(x: torch.Tensor) -> torch.Tensor:
     q-major (channel q·C + c, q = dy·2 + dx)."""
     _check_input(x, "upsample2x_into_s2d_fast")
     return _Upsample2x.apply(x, True)
+
+
+def upsample2x_nhwc_halo(x: torch.Tensor, above: torch.Tensor,
+                         below: torch.Tensor) -> torch.Tensor:
+    """``upsample2x_nhwc_fast`` of a row shard (B, h, W, C) of images, given
+    the rows beyond it, ``above`` and ``below`` (B, 1, W, C): (B, 2h, 2W, C),
+    the shard's rows of the upsampled images. K2a (one launch) on the h + 2
+    rows, cropped to output rows [2, 2h + 2)."""
+    _check_input(x, "upsample2x_nhwc_halo")
+    h = x.shape[1]
+    up = upsample2x_nhwc_fast(torch.cat([above, x, below], dim=1))
+    return up[:, 2:2 * h + 2]
 
 
 # Kernel launches since the count was last set to 0 (CPU calls do not count).

@@ -17,6 +17,14 @@ every conv casts its weight and bias to the activation's dtype at the call,
 as the JAX ``ConvOp`` does, so a bf16 model trains float32 masters. Channel
 dropout draws from the ``torch.Generator`` passed down from ``UNet.forward``.
 
+Under spatial partitioning ``UNet.forward`` also passes down a
+``parallel/spatial.py::SpatialContext``: the dense blocks then run on a row
+shard of each image. A 3×3 conv pads the shard with its neighbours' edge rows
+(``pad_rows``), K1 normalizes with the whole images' statistics, and K2a
+upsamples the shard with one halo row a side (``upsample2x_nhwc_halo``).
+Channel dropout is per (image, channel), so the ranks of a space group, whose
+generators draw alike, drop the same channels.
+
 Module attributes follow the reference torch UNet's state-dict scheme
 (``block.{idx}`` inside a ``ConvBlock``, ``conv_block`` inside an
 ``UpBlock``): each conv owns the indices [Conv2d, InstanceNorm,
@@ -37,6 +45,7 @@ from unet_implementations_tpu_torch.kernels.s2d_region import fused_s2d_tail, re
 from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_into_s2d_fast,
     upsample2x_nhwc_fast,
+    upsample2x_nhwc_halo,
 )
 from unet_implementations_tpu_torch.models.s2d import (
     conv_s2d,
@@ -44,6 +53,7 @@ from unet_implementations_tpu_torch.models.s2d import (
     conv_s2d_to_dense_stride2,
 )
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear
+from unet_implementations_tpu_torch.parallel.spatial import SpatialContext, halo_rows, pad_rows
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -68,11 +78,18 @@ def kaiming_conv(cin: int, cout: int, kernel_size: int, stride: int,
     return conv.to(memory_format=torch.channels_last)
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def conv2d(x: torch.Tensor, conv: nn.Conv2d,
+           spatial: Optional[SpatialContext] = None) -> torch.Tensor:
     """``conv`` applied in x's dtype: its float32 weight and bias are cast at
-    the call."""
-    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
-                    conv.padding)
+    the call. On a row shard (``spatial``) a 3×3 conv takes the neighbours'
+    edge rows as its row padding: one row a side at stride 1; at stride 2,
+    whose even shard's last output row reads its own last row, only the row
+    above."""
+    weight, bias = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    if spatial is None or conv.kernel_size[0] == 1:
+        return F.conv2d(x, weight, bias, conv.stride, conv.padding)
+    padded = nchw(pad_rows(nhwc(x), spatial, below=conv.stride[0] == 1))
+    return F.conv2d(padded, weight, bias, conv.stride, (0, conv.padding[1]))
 
 
 # The reference block: InstanceNorm2d(eps=1e-5, affine) + LeakyReLU(0.01)
@@ -100,9 +117,11 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, group: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group: int = 1,
+                spatial: Optional[SpatialContext] = None) -> torch.Tensor:
+        space_group = None if spatial is None else spatial.group
         return nchw(fused_instance_norm(nhwc(x), self.weight, self.bias, EPS, NEGATIVE_SLOPE,
-                                        group))
+                                        group, space_group))
 
 
 class FusedActivation(nn.Identity):
@@ -153,6 +172,8 @@ class ConvBlock(nn.Module):
       block runs its module path;
     - ``s2d_input_first``: conv_0 is the stride-2 conv taking an s2d tensor,
       with a dense half-resolution output; the rest of the block is dense.
+
+    ``spatial``: ``x`` is a dense row shard (see the module's docstring).
     """
 
     def __init__(self, cin: int, features: int, stride: int = 1, dropout_rate: float = 0.0,
@@ -195,13 +216,16 @@ class ConvBlock(nn.Module):
 
     def forward(self, x, s2d: bool = False, s2d_input_first: bool = False,
                 s2d_segments_first: Optional[Tuple[int, ...]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                spatial: Optional[SpatialContext] = None) -> torch.Tensor:
         if s2d and s2d_input_first:
             raise ValueError("a block is s2d or takes an s2d input first, not both")
+        if spatial is not None and (s2d or s2d_input_first):
+            raise ValueError("a row shard runs the dense layout only")
         if s2d or s2d_input_first:
             x = self._conv0(x, s2d_input_first, s2d_segments_first)
         else:
-            x = conv2d(x, self._unit(0)[0])
+            x = conv2d(x, self._unit(0)[0], spatial)
         if s2d and N_CONVS == 2 and not self.training:
             # The fused tail (K3): IN -> lrelu -> conv_1 -> IN -> lrelu.
             # Dropout is off in eval mode; conv_1's bias cancels in IN2.
@@ -213,8 +237,9 @@ class ConvBlock(nn.Module):
         for i in range(N_CONVS):
             conv, norm = self._unit(i)
             if i > 0:
-                x = nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d else conv2d(x, conv)
-            x = self._dropout(norm(x, group=group), i, generator, group)
+                x = (nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d
+                     else conv2d(x, conv, spatial))
+            x = self._dropout(norm(x, group=group, spatial=spatial), i, generator, group)
         return x
 
 
@@ -223,9 +248,11 @@ class UpBlock(nn.Module):
 
     Dense: an exact 2x step goes through the K2a kernel, any other size ratio
     (odd input sizes) through ``resize_bilinear``, and the concat is
-    materialized. ``s2d``: ``skip`` is an s2d tensor at ``x``'s spatial size;
-    K2b emits the upsample straight into s2d layout, and the two s2d tensors
-    go to the block as segments, never concatenated.
+    materialized. On a row shard (``spatial``) the step must be an exact 2x,
+    which K2a takes with one halo row a side. ``s2d``: ``skip`` is an s2d
+    tensor at ``x``'s spatial size; K2b emits the upsample straight into s2d
+    layout, and the two s2d tensors go to the block as segments, never
+    concatenated.
     """
 
     def __init__(self, cin: int, skip_channels: int, features: int, dropout_rate: float = 0.0,
@@ -234,7 +261,8 @@ class UpBlock(nn.Module):
         self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, generator)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor, s2d: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                spatial: Optional[SpatialContext] = None) -> torch.Tensor:
         size, skip_size = tuple(x.shape[2:]), tuple(skip.shape[2:])
         if s2d:
             if size != skip_size:
@@ -243,10 +271,16 @@ class UpBlock(nn.Module):
             segments = (x.shape[1], skip.shape[1] // 4)
             return self.conv_block((up, skip), s2d=True, s2d_segments_first=segments,
                                    generator=generator)
-        if size != skip_size:
-            if skip_size == (2 * size[0], 2 * size[1]):
-                x = nchw(upsample2x_nhwc_fast(nhwc(x)))
-            else:
-                x = nchw(resize_bilinear(nhwc(x), skip_size))
+        exact = skip_size == (2 * size[0], 2 * size[1])
+        if spatial is not None:
+            if not exact:
+                raise ValueError(f"a row shard's decoder upsamples exactly 2x, not {size} to "
+                                 f"{skip_size}")
+            x = nhwc(x)
+            x = nchw(upsample2x_nhwc_halo(x, *halo_rows(x, spatial, repeat_edges=True)))
+        elif exact:
+            x = nchw(upsample2x_nhwc_fast(nhwc(x)))
+        elif size != skip_size:
+            x = nchw(resize_bilinear(nhwc(x), skip_size))
         x = torch.cat([x, skip], dim=1).contiguous(memory_format=torch.channels_last)
-        return self.conv_block(x, generator=generator)
+        return self.conv_block(x, generator=generator, spatial=spatial)

@@ -9,17 +9,20 @@ Input is NHWC, output NHWC float32 logits or [0, 1] reconstructions, as in
 JAX. The encoder-transfer model is the segmentation UNet with its encoder
 grafted from an autoencoder and frozen (``recipes/ae_transfer.py``). The
 CLIP_UNet model is the segmentation UNet with ``clip_fusion``: a global
-(B, clip_dim) image embedding fused at the bottleneck.
+(B, clip_dim) image embedding fused at the bottleneck. Under spatial
+partitioning (``parallel/spatial.py``) the dense model runs on a row shard of
+each image.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch import default_device, not_ported
 from unet_implementations_tpu_torch.models.blocks import (
     ConvBlock,
     InstanceNorm,
@@ -30,6 +33,7 @@ from unet_implementations_tpu_torch.models.blocks import (
     nhwc,
 )
 from unet_implementations_tpu_torch.models.s2d import conv_s2d, depth_to_space, space_to_depth
+from unet_implementations_tpu_torch.parallel.spatial import SpatialContext
 
 # The 6-stage configuration the reference trains.
 DEFAULT_FEATURES = (32, 64, 128, 256, 512, 512)
@@ -137,7 +141,8 @@ class UNet(nn.Module):
         return len(self.features_per_stage)
 
     def forward(self, x: torch.Tensor, clip_features: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None, return_bottleneck: bool = False):
+                generator: Optional[torch.Generator] = None, return_bottleneck: bool = False,
+                spatial: Optional[SpatialContext] = None):
         """(B, H, W, C_in) -> (B, H, W, num_classes) float32 logits, or
         (B, H, W, 3) float32 reconstructions in [0, 1].
 
@@ -149,8 +154,22 @@ class UNet(nn.Module):
         mode; a training forward through a block with a dropout rate above
         0 raises without one. ``return_bottleneck`` also returns the
         bottleneck stage's output flattened in NHWC order, (B, H'·W'·C), in
-        the compute dtype, as JAX's."""
+        the compute dtype, as JAX's.
+
+        ``spatial``: ``x`` is this rank's row shard (B, H/S, W, C_in) of the
+        images of a space group of S ranks, and so is the output (JAX's
+        spatially sharded forward). The shards must stay equal and even at
+        every level: H divisible by 2^(stages-1)·S. The dense layout only."""
         n = self.n_stages
+        if spatial is not None:
+            if self.s2d_level0 or self.s2d_low_channel_decoders:
+                raise not_ported("--spatial with the s2d layout", 7)
+            down = math.prod(self.strides)
+            if x.shape[1] % down:
+                raise ValueError(
+                    f"spatial partitioning: images of {x.shape[1] * spatial.size} rows over "
+                    f"{spatial.size} ranks leave shards that are not equal and even at every "
+                    f"level; H must be divisible by {down}·{spatial.size}")
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         # The JAX model's rules: the s2d level needs even sizes and a
         # stride-1 first stage; encoder_1 then takes the s2d skip through a
@@ -163,13 +182,14 @@ class UNet(nn.Module):
             s2d_stage = use_s2d and i == 0
             if s2d_stage:
                 x = nchw(space_to_depth(nhwc(x)))
-            x = stage(x, s2d=s2d_stage, s2d_input_first=feed_s2d and i == 1, generator=generator)
+            x = stage(x, s2d=s2d_stage, s2d_input_first=feed_s2d and i == 1, generator=generator,
+                      spatial=spatial)
             skips.append(x)  # skip 0 stays s2d for the last decoder
             if s2d_stage and not feed_s2d:
                 x = nchw(depth_to_space(nhwc(x)))
-        x = self.encoder_stages[-1](x, generator=generator)
+        x = self.encoder_stages[-1](x, generator=generator, spatial=spatial)
         if self.clip_fusion and clip_features is not None:
-            x = self._fuse(x, clip_features)
+            x = self._fuse(x, clip_features, spatial)
         bottleneck = x
         for d, decoder in enumerate(self.decoder_stages):
             skip_idx = n - 2 - d
@@ -183,7 +203,7 @@ class UNet(nn.Module):
                         and skip.shape[2] % 2 == 0 and skip.shape[3] % 2 == 0)
             if s2d_wrap:
                 skip = nchw(space_to_depth(nhwc(skip)))
-            x = decoder(x, skip, s2d=s2d_stage or s2d_wrap, generator=generator)
+            x = decoder(x, skip, s2d=s2d_stage or s2d_wrap, generator=generator, spatial=spatial)
             if s2d_wrap:
                 x = nchw(depth_to_space(nhwc(x)))
         head = (self.segmentation_output if self.head == "segmentation"
@@ -191,7 +211,7 @@ class UNet(nn.Module):
         if use_s2d:
             out = depth_to_space(conv_s2d(nhwc(x), head.weight, head.bias))
         else:
-            out = nhwc(conv2d(x, head))
+            out = nhwc(conv2d(x, head, spatial))
         out = out.to(torch.float32)
         if self.head == "reconstruction":
             out = torch.sigmoid(out)
@@ -213,7 +233,8 @@ class UNet(nn.Module):
         self.load_state_dict(sd, strict=True)
         return self
 
-    def _fuse(self, x: torch.Tensor, clip_features: torch.Tensor) -> torch.Tensor:
+    def _fuse(self, x: torch.Tensor, clip_features: torch.Tensor,
+              spatial: Optional[SpatialContext] = None) -> torch.Tensor:
         """The bottleneck fusion: concat [x, features broadcast over x's
         grid], 1x1 conv, InstanceNorm+LeakyReLU (K1)."""
         b, _, h, w = x.shape
@@ -221,7 +242,7 @@ class UNet(nn.Module):
         cf = cf[:, :, None, None].expand(b, self.clip_dim, h, w)
         x = torch.cat([x, cf], dim=1).contiguous(memory_format=torch.channels_last)
         conv, norm = self.clip_fusion_conv[0], self.clip_fusion_conv[1]
-        return norm(conv2d(x, conv))
+        return norm(conv2d(x, conv), spatial=spatial)
 
 
 def unet_6stage(dtype: torch.dtype = torch.float32, device=None,

@@ -12,6 +12,10 @@ process ``group``: the class counts and the CE denominator are all-reduced,
 so the loss is the global batch's, as on JAX's mesh. Both come from the masks
 alone, so no gradient crosses a reduction. Without a group (None, the
 default) nothing is reduced and the results are the single-process ones.
+Under spatial partitioning (``parallel/spatial.py``) the group is the whole
+(data, space) grid, whose ranks' masks then cover the global batch's pixels
+once, and Dice also takes the ``space_group``: each image's intersection and
+union are summed over the ranks that hold its rows, differentiably.
 
 Reconstruction (NHWC images in [0, 1]): MSE, per-image PSNR, Gaussian-window
 SSIM, the perceptual (feature-space) MSE and their weighted sum, all in
@@ -30,6 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear
+from unet_implementations_tpu_torch.parallel.spatial import all_reduce_sum
 
 IGNORE_INDEX = 255
 
@@ -97,11 +102,14 @@ def weighted_cross_entropy(logits: torch.Tensor, mask: torch.Tensor,
 
 
 def soft_dice_loss(logits: torch.Tensor, mask: torch.Tensor, ignore_index: int = IGNORE_INDEX,
-                   smooth: float = 1e-5) -> torch.Tensor:
+                   smooth: float = 1e-5, space_group=None) -> torch.Tensor:
     """Soft Dice over all classes, border masked out: per class c and image
     b, ``dice = (2·I + s) / (U + s)`` with ``I = sum(p_c·t_c)`` and ``U =
     sum(p_c) + sum(t_c)`` over valid pixels; the loss is
-    ``mean_c(1 − mean_b(dice))``."""
+    ``mean_c(1 − mean_b(dice))``. With a ``space_group`` whose ranks hold
+    row shards of the same images, ``I`` and ``U`` are summed over its ranks
+    (``all_reduce_sum``: every rank computes the whole images' Dice, and each
+    rank's probabilities take its gradient from every rank's loss)."""
     num_classes = logits.shape[-1]
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     valid = _valid_mask(mask, ignore_index).unsqueeze(-1)
@@ -110,6 +118,8 @@ def soft_dice_loss(logits: torch.Tensor, mask: torch.Tensor, ignore_index: int =
     spatial = tuple(range(1, probs.ndim - 1))
     intersection = (probs * onehot).sum(dim=spatial)
     union = probs.sum(dim=spatial) + onehot.sum(dim=spatial)
+    if space_group is not None:
+        intersection, union = all_reduce_sum(torch.stack([intersection, union]), space_group)
     dice = (2.0 * intersection + smooth) / (union + smooth)
     return (1.0 - dice.mean(dim=0)).mean()
 
@@ -117,7 +127,7 @@ def soft_dice_loss(logits: torch.Tensor, mask: torch.Tensor, ignore_index: int =
 def segmentation_loss(logits: torch.Tensor, mask: torch.Tensor, weight_ce: float = 1.0,
                       weight_dice: float = 1.0, class_weights: Optional[torch.Tensor] = None,
                       dynamic_weights: bool = True, ignore_index: int = IGNORE_INDEX,
-                      smooth: float = 1e-5, group=None) -> torch.Tensor:
+                      smooth: float = 1e-5, group=None, space_group=None) -> torch.Tensor:
     """``weight_ce·CE + weight_dice·Dice``. With ``dynamic_weights`` (and no
     ``class_weights``) the CE weights are recomputed from this batch; given
     ``class_weights`` are static; neither gives unweighted CE. Logits at
@@ -128,13 +138,16 @@ def segmentation_loss(logits: torch.Tensor, mask: torch.Tensor, weight_ce: float
     class weights and the CE denominator are global, the CE term is scaled
     by the world size, and the batch-mean Dice is the rank's own. The mean
     of the ranks' values is then the global loss, and so is the gradient
-    that ``DistributedDataParallel`` averages."""
+    that ``DistributedDataParallel`` averages. Under spatial partitioning
+    ``group`` is the whole grid and ``space_group`` this rank's space group:
+    the Dice term is then the rank's data shard's, the same on every rank of
+    the space group, and the mean over the grid is again the global loss."""
     if tuple(logits.shape[1:3]) != tuple(mask.shape[1:3]):
         logits = resize_bilinear(logits, tuple(mask.shape[1:3]))
     if dynamic_weights and class_weights is None:
         class_weights = compute_class_weights(mask, logits.shape[-1], ignore_index, group)
     ce = weighted_cross_entropy(logits, mask, class_weights, ignore_index, group)
-    dice = soft_dice_loss(logits, mask, ignore_index, smooth)
+    dice = soft_dice_loss(logits, mask, ignore_index, smooth, space_group)
     return weight_ce * ce + weight_dice * dice
 
 

@@ -28,6 +28,11 @@ counterpart: training drops the last partial batch (every rank has the same
 number of full batches), and validation is not striped (every rank runs the
 whole validation set, so its metrics, and the early-stopping decision, are
 the single-process ones).
+
+Under spatial partitioning (``parallel/spatial.py::SpatialGrid``, a
+``DataParallel`` on a (data, space) grid) the stripe and the local batch go
+by the data rank alone: the ranks of one space group read the same images
+and each keeps its rows of them.
 """
 
 from __future__ import annotations
@@ -43,15 +48,21 @@ from torch.nn.parallel import DistributedDataParallel
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.parallel import distributed
 
+def _wrapped(model: nn.Module) -> bool:
+    from unet_implementations_tpu_torch.parallel.spatial import SpatialParallel
+
+    return isinstance(model, (DistributedDataParallel, SpatialParallel))
+
+
 def unwrap(model: nn.Module) -> nn.Module:
-    """The module inside a ``DistributedDataParallel`` wrapper, else
-    ``model``."""
-    return model.module if isinstance(model, DistributedDataParallel) else model
+    """The module inside a ``DistributedDataParallel`` or ``SpatialParallel``
+    wrapper, else ``model``."""
+    return model.module if _wrapped(model) else model
 
 
 def process_group(model: nn.Module):
     """The process group a wrapped model reduces over, else None."""
-    return model.process_group if isinstance(model, DistributedDataParallel) else None
+    return model.process_group if _wrapped(model) else None
 
 
 def wrap(model: nn.Module) -> DistributedDataParallel:
@@ -73,12 +84,22 @@ class DataParallel:
     world_size: int
     device: torch.device
 
+    @property
+    def data_rank(self) -> int:
+        """This rank's shard of the batch (the rank, but on a spatial grid)."""
+        return self.rank
+
+    @property
+    def n_data(self) -> int:
+        """The shards of the batch (the world size, but on a spatial grid)."""
+        return self.world_size
+
     def local_batch(self, batch_size: int) -> int:
-        """This rank's rows of a global batch of ``batch_size``."""
-        if batch_size % self.world_size:
+        """This rank's images of a global batch of ``batch_size``."""
+        if batch_size % self.n_data:
             raise ValueError(f"--batch_size {batch_size} does not divide into "
-                             f"{self.world_size} ranks")
-        return batch_size // self.world_size
+                             f"{self.n_data} ranks")
+        return batch_size // self.n_data
 
     def check_agree(self, **flags: bool) -> None:
         """All-reduce boolean decisions (one collective) and raise unless
@@ -107,4 +128,4 @@ def stripe(mesh: Optional[DataParallel]) -> Dict[str, int]:
     without a mesh)."""
     if mesh is None:
         return {}
-    return {"process_index": mesh.rank, "process_count": mesh.world_size}
+    return {"process_index": mesh.data_rank, "process_count": mesh.n_data}

@@ -265,7 +265,7 @@ def train(
     for split in missing:
         tables[split] = _embedding_table(extractor, datasets[split])
     augment = (functools.partial(wrap_online_augment_clip, seed=seed, device=device,
-                                 extractor=extractor, rank=mesh.rank if mesh else 0)
+                                 extractor=extractor, rank=mesh.data_rank if mesh else 0)
                if online_augment else None)
     del extractor  # the tower stays only for live extraction
 

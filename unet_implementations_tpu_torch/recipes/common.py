@@ -11,6 +11,8 @@ original size runs on the host with torch/cv2 floor index math, as the
 reference eval protocol does. ``evaluate_segmentation`` writes
 ``evaluation_results.json`` with the reference's schema,
 ``evaluate_reconstruction`` the JAX package's ``reconstruction_metrics.json``.
+``predict_segmentation(spatial=N)`` serves with each image's rows over the N
+ranks of a space group (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch import default_device, not_ported  # noqa: F401
 from unet_implementations_tpu_torch.data.augment import (
     augment_and_normalize,
     augment_and_normalize_with_clip,
@@ -33,7 +35,13 @@ from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterato
 from unet_implementations_tpu_torch.ops.losses import psnr, ssim
 from unet_implementations_tpu_torch.ops.metrics import SegmentationMetrics
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
-from unet_implementations_tpu_torch.parallel.distributed import world_size
+from unet_implementations_tpu_torch.parallel.distributed import is_primary, world_size
+from unet_implementations_tpu_torch.parallel.spatial import (
+    SpatialGrid,
+    create_mesh_dp_sp,
+    gather_rows,
+    rows_of,
+)
 from unet_implementations_tpu_torch.training.steps import to_device
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
@@ -43,18 +51,17 @@ IMAGE_SIZE = 512
 EVAL_RUN_AHEAD = 2
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")
-
-
 def augment_generator(seed: int, epoch: int, i: int, device, rank: int = 0) -> torch.Generator:
     """The generator of batch ``i`` of ``epoch``'s online augmentation, on
     ``device``, seeded from ``(seed + 7, epoch, i)`` mixed by numpy's
     ``SeedSequence``, and the ``rank`` of a data-parallel process after them
     (rank 0 draws what one process draws; JAX draws per image over the global
     batch, so the ranks' images must not share their draws). Both wrappers
-    draw from it, so they apply the same transforms to the same batch."""
+    draw from it, so they apply the same transforms to the same batch. Under
+    spatial partitioning ``rank`` is the data rank: the ranks of a space group
+    augment the same whole images with the same draws (a homography spans
+    the image), and each then keeps its rows (the train step's loss
+    function does)."""
     mixed = np.random.SeedSequence([(seed + 7) & 0xFFFFFFFF, epoch & 0xFFFFFFFF,
                                     i & 0xFFFFFFFF] + ([rank] if rank else []))
     return torch.Generator(device=device).manual_seed(
@@ -102,17 +109,19 @@ def wrap_online_augment_clip(batches: Iterable[Dict], epoch: int, seed: int, dev
         yield out
 
 
-def check_grad_accum(batch_size: int, grad_accum: int, use_mesh: bool = False) -> None:
+def check_grad_accum(batch_size: int, grad_accum: int, use_mesh: bool = False,
+                     spatial: int = 1) -> None:
     """Fail fast on an indivisible accumulation split, before the datasets
     load (the train loops drop the last partial batch, so every training
     batch is ``batch_size``).
 
     With ``use_mesh`` under a process group of W ranks, ``batch_size`` (the
     global batch) must also split into W × ``grad_accum`` equal parts: each
-    rank's stripe, then its microbatches. JAX only warns when the
-    microbatch does not divide its device count, since XLA reshards; with
-    one process per GPU an uneven split cannot be laid out, so this
-    raises."""
+    rank's stripe, then its microbatches (W / ``spatial`` stripes under
+    spatial partitioning, whose space groups share their images). JAX only
+    warns when the microbatch does not divide its device count, since XLA
+    reshards; with one process per GPU an uneven split cannot be laid out,
+    so this raises."""
     if grad_accum < 1:
         raise ValueError(f"--grad_accum must be >= 1, got {grad_accum}")
     if batch_size % grad_accum:
@@ -120,7 +129,7 @@ def check_grad_accum(batch_size: int, grad_accum: int, use_mesh: bool = False) -
             f"--grad_accum {grad_accum} does not divide --batch_size "
             f"{batch_size} into equal microbatches"
         )
-    ranks = world_size() if use_mesh else 1
+    ranks = max(world_size() // spatial, 1) if use_mesh else 1
     if batch_size % (ranks * grad_accum):
         raise ValueError(
             f"--batch_size {batch_size} does not divide into {ranks} ranks x "
@@ -269,6 +278,7 @@ def predict_arrays(
     model: torch.nn.Module,
     images_512: np.ndarray,
     original_dims: Sequence[Tuple[int, int]],
+    grid: Optional[SpatialGrid] = None,
 ) -> List[np.ndarray]:
     """Masks for one batch of images.
 
@@ -276,7 +286,10 @@ def predict_arrays(
     cross to the model's device as uint8, are ImageNet-normalized there, run
     through ``model`` in its dtype, and the argmax comes back. Each
     512² mask is then nearest-resized to its ``original_dims`` entry (h, w).
-    Returns uint8 masks with class ids {0, 1, 2}.
+    Returns uint8 masks with class ids {0, 1, 2}. Under a spatial ``grid``
+    (every rank calls it with the same images) the model runs on this rank's
+    rows, and the space group's rows of the argmax are gathered on each of
+    its ranks.
     """
     if images_512.ndim != 4 or images_512.shape[-1] != 3 or images_512.dtype != np.uint8:
         raise ValueError(
@@ -285,8 +298,12 @@ def predict_arrays(
         raise ValueError(f"{len(original_dims)} original sizes for {len(images_512)} images")
     device = next(model.parameters()).device
     pixels = torch.from_numpy(np.ascontiguousarray(images_512)).to(device, non_blocking=True)
-    logits = model(normalize_image(pixels))
-    preds = torch.argmax(logits, dim=-1).to(torch.uint8).cpu().numpy()
+    if grid is None:
+        preds = torch.argmax(model(normalize_image(pixels)), dim=-1)
+    else:
+        logits = model(normalize_image(rows_of(pixels, grid.context)), spatial=grid.context)
+        preds = gather_rows(torch.argmax(logits, dim=-1), grid.context)
+    preds = preds.to(torch.uint8).cpu().numpy()
     return [resize_nearest_np(pred, dims) for pred, dims in zip(preds, original_dims)]
 
 
@@ -299,6 +316,7 @@ def predict_segmentation(
     dtype: torch.dtype = torch.bfloat16,
     overlay: bool = True,
     device=None,
+    spatial: int = 0,
     verbose: bool = True,
 ) -> int:
     """Run the 6-stage UNet from a reference-schema ``.pth`` (``cli
@@ -310,6 +328,12 @@ def predict_segmentation(
     another device. Returns the number of images processed. The last batch
     may be smaller than ``batch_size``: eager PyTorch has no recompile to
     avoid, so it is not padded.
+
+    ``spatial`` > 1 shards each image's rows over that many ranks of the
+    process group (JAX's ``--spatial``: batch-1 latency over several cards),
+    whose size must be a multiple of it. Every rank reads every image; the
+    ranks of a space group share each forward, every space group runs the
+    whole batch, and rank 0 writes the masks.
     """
     import cv2
 
@@ -318,13 +342,16 @@ def predict_segmentation(
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     device = default_device(device)
+    grid = create_mesh_dp_sp(spatial, device=device) if spatial > 1 else None
     inputs = Path(inputs)
     files = sorted(
         p for p in ([inputs] if inputs.is_file() else inputs.iterdir())
         if p.suffix.lower() in (".jpg", ".jpeg", ".png")
     )
     output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
+    write = is_primary()
+    if write:
+        output_dir.mkdir(parents=True, exist_ok=True)
     model = convert.load_reference_checkpoint(model_path, device=device, dtype=dtype)
 
     n = 0
@@ -343,14 +370,16 @@ def predict_segmentation(
             ok.append((p, rgb))
         if not imgs:
             continue
-        masks = predict_arrays(model, np.stack(imgs), dims)
+        masks = predict_arrays(model, np.stack(imgs), dims, grid)
         for (p, rgb), mask in zip(ok, masks):
+            n += 1
+            if not write:
+                continue
             cv2.imwrite(str(output_dir / f"{p.stem}_mask.png"), mask)
             if overlay:
                 blend = (0.6 * rgb + 0.4 * colorize_mask(mask)).astype(np.uint8)
                 cv2.imwrite(str(output_dir / f"{p.stem}_overlay.png"),
                             cv2.cvtColor(blend, cv2.COLOR_RGB2BGR))
-            n += 1
-    if verbose:
+    if verbose and write:
         print(f"predicted {n} images -> {output_dir}")
     return n

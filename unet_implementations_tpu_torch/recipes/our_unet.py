@@ -18,8 +18,13 @@ microbatches, one optimizer update per batch
 several ranks (``parallel/``) training is data-parallel unless
 ``use_mesh=False``: each rank trains on its stripe of the training files,
 ``batch_size`` stays the global batch, and the loss is the global batch's.
-Not ported yet (each raises ``NotImplementedError``): spatial training and
-the evaluation's visualizations.
+``spatial`` > 1 shards each image's rows over that many ranks of the process
+group (a (data, space) grid, ``parallel/spatial.py``): the ranks of a space
+group read the same stripe, each trains on its rows of the images, and the
+update is the global batch's. It needs the mesh (not ``use_mesh=False``) and
+refuses ``grad_accum`` > 1, as JAX does; validation runs unsharded on every
+rank. Not ported yet (raises ``NotImplementedError``): the evaluation's
+visualizations.
 """
 
 from __future__ import annotations
@@ -34,6 +39,11 @@ from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
 from unet_implementations_tpu_torch.parallel.mesh import DataParallel, create_mesh, stripe, wrap
+from unet_implementations_tpu_torch.parallel.spatial import (
+    SpatialGrid,
+    SpatialParallel,
+    create_mesh_dp_sp,
+)
 from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
@@ -149,11 +159,19 @@ def train(
     """Train from scratch (or from ``resume``, a checkpoint directory) and
     return the loop's result (``best_metric``, ``epochs_run``, ``step`` and
     each epoch's timers)."""
-    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
-    if spatial and spatial > 1:
-        raise not_ported("--spatial", 7)
+    n_space = max(spatial, 1)
+    check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh, spatial=n_space)
+    if n_space > 1 and not use_mesh:
+        raise ValueError("--spatial requires the device mesh; drop --no_mesh or --spatial "
+                         "(they contradict).")
+    if n_space > 1 and grad_accum > 1:
+        raise ValueError("--grad_accum with --spatial is not supported: spatial partitioning "
+                         "already divides the activation footprint; use one or the other.")
     device = default_device(device)
-    mesh = create_mesh(device) if use_mesh else None
+    if n_space > 1:
+        mesh = create_mesh_dp_sp(n_space, device=device)
+    else:
+        mesh = create_mesh(device) if use_mesh else None
     output_dir = Path(output_dir)
     write_training_config(output_dir, dict(
         data_dir=str(data_dir), output_dir=str(output_dir), batch_size=batch_size,
@@ -185,7 +203,7 @@ def online_augmenter(seed: int, device, mesh: Optional[DataParallel] = None
     """``fit``'s ``augment`` hook for ``online_augment``: each epoch's
     training batches augmented on ``device`` (with the rank's own draws
     under ``mesh``)."""
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.data_rank if mesh is not None else 0
     return lambda batches, epoch: wrap_online_augment(batches, epoch, seed, device, rank=rank)
 
 
@@ -202,9 +220,10 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
     class weights, the train step (``grad_accum`` microbatches a batch) and
     the eval step, a resume, and ``train_loop`` with poly LR decay and early
     stopping on mean foreground Dice. Under ``mesh`` the model is wrapped
-    for data parallelism after the resume, ``train_ds`` is this rank's
-    stripe read in batches of ``batch_size / world_size``, and validation
-    runs the whole of ``val_ds`` at ``batch_size`` on the bare model.
+    for data parallelism after the resume (for spatial partitioning, on a
+    ``SpatialGrid``), ``train_ds`` is this rank's stripe read in batches of
+    ``batch_size / n_data``, and validation runs the whole of ``val_ds`` at
+    ``batch_size`` on the bare model.
     ``features(batches, split)`` ("Train" or "Val") attaches each batch's
     ``clip_features``; the steps then feed them to the model.
     ``augment(batches, epoch)``, when given, takes the place of ``features``
@@ -230,7 +249,10 @@ def fit(model: UNet, optimizer: torch.optim.Optimizer, train_ds: PetDataset,
         if verbose:
             print(f"Resumed from epoch {start_epoch}")
 
-    trained = wrap(model) if mesh is not None else model
+    if isinstance(mesh, SpatialGrid):
+        trained = SpatialParallel(model, mesh)
+    else:
+        trained = wrap(model) if mesh is not None else model
     train_step = make_accum_train_step(
         trained, optimizer, make_segmentation_loss_fn(use_clip=use_clip, **loss_kw), grad_accum)
     eval_step = make_segmentation_eval_step(model, use_clip=use_clip, **loss_kw)

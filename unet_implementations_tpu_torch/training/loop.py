@@ -25,7 +25,8 @@ loop on its stripe of the training set with the wrapped model. Only rank 0
 writes the CSV, the checkpoints (the unwrapped module's state dict) and
 ``training_config.json``; the other ranks wait at a barrier after each write.
 Each rank draws its own dropout masks (the rank is folded into the
-generator's seed). Validation is not striped, as in JAX: every rank runs the
+generator's seed); under spatial partitioning the data rank is, so the ranks
+that share images draw the same masks. Validation is not striped, as in JAX: every rank runs the
 whole validation set and so reaches the same early-stopping decision without
 communicating; the loop all-reduces the decision once an epoch and raises if
 the ranks disagree.
@@ -168,7 +169,7 @@ def train_loop(
     output_dir = Path(output_dir)
     device = next(model.parameters()).device
     primary = is_primary()
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.data_rank if mesh is not None else 0
 
     monitor_mode = "max" if task == "segmentation" else "min"
     if best_metric is None:

@@ -29,6 +29,15 @@ counts and CE denominator over the model's process group, so the averaged
 gradient is the global batch's, and the loss a step returns is the global
 one (the mean over the ranks of their shares, one all-reduce).
 
+Under spatial partitioning the train steps take a ``SpatialParallel`` model
+(``parallel/spatial.py``): the loss function keeps this rank's rows of the
+batch's images and masks, the loss sums Dice's per-image sums over the space
+group and the class counts over the grid, and the plain step all-reduces the
+gradients over the grid after the backward (``average_gradients``), so the
+update is the global batch's. The step's dropout generator must be the same
+on every rank of a space group (``training/loop.py`` seeds it from the data
+rank). Gradient accumulation under it is refused, as in JAX.
+
 The reconstruction steps take ``{"image", "target"}`` (uint8, or float in
 [0, 1]), scale uint8 to [0, 1] on the device (``mode="unit"``, no ImageNet
 statistics), and train on the MSE, or on ``objective(recon, target)`` (the
@@ -49,6 +58,7 @@ from unet_implementations_tpu_torch.ops.losses import mse_loss, psnr, segmentati
 from unet_implementations_tpu_torch.ops.metrics import batch_dice_scores, confusion_matrix
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.parallel.mesh import process_group
+from unet_implementations_tpu_torch.parallel.spatial import grid_of, shard_rows
 
 # ``loss_fn(model, batch, generator) -> loss``: the objective of one batch.
 LossFn = Callable[[nn.Module, Dict, Optional[torch.Generator]], torch.Tensor]
@@ -101,11 +111,15 @@ def make_segmentation_loss_fn(
     per-batch class weights; ``use_clip`` feeds the batch's
     ``clip_features`` to the model. A ``DistributedDataParallel`` model's
     process group makes it the rank's share of the global loss
-    (``ops/losses.py``)."""
+    (``ops/losses.py``); so does a ``SpatialParallel`` model's grid, on this
+    rank's rows of the batch."""
 
     def loss_fn(model: nn.Module, batch: Dict, generator: Optional[torch.Generator]):
         device = _device_of(model)
         group = process_group(model)
+        grid = grid_of(model)
+        if grid is not None:  # this rank's rows, before they cross to the device
+            batch = shard_rows(batch, grid.context)
         image, mask = _on_device(batch, device)
         clip = _clip_kwargs(batch, device, use_clip)
         if group is not None and use_clip and clip["clip_features"] is None:
@@ -116,7 +130,8 @@ def make_segmentation_loss_fn(
         return segmentation_loss(logits, mask, weight_ce=weight_ce, weight_dice=weight_dice,
                                  class_weights=static_weights,
                                  dynamic_weights=dynamic_weights and static_weights is None,
-                                 group=group)
+                                 group=group,
+                                 space_group=grid.context.group if grid is not None else None)
 
     return loss_fn
 
@@ -158,13 +173,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: LossFn) -> Callable:
     """``step(batch, generator) -> loss`` (a detached float32 scalar on the
     model's device): one forward of ``loss_fn``, backward and optimizer
-    update of ``model`` in place."""
+    update of ``model`` in place (a ``SpatialParallel`` model's gradients
+    averaged over its grid first)."""
+    grid = grid_of(model)
 
     def step(batch: Dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch, generator)
         loss.backward()
+        if grid is not None:
+            model.average_gradients()
         optimizer.step()
         return _global(loss.detach(), model)
 
@@ -208,6 +227,9 @@ def make_accum_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         raise ValueError(f"accum must be >= 1, got {accum}")
     if accum == 1:
         return make_train_step(model, optimizer, loss_fn)
+    if grid_of(model) is not None:
+        raise ValueError("gradient accumulation with spatial partitioning is not supported: "
+                         "spatial partitioning already divides the activation footprint")
 
     def step(batch: Dict, generator: Optional[torch.Generator]) -> torch.Tensor:
         b = len(batch["image"])
