@@ -219,9 +219,34 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    host, so those times are correctness-run times; the peaks are what
    spatial partitioning is for.
 
+14. The serving artifact (``serving/export.py``): K1's forward, K2a, K2b and
+   K3 are operators, so ``torch.export`` captures each launch as one node.
+   (a) ``unet_6stage`` in bf16, dense and s2d, exported on the card at b8
+   (``save_exported`` -> ``load_exported``): the replay bit for bit the eager
+   forward, launches 22/5/0/0 and 16/3/2/3 counted inside the operators
+   while the artifact replays, the graph holding one operator node per
+   launch; the eager forward with the plain versions launches none. (b) The
+   same for the CLIP_UNet model (23/5) and ``autoencoder_6stage`` (22/5). (c)
+   A fresh ``python -c`` process loads the dense artifact without
+   ``models/`` and replays it bit for bit (22/5). (d) A float32 artifact
+   against the eager forward with the plain versions at phase 4's bounds.
+   (f) ``cli export`` of phase 8's ``best_model`` (b8), then ``cli predict``
+   from the artifact on CLI_SERVE_IMAGES jpgs of phase 3's sizes (cv2): its
+   masks byte for byte those of ``cli predict`` from the checkpoint. (g) The
+   raw-data chain ``cli pipeline -> sanity_checks -> augment`` on a
+   synthesized raw tree (RAW_PER_CLASS cats and dogs, RAW_TEST test images),
+   which needs cv2 and PIL (see RAW_PER_CLASS). Printed, not gated: (e) the
+   b128 dense artifact forward beside the eager one (CUDA events, phase 5's
+   method, eager and artifact in turns), the request latency of
+   ``predict_arrays`` from b1 and b8 artifacts beside the eager model (host
+   clock, the two in turns, LATENCY_REPEATS each after one), each export's
+   time and the artifact's size.
+
 ``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
 comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
-phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups) and
+phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups), the
+same b32 batch as ACCUM microbatches (``make_accum_train_step``, as phase 12;
+bound by the host's dispatch, so it shows a change of per-call cost first) and
 phase 8's ``cli our_unet train`` for 2 epochs at b32 (epoch 2's time per
 step after its first batch), from phase 8's dataset written under ROOT. The
 timing program uses only the package's entry points, so it runs against an
@@ -238,7 +263,8 @@ and TF32 off in every process (``NVIDIA_TF32_OVERRIDE=0``).
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3 and 6-13; phase 13's in its ranks).
+runs of the main paths (phases 3, 6-13 and 14's replays; phase 13's in its
+ranks).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
@@ -278,7 +304,7 @@ from unet_implementations_tpu_torch.kernels import winograd as k4
 from unet_implementations_tpu_torch.models import blocks, convert
 from unet_implementations_tpu_torch.models import clip as clip_model
 from unet_implementations_tpu_torch.models.clip import ClipFeatureExtractor
-from unet_implementations_tpu_torch.models.s2d import (
+from unet_implementations_tpu_torch.ops.s2d import (
     depth_to_space,
     space_to_depth,
     upsample2x_into_s2d,
@@ -298,6 +324,7 @@ from unet_implementations_tpu_torch.parallel import mesh as dp_mesh
 from unet_implementations_tpu_torch.parallel import spatial
 from unet_implementations_tpu_torch.recipes import clip_unet
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
+from unet_implementations_tpu_torch.serving import load_exported, save_exported
 from unet_implementations_tpu_torch.training.checkpoint import (
     extract_encoder_params,
     load_checkpoint,
@@ -3559,6 +3586,314 @@ def spatial_cards(root: Path) -> int:
     return 0
 
 
+# Serving (phase 14): the artifacts' batch (phase 3's), the timed one
+# (phase 5's), the request batches whose latency is timed by the host clock,
+# and the requests of ``cli predict`` (two full b8 batches: no padding, so
+# the artifact's chunks are the checkpoint's batches and the masks can match
+# bit for bit).
+LATENCY_BATCHES = (1, SERVE_BATCH)
+LATENCY_REPEATS = 20
+CLI_SERVE_IMAGES = 2 * SERVE_BATCH
+# The raw-data chain on the card (``cli pipeline -> sanity_checks ->
+# augment``). ``data/pipeline.py`` needs cv2 and PIL, and the H100 machine
+# this script was written for has both (cv2 4.13.0, PIL 12.2.0, beside torch
+# 2.11.0+cu128), so the phase drives the chain, and fails if either is
+# missing rather than skipping it. Train images per class of the synthesized
+# raw tree, and its Test images.
+RAW_PER_CLASS = 5
+RAW_TEST = 3
+
+
+def artifact(model, path: Path, batch: int, clip_dim=None, recipe: str = "our_unet"):
+    """``save_exported`` of ``model`` at ``batch`` on the card, then
+    ``load_exported``: (served, export seconds, artifact MiB)."""
+    t0 = time.perf_counter()
+    save_exported(path, model, recipe=recipe, batch_size=batch, img_size=IMG,
+                  clip_dim=clip_dim, input_dtype=model.dtype)
+    export_s = time.perf_counter() - t0
+    mib = sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 2**20
+    return load_exported(path), export_s, mib
+
+
+def graph_launches(served) -> dict:
+    """Kernel operator nodes of an artifact's graph, by kernel."""
+    ops = {"in_lrelu_fwd": "K1", "upsample2x": "K2a", "upsample2x_s2d": "K2b", "s2d_tail": "K3"}
+    counts = dict(NO_LAUNCHES)
+    for node in served.program.graph.nodes:
+        name = str(node.target).split(".")
+        if node.op == "call_function" and name[0] == "unet_torch":
+            counts[ops[name[1]]] += 1
+    return counts
+
+
+def replay_check(label: str, model, served, args: tuple, per_forward: dict) -> torch.Tensor:
+    """The replayed artifact against the eager forward on the same inputs:
+    bit for bit, each with ``per_forward`` launches (the replay's counted
+    inside the operators, into the kernels line), the graph holding one
+    operator node per launch; the eager forward with the plain versions
+    launches none."""
+    with torch.inference_mode():
+        eager = counted(lambda: model(*args), per_forward)
+        replay = counted_path(lambda: served(*args), per_forward)
+        with plain_versions():
+            counted(lambda: model(*args), NO_LAUNCHES)
+    nodes = graph_launches(served)
+    same = torch.equal(replay, eager)
+    log(f"(a) {label}: replay {tuple(replay.shape)} bit for bit the eager forward: {same}; "
+        f"launches {({k: v for k, v in per_forward.items() if v})} each, the plain versions "
+        f"0; graph nodes {({k: v for k, v in nodes.items() if v})}")
+    if not same or nodes != per_forward:
+        raise AssertionError(f"{label}: the replay differs from the eager forward, or its "
+                             f"graph holds {nodes}")
+    return eager
+
+
+FRESH_REPLAY = r"""
+import json, sys
+import torch
+from unet_implementations_tpu_torch.kernels import _build, instance_norm, upsample
+from unet_implementations_tpu_torch.serving import load_exported
+_build.library()
+served = load_exported(sys.argv[1])
+x, want = torch.load(sys.argv[2]), torch.load(sys.argv[3])
+got = served(x.cuda())
+torch.cuda.synchronize()
+print(json.dumps({"equal": torch.equal(got.cpu(), want),
+                  "launches": [instance_norm.fused_instance_norm.launches,
+                               upsample.upsample2x_nhwc_fast.launches],
+                  "models": sorted(m for m in sys.modules
+                                   if m.startswith("unet_implementations_tpu_torch.models"))}))
+"""
+
+
+def fresh_replay(path: Path, x: torch.Tensor, want: torch.Tensor, tmp: Path) -> None:
+    """(c) A fresh ``python -c`` process loads the dense artifact (the
+    kernel modules, nothing of ``models/``) and replays it bit for bit."""
+    torch.save(x.cpu(), tmp / "x.pt")
+    torch.save(want.cpu(), tmp / "want.pt")
+    t0 = time.perf_counter()
+    out = run_ranks([[sys.executable, "-c", FRESH_REPLAY, str(path), str(tmp / "x.pt"),
+                      str(tmp / "want.pt")]], "fresh replay",
+                    cwd=Path(__file__).resolve().parent)[0]
+    result = json.loads(out.strip().splitlines()[-1])
+    log(f"(c) a fresh process loads and replays the dense artifact "
+        f"({time.perf_counter() - t0:.1f} s with its start): {result}")
+    if result != {"equal": True, "launches": [PER_FORWARD["dense"]["K1"],
+                                              PER_FORWARD["dense"]["K2a"]], "models": []}:
+        raise AssertionError(f"the fresh process's replay: {result}")
+
+
+def serving_artifacts(tmp: Path) -> None:
+    """(a) dense and s2d, (b) the CLIP fusion and the autoencoder, (c) a
+    fresh process, (d) float32 against the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    pixels = torch.randint(0, 256, (SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    x = normalize_image(pixels)
+    xb = x.to(torch.bfloat16)
+    report["artifacts"] = {}
+
+    def export(label, model, batch=SERVE_BATCH, **kwargs):
+        served, export_s, mib = artifact(model, tmp / label, batch, **kwargs)
+        report["artifacts"][label] = {"export_s": export_s, "mib": mib}
+        log(f"export {label} (b{batch}): {export_s:.2f} s, artifact {mib:.1f} MiB")
+        return served
+
+    for layout in LAYOUTS:
+        model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED + 30),
+                            **LAYOUTS[layout]).eval()
+        served = export(f"{layout} bf16", model)
+        eager = replay_check(f"unet_6stage {layout} bf16 b{SERVE_BATCH}", model, served, (xb,),
+                             PER_FORWARD[layout])
+        if layout == "dense":
+            fresh_replay(tmp / "dense bf16", xb, eager, tmp)
+        del model, served
+    features = torch.randn((SERVE_BATCH, 512), generator=g, device="cuda").to(torch.bfloat16)
+    clip = unet_6stage(dtype=torch.bfloat16, device="cuda", clip_fusion=True,
+                       generator=torch.Generator().manual_seed(SEED + 31)).eval()
+    replay_check(f"CLIP_UNet dense bf16 b{SERVE_BATCH}", clip,
+                 export("clip bf16", clip, clip_dim=512, recipe="clip_unet"), (xb, features),
+                 CLIP_PER_FORWARD["dense"])
+    ae = autoencoder_6stage(dtype=torch.bfloat16, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED + 32)).eval()
+    replay_check(f"autoencoder_6stage dense bf16 b{SERVE_BATCH}", ae,
+                 export("autoencoder bf16", ae, recipe="ae_recon"), (xb,), PER_FORWARD["dense"])
+    del clip, ae
+    # (d) float32, TF32 off: the replay against the eager forward with the
+    # plain versions, at phase 4's bounds.
+    f32 = unet_6stage(dtype=torch.float32, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED + 30)).eval()
+    served = export("dense f32", f32)
+    with deterministic(), torch.inference_mode():
+        got = counted_path(lambda: served(x), PER_FORWARD["dense"])
+        with plain_versions():
+            want = counted(lambda: f32(x), NO_LAUNCHES)
+    r, a = compare(got, want)
+    log(f"(d) dense f32 artifact against the eager forward with the plain versions: logits "
+        f"rel-L2 {r:.4e} (bound {E2E_F32_REL_L2:g}), argmax agreement {a:.6f} (bound "
+        f"{E2E_F32_AGREEMENT:g})")
+    if r > E2E_F32_REL_L2 or a < E2E_F32_AGREEMENT:
+        raise AssertionError(f"the f32 artifact misses phase 4's bounds: {r:.4e}, {a:.6f}")
+
+
+def request_ms(fns: dict, images: np.ndarray, repeats: int = LATENCY_REPEATS) -> dict:
+    """Host-clock milliseconds of each ``fn(images)`` of ``fns`` (uint8 in,
+    masks out at the original sizes: a request), the functions in turns,
+    after one warm-up each."""
+    ms = {name: [] for name in fns}
+    for i in range(repeats + 1):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(images)
+            if i:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def serving_times(tmp: Path) -> None:
+    """(e) Printed, not gated: the b128 dense artifact forward beside the
+    eager one (CUDA events, phase 5's method), and the request latency of
+    ``predict_arrays`` from b1 and b8 artifacts beside the eager model."""
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 33)).eval()
+    served, export_s, mib = artifact(model, tmp / "dense b128", TIMED_BATCH)
+    log(f"export dense bf16 b{TIMED_BATCH}: {export_s:.2f} s, artifact {mib:.1f} MiB")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    xb = normalize_image(torch.randint(0, 256, (TIMED_BATCH, IMG, IMG, 3), generator=g,
+                                       device="cuda", dtype=torch.uint8)).to(torch.bfloat16)
+    ms = {}
+    with torch.inference_mode():
+        for _ in range(2):  # eager, artifact, eager, artifact
+            for name, fn in (("eager", model), ("artifact", served)):
+                ms.setdefault(name, []).extend(cuda_times(
+                    lambda inp, fn=fn: counted(lambda: fn(inp), PER_FORWARD["dense"]), [xb],
+                    iters=5))
+    del xb
+    for name, t in ms.items():
+        log(f"(e) dense b{TIMED_BATCH} bf16 forward, {name}: {spread(t)}, "
+            f"{TIMED_BATCH / statistics.median(t) * 1e3:.1f} img/s")
+    ratio = statistics.median(ms["artifact"]) / statistics.median(ms["eager"])
+    log(f"(e) artifact / eager: {ratio:.4f}")
+    report["serving"] = {"b128_ms": {k: statistics.median(v) for k, v in ms.items()},
+                         "latency_ms": {}}
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 35)
+    for batch in LATENCY_BATCHES:
+        small, export_s, mib = artifact(model, tmp / f"dense b{batch}", batch)
+        images = rng.integers(0, 256, (batch, IMG, IMG, 3), dtype=np.uint8)
+        dims = (SIZES * batch)[:batch]
+        lat = request_ms({"eager": lambda a: predict_arrays(model, a, dims),
+                          "artifact": lambda a: predict_arrays(small, a, dims)}, images)
+        for name, t in lat.items():
+            log(f"(e) request latency b{batch} (predict_arrays: uint8 to the card, normalize, "
+                f"forward, argmax, masks back and resized; host clock), {name}: {spread(t)}")
+        report["serving"]["latency_ms"][batch] = {k: statistics.median(v)
+                                                  for k, v in lat.items()}
+        del small
+
+
+def serving_cli(root: Path) -> None:
+    """(f) ``cli export`` of phase 8's ``best_model`` (b8 bf16, on the card),
+    then ``cli predict`` from the artifact on CLI_SERVE_IMAGES jpgs of phase
+    3's original sizes, against ``cli predict`` from the checkpoint: the
+    same masks, byte for byte."""
+    import cv2
+
+    ckpt = root / "run" / "best_model"
+    art, images = root / "serve_artifact", root / "serve_jpgs"
+    t0 = time.perf_counter()
+    meta = cli.main(["export", "--model_path", str(ckpt), "--output_dir", str(art),
+                     "--batch_size", str(SERVE_BATCH)])
+    log(f"(f) cli export of phase 8's best_model: {time.perf_counter() - t0:.2f} s, {meta}")
+    images.mkdir()
+    rng = np.random.default_rng(SEED + 36)
+    for i in range(CLI_SERVE_IMAGES):
+        h, w = SIZES[i % len(SIZES)]
+        cv2.imwrite(str(images / f"r{i:02d}.jpg"), rng.integers(0, 256, (h, w, 3), np.uint8))
+    per_run = times(PER_FORWARD["dense"], CLI_SERVE_IMAGES // SERVE_BATCH)
+    walls = {}
+    for name, path in (("artifact", art), ("checkpoint", ckpt)):
+        t0 = time.perf_counter()
+        run = counted_path if name == "artifact" else counted
+        run(lambda: cli.main(["predict", "--model_path", str(path), "--input", str(images),
+                              "--output_dir", str(root / f"served_{name}"), "--batch_size",
+                              str(SERVE_BATCH)]), per_run)
+        walls[name] = time.perf_counter() - t0
+    masks = sorted((root / "served_artifact").glob("*_mask.png"))
+    differ = [m.name for m in masks
+              if m.read_bytes() != (root / "served_checkpoint" / m.name).read_bytes()]
+    log(f"(f) cli predict of {CLI_SERVE_IMAGES} jpgs at b{SERVE_BATCH}: from the artifact "
+        f"{walls['artifact']:.2f} s, from the checkpoint {walls['checkpoint']:.2f} s (wall, "
+        f"load included); {len(masks)} masks, {len(differ)} differ")
+    if len(masks) != CLI_SERVE_IMAGES or differ:
+        raise AssertionError(f"cli predict from the artifact: {len(masks)} masks, these differ "
+                             f"from the checkpoint's: {differ}")
+
+
+def write_raw_tree(raw: Path) -> None:
+    """A raw archive tree (``Dataset_filtered/{TrainVal,Test}/{color,label}``)
+    as the CPU tests synthesize it: breed file names, TrainVal masks {0,
+    1|2, 255}, 3-channel Test masks whose foreground is 128."""
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 37)
+    stems = {"TrainVal": [f"Abyssinian_{i}" for i in range(RAW_PER_CLASS)]
+             + [f"beagle_{i}" for i in range(RAW_PER_CLASS)],
+             "Test": [f"Siamese_{i}" if i % 2 else f"boxer_{i}" for i in range(RAW_TEST)]}
+    for split, names in stems.items():
+        base = raw / "Dataset_filtered" / split
+        (base / "color").mkdir(parents=True)
+        (base / "label").mkdir(parents=True)
+        for stem in names:
+            h, w = (int(v) for v in rng.integers(*RECIPE_DIMS, 2))
+            cv2.imwrite(str(base / "color" / f"{stem}.jpg"),
+                        rng.integers(0, 256, (h, w, 3), np.uint8))
+            cls = 1 if stem[0].isupper() else 2
+            m = np.zeros((h, w, 3) if split == "Test" else (h, w), np.uint8)
+            m[h // 4:h // 2, w // 4:w // 2] = 128 if split == "Test" else cls
+            m[:3] = 255
+            Image.fromarray(m).save(base / "label" / f"{stem}.png")
+
+
+def raw_chain(root: Path) -> None:
+    """(g) ``cli pipeline -> sanity_checks -> augment`` on a synthesized raw
+    tree: the split's counts, every check passing, one augmented copy per
+    training image written on the card."""
+    raw, data = root / "raw", root / "processed"
+    write_raw_tree(raw)
+    t0 = time.perf_counter()
+    stats = cli.main(["pipeline", "--raw_dir", str(raw), "--processed_dir", str(data)])
+    try:
+        reports = cli.main(["sanity_checks", "--data_dir", str(data)])
+    except SystemExit as e:  # a failed check exits 1; fail the phase instead
+        raise AssertionError("cli sanity_checks found a failing check") from e
+    aug = cli.main(["augment", "--data_dir", str(data), "--cat_augmentations", "1",
+                    "--dog_augmentations", "1"])
+    n_train = stats["train"]["images"]
+    log(f"(g) cli pipeline -> sanity_checks -> augment: {time.perf_counter() - t0:.1f} s; "
+        f"{stats}; {len(reports)} checks pass; {aug}")
+    want_val = 2 * int(RAW_PER_CLASS * 0.2)
+    if (n_train + stats["val"]["images"] != 2 * RAW_PER_CLASS or stats["val"]["images"] != want_val
+            or stats["test"]["images"] != RAW_TEST or aug["outputs"] != n_train
+            or aug["errors"]):
+        raise AssertionError(f"the raw chain: {stats}, {aug}")
+
+
+@phase("14. the serving artifact: save_exported -> load_exported -> replay on the card, "
+       "cli export -> cli predict, and the raw-data chain")
+def phase_serving(root: Path):
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        serving_artifacts(Path(tmp))
+        torch.cuda.empty_cache()
+        serving_times(Path(tmp))
+    torch.cuda.empty_cache()
+    serving_cli(root)
+    raw_chain(root)
+
+
 # ``--ab-steps``: one checkout's phase-7 step and phase-8 recipe, through the
 # package's entry points only. Arguments: LABEL DATA CACHE.
 AB_PROGRAM = f"""
@@ -3568,29 +3903,37 @@ from unet_implementations_tpu_torch import cli
 from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
 from unet_implementations_tpu_torch.kernels import _build
 from unet_implementations_tpu_torch.models.unet import unet_6stage
-from unet_implementations_tpu_torch.training.steps import make_segmentation_train_step
+from unet_implementations_tpu_torch.training.steps import (
+    make_accum_train_step, make_segmentation_loss_fn, make_segmentation_train_step)
 from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
 
 label, data, cache = sys.argv[1:]
 _build.library()
-model = unet_6stage(dtype=torch.bfloat16, device="cuda",
-                    generator=torch.Generator().manual_seed({SEED + 5}))
-step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
 batch = {{k: torch.from_numpy(v).to("cuda")
          for k, v in as_uint8(synthetic_batch({SEED + 4}, {TRAIN_BATCH}, {IMG})).items()}}
 gen = torch.Generator(device="cuda").manual_seed({SEED})
-for _ in range(3):
-    step(batch, gen)
-events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(10)]
-torch.cuda.synchronize()
-for start, end in events:
-    start.record()
-    step(batch, gen)
-    end.record()
-torch.cuda.synchronize()
-ms = [start.elapsed_time(end) for start, end in events]
-del model, step, batch
+
+
+def timed(make_step):
+    model = unet_6stage(dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed({SEED + 5}))
+    step = make_step(model, sgd_nesterov(model.parameters()))
+    for _ in range(3):
+        step(batch, gen)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(10)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        start.record()
+        step(batch, gen)
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+ms = timed(make_segmentation_train_step)
+accum = timed(lambda m, o: make_accum_train_step(m, o, make_segmentation_loss_fn(), {ACCUM}))
+del batch
 torch.cuda.empty_cache()
 with tempfile.TemporaryDirectory() as out:
     result = cli.main(["our_unet", "train", "--data_dir", data, "--output_dir", out,
@@ -3599,8 +3942,10 @@ with tempfile.TemporaryDirectory() as out:
 epoch = result["epochs"][-1]
 recipe = (epoch["train_s"] - epoch["first_batch_s"]) / epoch["steps"] * 1e3
 print(f"{{label}} b{TRAIN_BATCH} dense train step: median {{statistics.median(ms):.4f}} ms "
-      f"(min {{min(ms):.4f}}, max {{max(ms):.4f}}, n {{len(ms)}}); our_unet recipe, epoch 2 "
-      f"after its first batch: {{recipe:.3f}} ms a step", flush=True)
+      f"(min {{min(ms):.4f}}, max {{max(ms):.4f}}, n {{len(ms)}}); as {ACCUM} x "
+      f"b{TRAIN_BATCH // ACCUM}: median {{statistics.median(accum):.4f}} ms (min "
+      f"{{min(accum):.4f}}, max {{max(accum):.4f}}); our_unet recipe, epoch 2 after its first "
+      f"batch: {{recipe:.3f}} ms a step", flush=True)
 """
 
 
@@ -3655,7 +4000,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3 and 6-12).
+            # The counted runs of the main paths (phases 3, 6-13 and 14).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3697,6 +4042,8 @@ def main() -> int:
             phase_parallel(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_spatial(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_serving(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

@@ -50,7 +50,7 @@ from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_nhwc_fast,
 )
 from unet_implementations_tpu_torch.models import clip
-from unet_implementations_tpu_torch.models.s2d import (
+from unet_implementations_tpu_torch.ops.s2d import (
     depth_to_space,
     space_to_depth,
     upsample2x_into_s2d,

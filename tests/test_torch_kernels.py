@@ -28,7 +28,7 @@ from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_into_s2d_fast,
     upsample2x_nhwc_fast,
 )
-from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
+from unet_implementations_tpu_torch.ops.s2d import upsample2x_into_s2d
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -213,7 +213,7 @@ class TestS2dTailPlain:
     def test_conv_bias_cancels(self):
         """The module composition WITH conv_1's bias equals the tail without
         it (f32, 1e-5): IN2 subtracts the bias with the mean."""
-        from unet_implementations_tpu_torch.models import s2d
+        from unet_implementations_tpu_torch.ops import s2d
 
         x, scale1, bias1, k2, scale2, bias2 = (torch.from_numpy(a) for a in _tail_case(1, c=8))
         weight = k2.permute(3, 2, 0, 1).contiguous()

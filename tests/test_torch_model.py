@@ -244,7 +244,7 @@ banned = ("jax", "jaxlib", "flax", "optax", "orbax", "unet_implementations_tpu")
 bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
 print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
-                  "yaml": "yaml" in sys.modules}))
+                  "PIL": "PIL" in sys.modules, "yaml": "yaml" in sys.modules}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
@@ -256,12 +256,16 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
     # yaml only where an augmentation policy file is read.
     assert result["cv2"] is False
     assert result["yaml"] is False
+    # PIL only where a mask is read or written (the raw-data tools).
+    assert result["PIL"] is False
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
-                 "kernels.winograd", "models.s2d", "ops.losses", "ops.metrics",
+                 "kernels.winograd", "ops.s2d", "ops.losses", "ops.metrics",
                  "training.train_state", "training.steps", "data.synthetic",
                  "data.loader", "training.early_stopping", "training.checkpoint",
                  "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",
                  "recipes.ae_transfer", "models.clip", "recipes.clip_unet", "data.pipeline",
-                 "data.augment", "parallel", "parallel.distributed", "parallel.mesh", "cli"):
+                 "data.augment", "parallel", "parallel.distributed", "parallel.mesh", "cli",
+                 "serving", "serving.export", "data.sanity_checks", "data.download",
+                 "utils.dataset_analyzer", "utils.helpers"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from unet_implementations_tpu_torch.kernels import s2d_region
-from unet_implementations_tpu_torch.models.s2d import conv_s2d
+from unet_implementations_tpu_torch.ops.s2d import conv_s2d
 
 # The bf16 kernel's geometry (kRows, kSegW, kPartialRows, kCoreBytes in the
 # source): a band of 4 rows walked in 64-column segments, halo 6 x 66.

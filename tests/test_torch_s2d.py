@@ -1,5 +1,5 @@
 """The port's space-to-depth layout algebra (unet_implementations_tpu_torch/
-models/s2d.py) against ``unet_implementations_tpu/models/s2d.py``.
+ops/s2d.py) against ``unet_implementations_tpu/models/s2d.py``.
 
 Inputs come from numpy with a seed. Tolerances: the rearrangements and the
 kernel transforms are bitwise (after HWIO -> OIHW), the transforms' backward
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_implementations_tpu.models import s2d as jax_s2d
-from unet_implementations_tpu_torch.models import s2d
+from unet_implementations_tpu_torch.ops import s2d
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

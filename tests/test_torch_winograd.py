@@ -20,7 +20,7 @@ import torch
 
 from unet_implementations_tpu.kernels import winograd as jax_wino
 from unet_implementations_tpu_torch.kernels import winograd as wino
-from unet_implementations_tpu_torch.models.s2d import space_to_depth
+from unet_implementations_tpu_torch.ops.s2d import space_to_depth
 
 
 def _case(seed, n, s, cin, cout):

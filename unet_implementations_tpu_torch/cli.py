@@ -16,7 +16,18 @@
     python -m unet_implementations_tpu_torch.cli clip_unet evaluate ...
     python -m unet_implementations_tpu_torch.cli augment --data_dir <processed data>
     python -m unet_implementations_tpu_torch.cli predict \\
-        --model_path model.pth --input <image-or-dir> --output_dir predictions
+        --model_path <checkpoint dir, .pth or artifact> --input <image-or-dir> \\
+        --output_dir predictions
+    python -m unet_implementations_tpu_torch.cli export \\
+        --model_path <run dir>/best_model --output_dir <artifact dir> [--batch_size N]
+    python -m unet_implementations_tpu_torch.cli convert \\
+        --torch_checkpoint model.pth --output <checkpoint dir> [--arch A]
+    python -m unet_implementations_tpu_torch.cli export_torch \\
+        --checkpoint <checkpoint dir> --output model.pth [--arch A]
+    python -m unet_implementations_tpu_torch.cli download --raw_dir <raw> [--archive T]
+    python -m unet_implementations_tpu_torch.cli pipeline \\
+        --raw_dir <raw> --processed_dir <processed data>
+    python -m unet_implementations_tpu_torch.cli sanity_checks --data_dir <processed data>
 
 Data-parallel training runs one process per GPU under a launcher:
 
@@ -66,8 +77,14 @@ each batch as N sequential microbatches with one optimizer update.
 ``--analyze_latent_space``.
 
 ``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
-``.pth``; that of ``predict`` is a reference ``.pth``, such as the JAX
-package's ``cli export_torch`` writes.
+``.pth``; that of ``predict`` too, or a serving artifact that ``export``
+wrote (a directory holding ``forward.pt2``), which it replays without the
+model's code on the device it was exported on (``serving/export.py``).
+``export`` takes JAX's flags with ``--device`` (the device the artifact
+serves on) in place of ``--platforms``; ``convert`` writes this package's
+checkpoint directory where JAX's writes Orbax, and ``export_torch`` reads
+one. ``pipeline``, ``sanity_checks`` and ``download`` are JAX's raw-data
+tools (``data/pipeline.py``, ``data/sanity_checks.py``, ``data/download.py``).
 """
 
 from __future__ import annotations
@@ -142,6 +159,7 @@ def _add_eval_flags(p: argparse.ArgumentParser) -> None:
 
 
 CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "ViT-L/14"]
+ARCHES = ["our_unet", "clip_unet", "ae_recon", "ae_transfer"]
 
 
 def _add_clip_flags(p: argparse.ArgumentParser) -> None:
@@ -235,8 +253,53 @@ def build_parser() -> argparse.ArgumentParser:
     aug.add_argument("--device", default=None,
                      help="torch device, e.g. cuda:1 or cpu (default: cuda)")
 
+    pl = sub.add_parser("pipeline", help="raw archive tree -> the processed directory schema")
+    pl.add_argument("--raw_dir", required=True)
+    pl.add_argument("--processed_dir", required=True)
+    pl.add_argument("--val_ratio", type=float, default=0.2)
+    pl.add_argument("--seed", type=int, default=42)
+    pl.add_argument("--target_size", type=int, default=512)
+
+    sanity = sub.add_parser("sanity_checks", help="check a processed dataset tree")
+    sanity.add_argument("--data_dir", required=True)
+    sanity.add_argument("--sample", type=int, default=None)
+
+    dl = sub.add_parser("download", help="extract the raw archive (fetching it if absent)")
+    dl.add_argument("--raw_dir", required=True)
+    dl.add_argument("--archive", default=None)
+
+    conv = sub.add_parser("convert", help="convert a reference .pth checkpoint to this "
+                                          "package's checkpoint directory")
+    conv.add_argument("--torch_checkpoint", required=True)
+    conv.add_argument("--output", required=True, help="checkpoint directory to create")
+    conv.add_argument("--arch", default="our_unet", choices=ARCHES)
+
+    conv_r = sub.add_parser("export_torch", help="convert a checkpoint directory back to a "
+                                                 "reference-loadable .pth (the inverse of "
+                                                 "convert)")
+    conv_r.add_argument("--checkpoint", required=True, help="checkpoint directory")
+    conv_r.add_argument("--output", required=True, help=".pth file to write")
+    conv_r.add_argument("--arch", default="our_unet", choices=ARCHES)
+
+    exp = sub.add_parser("export", help="export a trained checkpoint to a self-contained "
+                                        "serving artifact (torch.export)")
+    exp.add_argument("--model_path", required=True,
+                     help="training checkpoint (e.g. <out>/best_model) or reference .pth")
+    exp.add_argument("--output_dir", required=True)
+    exp.add_argument("--arch", default="our_unet", choices=ARCHES)
+    exp.add_argument("--batch_size", type=int, default=1,
+                     help="static serving batch baked into the program")
+    exp.add_argument("--img_size", type=int, default=512)
+    exp.add_argument("--clip_dim", type=int, default=512)
+    exp.add_argument("--device", default=None,
+                     help="the device the artifact serves on, e.g. cuda:1 or cpu "
+                          "(default: cuda)")
+    exp.add_argument("--f32", action="store_true")
+
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
-    pred.add_argument("--model_path", required=True, help="a reference-schema .pth checkpoint")
+    pred.add_argument("--model_path", required=True,
+                      help="a checkpoint directory, a reference-schema .pth, or a serving "
+                           "artifact from `export`")
     pred.add_argument("--input", required=True, help="an image file or a directory of images")
     pred.add_argument("--output_dir", default="predictions")
     pred.add_argument("--batch_size", type=int, default=32)
@@ -375,6 +438,46 @@ def _run(args):
             policy=load_policy_yaml(args.config) if args.config else None, device=args.device)
         print(stats)
         return stats
+    if args.command == "pipeline":
+        from unet_implementations_tpu_torch.data.pipeline import run_pipeline
+
+        stats = run_pipeline(args.raw_dir, args.processed_dir, args.val_ratio, args.seed,
+                             args.target_size)
+        print(stats)
+        return stats
+    if args.command == "sanity_checks":
+        from unet_implementations_tpu_torch.data.sanity_checks import run_sanity_checks
+
+        reports = run_sanity_checks(args.data_dir, args.sample)
+        for r in reports:
+            print(r)
+        if not all(r.passed for r in reports):
+            raise SystemExit(1)
+        return reports
+    if args.command == "download":
+        from unet_implementations_tpu_torch.data.download import download_and_extract
+
+        return download_and_extract(args.raw_dir, args.archive)
+    if args.command in ("convert", "export_torch"):
+        from unet_implementations_tpu_torch.models import convert
+
+        if args.command == "convert":
+            convert.convert_torch_checkpoint(args.torch_checkpoint, args.output, args.arch)
+            print(f"converted {args.torch_checkpoint} -> {args.output}")
+        else:
+            convert.export_torch_checkpoint(args.checkpoint, args.output, args.arch)
+            print(f"exported {args.checkpoint} -> {args.output}")
+        return args.output
+    if args.command == "export":
+        from unet_implementations_tpu_torch.serving.export import export_recipe_checkpoint
+
+        out, meta = export_recipe_checkpoint(
+            args.model_path, args.output_dir, recipe=args.arch, batch_size=args.batch_size,
+            img_size=args.img_size, clip_dim=args.clip_dim, dtype=_dtype(args),
+            device=args.device)
+        print(f"exported {args.arch} -> {out} (batch={meta['batch_size']}, "
+              f"{meta['img_size']}px, device={meta['device']})")
+        return meta
     if args.command == "predict":
         from unet_implementations_tpu_torch.recipes.common import predict_segmentation
 

@@ -32,6 +32,12 @@ COMPILE_FLAGS = (ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas
 
 # dtype codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The namespace of the kernels' operators (``torch.ops.unet_torch``). Each
+# kernel module registers its operators in a fragment of it when imported: a
+# CUDA implementation (the launch), a CPU one (the plain version) and a fake
+# one (output shapes and dtypes), so that ``torch.export`` captures each
+# launch as one node and an exported program replays it.
+OPS_NAMESPACE = "unet_torch"
 
 _library = None
 _functions: dict = {}
@@ -132,6 +138,12 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({message})")
 
 
+def op_library() -> torch.library.Library:
+    """A fragment of ``OPS_NAMESPACE`` for one module's operators; the module
+    keeps it, since its registrations end when it is collected."""
+    return torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
+
+
 def uses_kernel(*tensors: torch.Tensor) -> bool:
     """Whether a wrapper launches its kernel (CUDA tensors) or runs its
     plain version (CPU tensors). Any other device, or a mix, raises."""
@@ -143,11 +155,20 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {sorted(kinds)}")
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record a call on ``tensors``: grad mode is on
+    and one of them requires grad. The kernels' operators carry no autograd
+    of their own: a wrapper calls its operator directly when this is False
+    (inference, and ``torch.export``), and through its autograd function,
+    whose backward is the kernel's, when it is True."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """For a forward-only kernel (K3, inference only as in JAX): a CUDA call
     that autograd would record raises instead of computing a result with no
     backward."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise RuntimeError(
             f"{name} has no backward; call it under torch.no_grad() or "
             "torch.inference_mode()"

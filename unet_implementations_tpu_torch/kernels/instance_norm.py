@@ -35,7 +35,14 @@ group nothing changes: one forward launch, and ``bwd_plan``'s choice.
 
 On CPU tensors ``fused_instance_norm`` runs the plain versions
 ``_torch_forward`` and ``_torch_backward``; on CUDA tensors it launches the
-kernels or raises. ``_torch_backward`` is the JAX ``_bwd_impl`` in plain torch
+kernels or raises. The forward is an operator, ``torch.ops.unet_torch.
+in_lrelu_fwd`` (CUDA: the launch, counted there; CPU: the plain version;
+fake tensors: the output shapes), so ``torch.export`` captures each call as
+one node and an exported program launches the kernel when it is replayed
+(``serving/export.py``). The operator has no autograd of its own: a call
+that autograd records goes through ``_FusedInstanceNorm``, whose forward
+calls the operator and whose backward is K1bwd; others call the operator
+directly. ``_torch_backward`` is the JAX ``_bwd_impl`` in plain torch
 ops: from the saved x, mean and rstd it returns dx in x's dtype and
 ``dscale``/``dbias`` pooled over the batch (and the 4 q blocks with
 ``group=4``). The kernel computes the same in a factored form (its partial
@@ -336,6 +343,8 @@ def launch_split_forward(x, scale_c, bias_c, buffers, eps, negative_slope, group
 
 
 def _cuda_forward(x, scale_c, bias_c, eps, negative_slope, group, space_group=None):
+    """The launch (counted), on CUDA tensors: (y, mean, rstd)."""
+    _build.uses_kernel(x, scale_c, bias_c)  # raises on a mix of devices
     _check("fused_instance_norm", x, scale_c, bias_c, group)
     x, scale_c, bias_c = x.contiguous(), _f32(scale_c), _f32(bias_c)
     buffers = forward_buffers(x)
@@ -493,11 +502,45 @@ def _torch_backward(x, scale_c, bias_c, mean, rstd, dy, negative_slope, group,
     return (dx * rstd_b).to(x.dtype), dscale, dbias
 
 
+# The forward as an operator (``torch.ops.unet_torch.in_lrelu_fwd``): the
+# launch on CUDA tensors (counted in ``fused_instance_norm.launches``), the
+# plain version on CPU tensors, and its output shapes under fake tensors, so
+# that ``torch.export`` captures each call as one node.
+_LIB = _build.op_library()
+_LIB.define("in_lrelu_fwd(Tensor x, Tensor scale, Tensor bias, float eps, "
+            "float negative_slope, int group) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("in_lrelu_fwd", _cuda_forward, "CUDA")
+
+
+def _cpu_op(x, scale_c, bias_c, eps, negative_slope, group):
+    y, mean, rstd = _torch_forward(x, scale_c, bias_c, eps, negative_slope, group)
+    return y.contiguous(), mean, rstd
+
+
+_LIB.impl("in_lrelu_fwd", _cpu_op, "CPU")
+
+
+@torch.library.register_fake(f"{_build.OPS_NAMESPACE}::in_lrelu_fwd", lib=_LIB)
+def _fake_op(x, scale_c, bias_c, eps, negative_slope, group):
+    _check("fused_instance_norm", x, scale_c, bias_c, group)
+    stats = (x.shape[0], x.shape[-1])
+    return (x.new_empty(x.shape), x.new_empty(stats, dtype=torch.float32),
+            x.new_empty(stats, dtype=torch.float32))
+
+
 class _FusedInstanceNorm(torch.autograd.Function):
+    """A call that autograd records: the operator forward, K1bwd (or the plain
+    backward on the CPU) backward. With a ``space_group`` (a process group,
+    which no operator takes) the split launches around their all-reduces."""
+
     @staticmethod
     def forward(ctx, x, scale, bias, eps, negative_slope, group, space_group):
-        run = _cuda_forward if _build.uses_kernel(x, scale, bias) else _torch_forward
-        y, mean, rstd = run(x, scale, bias, eps, negative_slope, group, space_group)
+        if space_group is None:
+            y, mean, rstd = torch.ops.unet_torch.in_lrelu_fwd(x, scale, bias, eps,
+                                                              negative_slope, group)
+        else:
+            run = _cuda_forward if _build.uses_kernel(x, scale, bias) else _torch_forward
+            y, mean, rstd = run(x, scale, bias, eps, negative_slope, group, space_group)
         ctx.save_for_backward(x, scale, bias, mean, rstd)
         ctx.negative_slope, ctx.group, ctx.space_group = negative_slope, group, space_group
         return y
@@ -529,6 +572,9 @@ def fused_instance_norm(
     """
     if x.ndim != 4:
         raise ValueError(f"fused_instance_norm takes (B, H, W, C), got {tuple(x.shape)}")
+    _build.uses_kernel(x, scale, bias)  # raises on another device, or a mix
+    if space_group is None and not _build.records_grad(x, scale, bias):
+        return torch.ops.unet_torch.in_lrelu_fwd(x, scale, bias, eps, negative_slope, group)[0]
     return _FusedInstanceNorm.apply(x, scale, bias, eps, negative_slope, group, space_group)
 
 

@@ -29,8 +29,12 @@ dtype. K1's apply pass activates before it rounds, so a negative output may
 differ from the plain version by one ulp of the dtype.
 
 On a CPU tensor ``fused_s2d_tail`` runs the plain version; on a CUDA tensor
-it launches the kernel or raises (C must be 8, 16, 32 or 64). Forward only: a
-CUDA call that autograd would record raises. ``region_applicable`` says
+it launches the kernel or raises (C must be 8, 16, 32 or 64). It is the
+operator ``torch.ops.unet_torch.s2d_tail`` (CUDA: the launch, which makes
+its own scratch and packs conv_1's kernel, counted there; CPU: the plain
+version; fake tensors: the output shape), so ``torch.export`` captures each
+call as one node. Forward only: a CUDA call that autograd would record
+raises; on the CPU such a call runs the plain ops under autograd. ``region_applicable`` says
 whether a call is one the kernel takes, as the JAX ``region_applicable``
 does: a block takes the fused tail only then, and runs its module path
 otherwise.
@@ -43,7 +47,7 @@ import ctypes
 import torch
 
 from unet_implementations_tpu_torch.kernels import _build
-from unet_implementations_tpu_torch.models.s2d import conv_s2d, instance_norm_s2d
+from unet_implementations_tpu_torch.ops.s2d import conv_s2d, instance_norm_s2d
 
 # Original channel counts the CUDA kernel takes.
 CHANNELS = (8, 16, 32, 64)
@@ -203,6 +207,10 @@ def launch_tail(x, scale1, bias1, w, scale2, bias2, buffers: dict, eps: float,
 
 
 def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope):
+    """The launch (counted), on CUDA tensors: the outputs and scratch
+    (``tail_buffers``) and conv_1's packed kernel (``kernel_weights``) are
+    made here, per call."""
+    _build.uses_kernel(x, scale1, bias1, weight2, scale2, bias2)  # raises on a mix
     x = x.contiguous()
     _check(x, scale1, bias1, weight2, scale2, bias2)
     out = launch_tail(x, scale1, bias1, kernel_weights(weight2, x.dtype), scale2, bias2,
@@ -220,7 +228,22 @@ def region_applicable(x: torch.Tensor, *params: torch.Tensor) -> bool:
         return False
     if x.dtype not in _build.DTYPE_CODES:
         return False
-    return not torch.is_grad_enabled() or not any(t.requires_grad for t in (x, *params))
+    return not _build.records_grad(x, *params)
+
+
+# The tail as an operator (``torch.ops.unet_torch.s2d_tail``): the launch on
+# CUDA tensors, the plain version on CPU tensors, the output shape under fake
+# tensors (one ``torch.export`` node per call). It has no backward, as in JAX.
+_LIB = _build.op_library()
+_LIB.define("s2d_tail(Tensor x, Tensor scale1, Tensor bias1, Tensor weight2, Tensor scale2, "
+            "Tensor bias2, float eps, float negative_slope) -> Tensor")
+_LIB.impl("s2d_tail", _cuda_forward, "CUDA")
+_LIB.impl("s2d_tail", lambda *args: _torch_tail(*args).contiguous(), "CPU")
+
+
+@torch.library.register_fake(f"{_build.OPS_NAMESPACE}::s2d_tail", lib=_LIB)
+def _fake_op(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope):
+    return x.new_empty(x.shape)
 
 
 def fused_s2d_tail(
@@ -242,10 +265,13 @@ def fused_s2d_tail(
     if x.ndim != 4:
         raise ValueError(f"fused_s2d_tail takes (B, H', W', 4C), got {tuple(x.shape)}")
     tensors = (x, scale1, bias1, weight2, scale2, bias2)
-    if not _build.uses_kernel(*tensors):
+    on_card = _build.uses_kernel(*tensors)  # raises on another device, or a mix
+    if _build.records_grad(*tensors):
+        if on_card:
+            _build.refuse_grad("fused_s2d_tail", *tensors)
+        # On the CPU, autograd of the plain ops (the operator records none).
         return _torch_tail(*tensors, eps, negative_slope)
-    _build.refuse_grad("fused_s2d_tail", *tensors)
-    return _cuda_forward(*tensors, eps, negative_slope)
+    return torch.ops.unet_torch.s2d_tail(*tensors, eps, negative_slope)
 
 
 # Kernel launches since the count was last set to 0 (CPU calls do not count).

@@ -13,7 +13,7 @@ Two wrappers of one kernel, in two output layouts:
   upsample. It heads the two s2d decoders of the s2d 6-stage model.
 
 Torch half-pixel sampling, edge-clamped; bitwise equal to the plain
-versions ``ops.resize.upsample2x_nhwc`` and ``models.s2d.
+versions ``ops.resize.upsample2x_nhwc`` and ``ops.s2d.
 upsample2x_into_s2d`` (float32 lerp along H, round, lerp along W, round).
 
 Bound: bytes — one read of x and one write of the 4x larger output. Each
@@ -22,7 +22,11 @@ places in the output; see the source. No single PyTorch call writes the
 q-major layout (``F.pixel_unshuffle`` is c-major, channel c·4 + q).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. Both are operators, ``torch.ops.unet_torch.
+upsample2x`` and ``upsample2x_s2d`` (CUDA: the launch, counted there; CPU:
+the plain version; fake tensors: the output shape), so ``torch.export``
+captures each call as one node; a call that autograd records goes through
+``_Upsample2x``, whose backward is the transpose below.
 
 Under spatial partitioning (``parallel/spatial.py``) a rank holds a row shard
 of each image. ``upsample2x_nhwc_halo`` runs K2a unchanged on the shard with
@@ -48,7 +52,7 @@ import ctypes
 import torch
 
 from unet_implementations_tpu_torch.kernels import _build
-from unet_implementations_tpu_torch.models.s2d import upsample2x_into_s2d
+from unet_implementations_tpu_torch.ops.s2d import upsample2x_into_s2d
 from unet_implementations_tpu_torch.ops.resize import upsample2x_nhwc
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -56,6 +60,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 
 def _cuda_forward(x: torch.Tensor, s2d: bool) -> torch.Tensor:
+    """The launch (counted in its wrapper's ``launches``), on a CUDA tensor."""
     name = "upsample2x_into_s2d_fast" if s2d else "upsample2x_nhwc_fast"
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
@@ -69,6 +74,7 @@ def _cuda_forward(x: torch.Tensor, s2d: bool) -> torch.Tensor:
         code = fn(x.data_ptr(), y.data_ptr(), _build.DTYPE_CODES[x.dtype], b, h, w, c,
                   _build.stream_of(x))
     _build.check(code, entry)
+    (upsample2x_into_s2d_fast if s2d else upsample2x_nhwc_fast).launches += 1
     return y
 
 
@@ -115,23 +121,50 @@ def upsample2x_into_s2d_transpose(ct: torch.Tensor, dtype: torch.dtype) -> torch
     return _lerp2_taps_transpose(row0, row1, 1, dtype)
 
 
+# The two layouts as operators (``torch.ops.unet_torch.upsample2x`` and
+# ``upsample2x_s2d``): the launch on a CUDA tensor, the plain version on a CPU
+# one, and the output shape under fake tensors, so that ``torch.export``
+# captures each call as one node.
+_LIB = _build.op_library()
+
+
+def _register(name: str, s2d: bool, plain) -> None:
+    def fake(x):
+        b, h, w, c = x.shape
+        return x.new_empty((b, h, w, 4 * c) if s2d else (b, 2 * h, 2 * w, c))
+
+    _LIB.define(f"{name}(Tensor x) -> Tensor")
+    _LIB.impl(name, lambda x: _cuda_forward(x, s2d), "CUDA")
+    _LIB.impl(name, lambda x: plain(x).contiguous(), "CPU")
+    torch.library.register_fake(f"{_build.OPS_NAMESPACE}::{name}", fake, lib=_LIB)
+
+
+_register("upsample2x", False, upsample2x_nhwc)
+_register("upsample2x_s2d", True, upsample2x_into_s2d)
+
+
+def _op(x: torch.Tensor, s2d: bool) -> torch.Tensor:
+    return torch.ops.unet_torch.upsample2x_s2d(x) if s2d else torch.ops.unet_torch.upsample2x(x)
+
+
 class _Upsample2x(torch.autograd.Function):
+    """A call that autograd records: the operator forward, the plain
+    transpose backward."""
+
     @staticmethod
     def forward(ctx, x, s2d):
         ctx.s2d, ctx.dtype = s2d, x.dtype
-        if not _build.uses_kernel(x):
-            return upsample2x_into_s2d(x) if s2d else upsample2x_nhwc(x)
-        y = _cuda_forward(x, s2d)
-        if s2d:
-            upsample2x_into_s2d_fast.launches += 1
-        else:
-            upsample2x_nhwc_fast.launches += 1
-        return y
+        return _op(x, s2d)
 
     @staticmethod
     def backward(ctx, ct):
         transpose = upsample2x_into_s2d_transpose if ctx.s2d else upsample2x_nhwc_transpose
         return transpose(ct, ctx.dtype), None
+
+
+def _upsample(x: torch.Tensor, s2d: bool) -> torch.Tensor:
+    _build.uses_kernel(x)  # raises on a device other than the CPU or CUDA
+    return _Upsample2x.apply(x, s2d) if _build.records_grad(x) else _op(x, s2d)
 
 
 def _check_input(x: torch.Tensor, name: str) -> None:
@@ -142,14 +175,14 @@ def _check_input(x: torch.Tensor, name: str) -> None:
 def upsample2x_nhwc_fast(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x bilinear upsample of an NHWC tensor: (B,H,W,C) -> (B,2H,2W,C)."""
     _check_input(x, "upsample2x_nhwc_fast")
-    return _Upsample2x.apply(x, False)
+    return _upsample(x, False)
 
 
 def upsample2x_into_s2d_fast(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x bilinear upsample emitted in s2d layout: (B,H,W,C) -> (B,H,W,4C),
     q-major (channel q·C + c, q = dy·2 + dx)."""
     _check_input(x, "upsample2x_into_s2d_fast")
-    return _Upsample2x.apply(x, True)
+    return _upsample(x, True)
 
 
 def upsample2x_nhwc_halo(x: torch.Tensor, above: torch.Tensor,

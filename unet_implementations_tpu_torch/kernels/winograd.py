@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_implementations_tpu_torch.kernels import _build
-from unet_implementations_tpu_torch.models.s2d import depth_to_space, space_to_depth
+from unet_implementations_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 
 # F(2,3) weight transform (correlation convention, like the conv).
 _G = np.array([[1.0, 0.0, 0.0], [0.5, 0.5, 0.5], [0.5, -0.5, 0.5], [0.0, 0.0, 1.0]], np.float32)

@@ -4,7 +4,7 @@ Counterpart of ``unet_implementations_tpu/models/blocks.py``. Activations
 are NCHW tensors in ``channels_last`` memory, so the kernels see NHWC-
 contiguous memory through a ``permute`` view and cuDNN convs take the same
 tensors without a copy. A space-to-depth (s2d) activation is the NCHW view
-(B, 4C, H′, W′) of a q-major NHWC tensor (``models/s2d.py``).
+(B, 4C, H′, W′) of a q-major NHWC tensor (``ops/s2d.py``).
 
 Where JAX sets a block's layout as a module field, these blocks take it as a
 ``forward`` argument (``s2d``, ``s2d_input_first``, ``s2d_segments_first``),
@@ -47,7 +47,7 @@ from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_nhwc_fast,
     upsample2x_nhwc_halo,
 )
-from unet_implementations_tpu_torch.models.s2d import (
+from unet_implementations_tpu_torch.ops.s2d import (
     conv_s2d,
     conv_s2d_multi,
     conv_s2d_to_dense_stride2,

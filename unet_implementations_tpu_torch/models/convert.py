@@ -15,6 +15,12 @@ with step 4 when the stage's dropout rate is > 0, else 3.
 
 ``clip_params_from_jax`` carries the JAX CLIP tower's weights into the
 port's tower (``models/clip.py``), whose keys are the OpenAI visual tower's.
+
+``convert_torch_checkpoint`` (``cli convert``) turns a reference ``.pth`` into
+the port's checkpoint directory (``training/checkpoint.py``), and
+``export_torch_checkpoint`` (``cli export_torch``) a checkpoint directory back
+into a bare reference ``.pth``, each loading the weights strictly into the
+model of ``arch``.
 """
 
 from __future__ import annotations
@@ -157,3 +163,38 @@ def load_reference_checkpoint(path, device=None, dtype: torch.dtype = torch.bflo
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     model = _model_for_arch(arch, dtype=dtype, device=device, **layout)
     return model.load_reference_state_dict(sd).eval()
+
+
+def convert_torch_checkpoint(torch_path, output_path, arch: str = "our_unet") -> None:
+    """A reference ``.pth`` (full checkpoint dict or bare state dict) -> the
+    port's checkpoint directory (``model.pth`` + ``meta.json``, as
+    ``training/checkpoint.py`` writes and reads), loaded strictly into the
+    model of ``arch`` on the CPU on the way. Keeps the file's epoch and best
+    metric (``best_dice``, else ``best_loss``) when it has them."""
+    from unet_implementations_tpu_torch.training.checkpoint import save_checkpoint
+
+    ckpt = torch.load(str(torch_path), map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    model = _model_for_arch(arch, device="cpu").load_reference_state_dict(sd)
+    meta = ckpt if isinstance(ckpt, dict) else {}
+    save_checkpoint(output_path, model, None, epoch=int(meta.get("epoch", 0)),
+                    best_metric=float(meta.get("best_dice", meta.get("best_loss", 0.0))),
+                    config={"converted_from": str(torch_path), "arch": arch})
+
+
+def export_torch_checkpoint(checkpoint_path, output_path, arch: str = "our_unet") -> None:
+    """The port's checkpoint directory -> a bare reference-loadable ``.pth``
+    (epoch / model_state_dict / best_dice / config, the reference trainer's
+    schema without its optimizer state), the weights loaded strictly into
+    the model of ``arch`` on the way: the inverse of
+    ``convert_torch_checkpoint``."""
+    from unet_implementations_tpu_torch.training.checkpoint import read_meta, restore_params
+
+    model = restore_params(checkpoint_path, _model_for_arch(arch, device="cpu"))
+    meta = read_meta(checkpoint_path)
+    sd = {k: v.detach().to("cpu", torch.float32).contiguous()
+          for k, v in model.state_dict().items()}
+    torch.save({"epoch": int(meta.get("epoch", 0)), "model_state_dict": sd,
+                "best_dice": float(meta.get("best_metric", 0.0)),
+                "config": {"exported_from": str(checkpoint_path), "arch": arch}},
+               str(output_path))

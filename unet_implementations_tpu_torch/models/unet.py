@@ -32,7 +32,7 @@ from unet_implementations_tpu_torch.models.blocks import (
     nchw,
     nhwc,
 )
-from unet_implementations_tpu_torch.models.s2d import conv_s2d, depth_to_space, space_to_depth
+from unet_implementations_tpu_torch.ops.s2d import conv_s2d, depth_to_space, space_to_depth
 from unet_implementations_tpu_torch.parallel.spatial import SpatialContext
 
 # The 6-stage configuration the reference trains.

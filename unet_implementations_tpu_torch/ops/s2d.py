@@ -73,11 +73,33 @@ def _s2d_kernel_pattern(k: int) -> np.ndarray:
     return np.asarray(entries, np.int64)
 
 
-@functools.lru_cache(maxsize=None)
+# (index, inverse) pairs on a device, by (transform, shape, device).
+_DEVICE_INDICES: dict = {}
+
+
+def _on_device(key: tuple, build, device: torch.device) -> tuple:
+    """``_cached_index(*build())`` on ``device``, made once per key and
+    device; while ``torch.export`` traces (``torch.compiler.is_compiling``)
+    made anew and not kept, since a tensor made then is a constant of the
+    traced program, not a tensor to reuse."""
+    if torch.compiler.is_compiling():
+        return _cached_index(*build(), device)
+    out = _DEVICE_INDICES.get((key, device))
+    if out is None:
+        out = _DEVICE_INDICES[(key, device)] = _cached_index(*build(), device)
+    return out
+
+
 def _transform_index(k: int, cout: int, segments: tuple, device: torch.device) -> tuple:
     """Flat indices into ``[kernel.flatten(), 0]`` that build the transformed
     (4Cout, 4Cin, K′, K′) kernel (index ``kernel.numel()`` is the zero), and
     their inverse (``_cached_index``). Built once per shape and device."""
+    return _on_device(("stride1", k, cout, segments),
+                      lambda: _transform_index_np(k, cout, segments), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _transform_index_np(k: int, cout: int, segments: tuple) -> tuple:
     cin = sum(segments)
     entries = _s2d_kernel_pattern(k)
     b_lo = int(entries[:, :2].min())
@@ -94,12 +116,16 @@ def _transform_index(k: int, cout: int, segments: tuple, device: torch.device) -
                 4 * base + qin * cs:4 * base + (qin + 1) * cs,
                 by - b_lo, bx - b_lo] = ((co * cin + ci) * k + ky) * k + kx
             base += cs
-    return _cached_index(idx, cout * cin * k * k, device)
+    return idx, cout * cin * k * k
+
+
+def _stride2_index(cout: int, cin: int, device: torch.device) -> tuple:
+    """As ``_transform_index``, for ``transform_kernel_stride2``."""
+    return _on_device(("stride2", cout, cin), lambda: _stride2_index_np(cout, cin), device)
 
 
 @functools.lru_cache(maxsize=None)
-def _stride2_index(cout: int, cin: int, device: torch.device) -> tuple:
-    """As ``_transform_index``, for ``transform_kernel_stride2``."""
+def _stride2_index_np(cout: int, cin: int) -> tuple:
     idx = np.full((cout, 4 * cin, 2, 2), cout * cin * 9, np.int64)
     co, ci = np.arange(cout)[:, None], np.arange(cin)[None, :]
     for ky in range(3):
@@ -108,7 +134,7 @@ def _stride2_index(cout: int, cin: int, device: torch.device) -> tuple:
             qin = (ny % 2) * 2 + nx % 2
             idx[:, qin * cin:(qin + 1) * cin, ny // 2 + 1, nx // 2 + 1] = \
                 ((co * cin + ci) * 3 + ky) * 3 + kx
-    return _cached_index(idx, cout * cin * 9, device)
+    return idx, cout * cin * 9
 
 
 def _cached_index(idx: np.ndarray, n_sources: int, device: torch.device) -> tuple:

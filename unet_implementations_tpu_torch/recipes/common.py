@@ -12,7 +12,8 @@ reference eval protocol does. ``evaluate_segmentation`` writes
 ``evaluation_results.json`` with the reference's schema,
 ``evaluate_reconstruction`` the JAX package's ``reconstruction_metrics.json``.
 ``predict_segmentation(spatial=N)`` serves with each image's rows over the N
-ranks of a space group (``parallel/spatial.py``).
+ranks of a space group (``parallel/spatial.py``), and from a serving
+artifact (``serving/export.py``) it replays the exported program.
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ from unet_implementations_tpu_torch.parallel.spatial import (
     gather_rows,
     rows_of,
 )
+from unet_implementations_tpu_torch.serving.export import (
+    ARTIFACT_FORWARD,
+    ServingModel,
+    load_exported,
+)
+from unet_implementations_tpu_torch.training.checkpoint import model_file
 from unet_implementations_tpu_torch.training.steps import to_device
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
@@ -275,7 +282,7 @@ def evaluate_reconstruction(
 
 @torch.inference_mode()
 def predict_arrays(
-    model: torch.nn.Module,
+    model: torch.nn.Module | ServingModel,
     images_512: np.ndarray,
     original_dims: Sequence[Tuple[int, int]],
     grid: Optional[SpatialGrid] = None,
@@ -284,22 +291,27 @@ def predict_arrays(
 
     ``images_512``: (N, 512, 512, 3) uint8 RGB, already resized. The pixels
     cross to the model's device as uint8, are ImageNet-normalized there, run
-    through ``model`` in its dtype, and the argmax comes back. Each
-    512² mask is then nearest-resized to its ``original_dims`` entry (h, w).
-    Returns uint8 masks with class ids {0, 1, 2}. Under a spatial ``grid``
-    (every rank calls it with the same images) the model runs on this rank's
-    rows, and the space group's rows of the argmax are gathered on each of
-    its ranks.
+    through ``model`` in its dtype (a ``ServingModel``: through the exported
+    program, in its input dtype and static batch), and the argmax comes back.
+    Each 512² mask is then nearest-resized to its ``original_dims`` entry
+    (h, w). Returns uint8 masks with class ids {0, 1, 2}. Under a spatial
+    ``grid`` (every rank calls it with the same images; a model, not an
+    artifact) the model runs on this rank's rows, and the space group's rows
+    of the argmax are gathered on each of its ranks.
     """
     if images_512.ndim != 4 or images_512.shape[-1] != 3 or images_512.dtype != np.uint8:
         raise ValueError(
             f"images_512 must be (N, H, W, 3) uint8, got {images_512.shape} {images_512.dtype}")
     if len(original_dims) != len(images_512):
         raise ValueError(f"{len(original_dims)} original sizes for {len(images_512)} images")
-    device = next(model.parameters()).device
+    served = isinstance(model, ServingModel)
+    if served and grid is not None:
+        raise ValueError("an exported artifact serves on one device, not on a spatial grid")
+    device = model.device if served else next(model.parameters()).device
     pixels = torch.from_numpy(np.ascontiguousarray(images_512)).to(device, non_blocking=True)
     if grid is None:
-        preds = torch.argmax(model(normalize_image(pixels)), dim=-1)
+        x = normalize_image(pixels)
+        preds = torch.argmax(model.forward(x) if served else model(x), dim=-1)
     else:
         logits = model(normalize_image(rows_of(pixels, grid.context)), spatial=grid.context)
         preds = gather_rows(torch.argmax(logits, dim=-1), grid.context)
@@ -319,8 +331,12 @@ def predict_segmentation(
     spatial: int = 0,
     verbose: bool = True,
 ) -> int:
-    """Run the 6-stage UNet from a reference-schema ``.pth`` (``cli
-    export_torch`` of the JAX package) on an image file or a directory.
+    """Run the 6-stage UNet on an image file or a directory, from a
+    checkpoint directory or a reference-schema ``.pth`` (``cli export_torch``
+    of either package), or from a serving artifact (``cli export``, detected
+    by its ``forward.pt2``): the artifact replays its exported program,
+    without the model's code, in its input dtype (``dtype`` is not read) on
+    the device it was exported on, and must take 512² images.
 
     Writes ``<stem>_mask.png`` (class ids {0,1,2} at the image's original
     resolution) and, with ``overlay``, ``<stem>_overlay.png`` (the coloured
@@ -337,11 +353,22 @@ def predict_segmentation(
     """
     import cv2
 
-    from unet_implementations_tpu_torch.models import convert
-
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     device = default_device(device)
+    if (Path(model_path) / ARTIFACT_FORWARD).exists():
+        if spatial > 1:
+            raise ValueError("--spatial applies to training checkpoints; an AOT artifact "
+                             "replays its exported forward on one device")
+        model = load_exported(model_path, device)
+        if model.meta["img_size"] != IMAGE_SIZE:
+            raise ValueError(f"exported artifact is {model.meta['img_size']}px; predict "
+                             f"expects a {IMAGE_SIZE}px export")
+    else:
+        from unet_implementations_tpu_torch.models import convert
+
+        model = convert.load_reference_checkpoint(model_file(model_path), device=device,
+                                                  dtype=dtype)
     grid = create_mesh_dp_sp(spatial, device=device) if spatial > 1 else None
     inputs = Path(inputs)
     files = sorted(
@@ -352,7 +379,6 @@ def predict_segmentation(
     write = is_primary()
     if write:
         output_dir.mkdir(parents=True, exist_ok=True)
-    model = convert.load_reference_checkpoint(model_path, device=device, dtype=dtype)
 
     n = 0
     for start in range(0, len(files), batch_size):
