@@ -242,6 +242,35 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    clock, the two in turns, LATENCY_REPEATS each after one), each export's
    time and the artifact's size.
 
+15. The analysis tools, ``unet_6stage`` at 512² (phase 8's ``best_model``),
+   bf16 with float32 parameters unless said. It prints whether matplotlib
+   and scikit-learn import (the branch each step takes). (a) ``cli our_unet
+   evaluate --visualize_samples 2`` (without matplotlib: the ImportError,
+   naming matplotlib and ``--visualize_samples 0``, before any launch; with
+   it: the two batches' figures and the confusion matrix, the results equal
+   those of ``--visualize_samples 0``, one more forward a drawn batch), beside
+   ``--visualize_samples 0`` (22/5 a test forward), their wall times printed;
+   then ``our_unet.eval_fns``'s probability forward at b8 float32, 22/5, held
+   to the plain versions at phase 4's E2E_F32_REL_L2. (b) Grad-CAM of a test
+   image, b1 512², float32 and bf16: at the first decoder block's output
+   (BLOCK_TARGET) the float32 card CAM within CAM_F32_ATOL of the plain
+   versions' (see CAM_F32_ATOL for the fallback); at the default target and at
+   the block, each CAM in [0, 1], of its shape, bit for bit on a second call
+   (cuDNN deterministic), with K1/K2a 22/5 and K1bwd 10 (default) or 8
+   (block) a CAM; the ms of one default-target CAM by CUDA events. (c)
+   ``utils.profiling.profile_table`` (``cli profile``) of each ``--arch``:
+   the b128 forward and the b32 train step (CLIP at b16); each port
+   operator's row counts its kernel's launches (K1, K2a, K1bwd), the rows'
+   device time within PROFILE_BUSY_REL of the busy time, the our_unet
+   forward's within PROFILE_PHASE5_REL of phase 5's; each table's top
+   PROFILE_TOP rows printed. (d) The VGG16 loader on a seeded
+   torchvision-layout state dict: the card's features within VGG_REL_L2 of
+   the CPU's. (e) ``ae_recon evaluate --analyze_latent_space`` on phase 9's
+   autoencoder (both plots and ``n`` with scikit-learn and matplotlib; else
+   the ImportError before any launch). Phases 8-10 pass ``--visualize_samples
+   0`` to their evaluates, and phases 9 and 12 count ``ae_recon train``'s
+   snapshot forwards (one a checkpoint) where matplotlib imports.
+
 ``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
 comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
 phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups), the
@@ -263,8 +292,8 @@ and TF32 off in every process (``NVIDIA_TF32_OVERRIDE=0``).
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6-13 and 14's replays; phase 13's in its
-ranks).
+runs of the main paths (phases 3, 6-13, 14's replays and 15; phase 13's in
+its ranks).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
@@ -322,12 +351,14 @@ from unet_implementations_tpu_torch.ops.resize import resize_bilinear, upsample2
 from unet_implementations_tpu_torch.parallel import distributed
 from unet_implementations_tpu_torch.parallel import mesh as dp_mesh
 from unet_implementations_tpu_torch.parallel import spatial
-from unet_implementations_tpu_torch.recipes import clip_unet
+from unet_implementations_tpu_torch.models import vgg
+from unet_implementations_tpu_torch.recipes import clip_unet, our_unet
 from unet_implementations_tpu_torch.recipes.common import predict_arrays
 from unet_implementations_tpu_torch.serving import load_exported, save_exported
 from unet_implementations_tpu_torch.training.checkpoint import (
     extract_encoder_params,
     load_checkpoint,
+    restore_params,
     save_checkpoint,
 )
 from unet_implementations_tpu_torch.training.steps import (
@@ -347,18 +378,20 @@ from unet_implementations_tpu_torch.training.train_state import (
     sgd_nesterov,
     with_frozen,
 )
+from unet_implementations_tpu_torch.utils import profiling
+from unet_implementations_tpu_torch.utils.gradcam import DEFAULT_TARGET as DEFAULT_CAM_TARGET
+from unet_implementations_tpu_torch.utils.gradcam import gradcam
+from unet_implementations_tpu_torch.utils.profiling import (
+    BF16_TENSOR_FLOPS_PER_S,
+    F32_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+)
 
 SEED = 0
 IMG = 512
 # The batch of the predict path (phases 2-4) and of the timed forward (5).
 SERVE_BATCH = 8
 TIMED_BATCH = 128
-# Published H100 SXM peaks (NVIDIA data sheet): device memory rate, the
-# float32 rate outside the tensor cores, where the elementwise kernels
-# compute, and the dense bf16 tensor-core rate (K3's conv).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_TENSOR_FLOPS_PER_S = 989e12
 # Level l of the 6-stage model at 512²: (side, channels).
 LEVELS = [(IMG >> l, c) for l, c in enumerate(DEFAULT_FEATURES)]
 # K1 calls per forward at each level: 2 per encoder stage, 2 per decoder.
@@ -1028,53 +1061,40 @@ def bytes_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def k1_bound_ms(x: torch.Tensor) -> tuple[float, str]:
-    n = x.numel()
-    by_bytes = bytes_ms(2 * n * x.element_size())
-    # x, x*x sums (3 ops) + subtract, 2 multiplies, add, select (5 ops).
-    by_ops = 8 * n / F32_FLOPS_PER_S * 1e3
+def bound(by_bytes: float, by_ops: float) -> tuple[float, str]:
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+# The bytes and operations of each kernel come from its module, where the
+# cost table of ``utils/profiling.py`` reads them too.
+def k1_bound_ms(x: torch.Tensor) -> tuple[float, str]:
+    return bound(bytes_ms(k1.forward_bytes(x.shape, x.element_size())),
+                 k1.forward_operations(x.shape) / F32_FLOPS_PER_S * 1e3)
 
 
 def k1_bwd_bound_ms(x: torch.Tensor, group: int = 1) -> tuple[float, str]:
-    """Bytes: x and dy read and dx written once, the float32 statistics,
-    affines and parameter gradients. Operations: xhat and the pre-activation
-    (4), dpre (1), the two sums (3) and dx (5) per element."""
-    n, b, c = x.numel(), x.shape[0], x.shape[-1]
-    by_bytes = bytes_ms(3 * n * x.element_size() + 4 * (2 * b * c + 4 * (c // group)))
-    by_ops = 13 * n / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    return bound(bytes_ms(k1.backward_bytes(x.shape, x.element_size(), group)),
+                 k1.backward_operations(x.shape) / F32_FLOPS_PER_S * 1e3)
 
 
 def k2_bound_ms(x: torch.Tensor) -> tuple[float, str]:
-    n = x.numel()
-    by_bytes = bytes_ms(5 * n * x.element_size())
-    # 2 H-lerps + 4 W-lerps of 3 ops each per input element (6 lerps of 4
-    # outputs' worth, shared halo lerps not counted twice).
-    by_ops = 18 * n / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    return bound(bytes_ms(k2.upsample_bytes(x.shape, x.element_size())),
+                 k2.upsample_operations(x.shape) / F32_FLOPS_PER_S * 1e3)
 
 
 def k3_bound_ms(x: torch.Tensor) -> tuple[float, str]:
-    n = x.numel()
-    c = x.shape[-1] // 4
-    by_bytes = bytes_ms(2 * n * x.element_size())
-    # The conv's multiply-adds on the tensor cores (bf16), and the norms'
-    # float32 operations on the CUDA cores: IN1 and IN2 sums (3 + 3), IN1's
-    # normalize and activation (6), IN2's apply (5) per element. The two
-    # units run side by side, so the slower of the two bounds.
-    conv_flops = 2 * n * 9 * c
-    by_ops = max(conv_flops / BF16_TENSOR_FLOPS_PER_S, 17 * n / F32_FLOPS_PER_S) * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    """The conv's multiply-adds run on the tensor cores (bf16) beside the
+    norms' float32 operations on the CUDA cores: the slower of the two."""
+    by_ops = max(k3.tail_conv_flops(x.shape) / BF16_TENSOR_FLOPS_PER_S,
+                 k3.tail_norm_operations(x.shape) / F32_FLOPS_PER_S) * 1e3
+    return bound(bytes_ms(k3.tail_bytes(x.shape, x.element_size())), by_ops)
 
 
 def k3_conv_bound_ms(x: torch.Tensor) -> tuple[float, str]:
     """K3's conv launch alone: one read of x and one write of its output, or
     its multiply-adds at the bf16 tensor rate."""
-    n = x.numel()
-    by_bytes = bytes_ms(2 * n * x.element_size())
-    by_ops = 2 * n * 9 * (x.shape[-1] // 4) / BF16_TENSOR_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+    return bound(bytes_ms(k3.tail_bytes(x.shape, x.element_size())),
+                 k3.tail_conv_flops(x.shape) / BF16_TENSOR_FLOPS_PER_S * 1e3)
 
 
 def time_k3_conv(args) -> list[float]:
@@ -1916,6 +1936,24 @@ def per_epoch(per_step: dict, epochs: int, batch: int = RECIPE_BATCH,
     return {k: epochs * (steps * per_step[k] + val_fwd * fwd[k]) for k in KERNELS}
 
 
+def importable(name: str) -> bool:
+    try:
+        __import__(name)
+        return True
+    except ImportError:
+        return False
+
+
+def plus(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in KERNELS}
+
+
+def ae_snapshots(checkpoints: int) -> dict:
+    """The launches of ``ae_recon train``'s reconstruction snapshots: one
+    forward a checkpoint, drawn only where matplotlib imports."""
+    return times(PER_FORWARD["dense"], checkpoints if importable("matplotlib") else 0)
+
+
 def write_recipe_data(data: Path, cache: Path) -> None:
     """The reference directory schema under ``data``, with stand-in image and
     mask files, and a warm decode cache under ``cache`` written with the
@@ -2030,7 +2068,7 @@ def phase_recipe(root: Path):
         cli.main(["our_unet", "evaluate", "--model_path", str(out / "best_model"),
                   "--data_dir", str(data), "--output_dir", str(out / name),
                   "--batch_size", str(RECIPE_BATCH), "--decode_cache", str(cache),
-                  *flags])
+                  "--visualize_samples", "0", *flags])
         wall = time.perf_counter() - t0
         results = json.loads((out / name / "evaluation_results.json").read_text())
         return eval_scalars(results), wall
@@ -2247,7 +2285,8 @@ def ae_chain(root: Path) -> None:
 
     result = counted_path(lambda: cli.main(["ae_recon", "train", "--output_dir", str(ae_out),
                                             *train]),
-                          per_epoch(PER_STEP["dense"], RECIPE_EPOCHS))
+                          plus(per_epoch(PER_STEP["dense"], RECIPE_EPOCHS),
+                               ae_snapshots(RECIPE_EPOCHS)))
     check_csv(ae_out / "training_log.csv", AE_CSV_HEADER,
               [f"{cosine_lr(1e-3, RECIPE_EPOCHS)(e):.7f}" for e in range(RECIPE_EPOCHS)], 5,
               slice(1, 5))
@@ -2260,7 +2299,8 @@ def ae_chain(root: Path) -> None:
 
     def ae_evaluate(name: str, *flags: str) -> dict:
         cli.main(["ae_recon", "evaluate", "--model_path", str(ae_out / "best_model"),
-                  "--output_dir", str(ae_out / name), *common, *flags])
+                  "--output_dir", str(ae_out / name), "--visualize_samples", "0", *common,
+                  *flags])
         results = json.loads((ae_out / name / "reconstruction_metrics.json").read_text())
         if tuple(results) != AE_METRIC_KEYS:
             raise AssertionError(f"reconstruction_metrics.json keys {list(results)}")
@@ -2301,7 +2341,8 @@ def ae_chain(root: Path) -> None:
 
     counted_path(lambda: cli.main(["ae_transfer", "evaluate", "--model_path",
                                    str(tr_out / "best_model"), "--output_dir",
-                                   str(tr_out / "eval"), *common]), per_test)
+                                   str(tr_out / "eval"), "--visualize_samples", "0", *common]),
+                 per_test)
     scalars = eval_scalars(json.loads((tr_out / "eval" / "evaluation_results.json").read_text()))
     log(f"ae_transfer evaluate (bf16): {scalars}")
     if not all(math.isfinite(v) for v in scalars.values() if not math.isnan(v)):
@@ -2586,7 +2627,7 @@ def clip_chain(root: Path) -> None:
         def run():
             cli.main(["clip_unet", "evaluate", "--model_path", str(out / "best_model"),
                       "--output_dir", str(out / name), "--batch_size", str(CLIP_BATCH),
-                      *common, *flags])
+                      "--visualize_samples", "0", *common, *flags])
         (counted_path if expected != NO_LAUNCHES else counted)(run, expected)
         return eval_scalars(json.loads((out / name / "evaluation_results.json").read_text()))
 
@@ -3024,7 +3065,8 @@ def accum_recipes(root: Path) -> None:
         per_step = {k: v * accum for k, v in PER_STEP["dense"].items()}
         result = counted_path(lambda: cli.main([recipe, "train", "--output_dir", str(out),
                                                 "--grad_accum", str(accum), *common]),
-                              per_epoch(per_step, 1))
+                              plus(per_epoch(per_step, 1),
+                                   ae_snapshots(1 if recipe == "ae_recon" else 0)))
         check_csv(out / "training_log.csv", header, [lr], lr_col, loss_cols)
         config = json.loads((out / "training_config.json").read_text())
         if config["grad_accum"] != accum:
@@ -3894,6 +3936,293 @@ def phase_serving(root: Path):
     raw_chain(root)
 
 
+# The analysis tools (phase 15). (a) The evaluate that draws the first
+# VIZ_SAMPLES batches; the probability forward against the plain versions at
+# phase 4's float32 bound. (b) Grad-CAM at b1 512²: at the first decoder
+# block's output (BLOCK_TARGET) the CAM does not depend on roundings, so the
+# float32 card CAM is held to the plain versions' within CAM_F32_ATOL (max
+# abs, [0, 1] units); at the default target, an InstanceNorm's input, the
+# gradient's spatial mean is zero up to rounding (utils/gradcam.py), so that
+# CAM is checked for shape, range and repeatability only. Where the card's
+# block-target CAM is beyond CAM_F32_ATOL of the plain versions', it is held
+# instead to a CAM whose K1 outputs are the kernel's values with the plain
+# backward (phase 7's k1_kernel_values), and the log says so: K1's reordered
+# float32 sums flip LeakyReLU slopes within a rounding of zero, as in phase 7.
+# On an H100 (80GB HBM3, 700 W) it read 6.504e-3 and 4.842e-4 (two runs)
+# against the plain versions, and 1.413e-5 against the K1-values CAM. (c) cli
+# profile
+# per --arch: PROFILE_ITERS iterations after the table's 2 warm-ups, the
+# rows' measured time within PROFILE_BUSY_REL of the device's busy time, the
+# our_unet forward's within PROFILE_PHASE5_REL of phase 5's b128 forward.
+# (d) The VGG16 loader on a seeded torchvision-layout state dict at
+# VGG_SIDE² bVGG_BATCH: the card's features within VGG_REL_L2 of the CPU's.
+VIZ_SAMPLES = 2
+BLOCK_TARGET = "decoder_stages.0.conv_block"
+CAM_F32_ATOL = 1e-3
+CAM_TIMED = 5
+# Per CAM: the forward's launches, and K1bwd over the norms after the target
+# (decoder_0's two and decoders 1-4's at the default target; 1-4's after the
+# block).
+CAM_PER_CALL = {"default": {**PER_FORWARD["dense"], "K1bwd": 10},
+                "block": {**PER_FORWARD["dense"], "K1bwd": 8}}
+PROFILE_ITERS = 3
+PROFILE_BATCH = {"forward": TIMED_BATCH, "train": TRAIN_BATCH, "clip train": CLIP_BATCH}
+PROFILE_BUSY_REL = 0.03
+PROFILE_PHASE5_REL = 0.10
+PROFILE_TOP = 10
+# Each port operator's row and the count of its launches.
+PROFILE_ROWS = {"unet_torch::in_lrelu_fwd": "K1", "unet_torch::upsample2x": "K2a",
+                "_FusedInstanceNormBackward": "K1bwd"}
+VGG_BATCH, VGG_SIDE = 2, 224
+VGG_REL_L2 = 1e-4
+
+
+def analysis_model(root: Path) -> Path:
+    """Phase 8's ``best_model``; where phase 8 wrote none, one saved from a
+    seeded ``unet_6stage``."""
+    path = root / "run" / "best_model"
+    if not (path / "model.pth").is_file():
+        path = root / "unet_seeded"
+        save_checkpoint(path, unet_6stage(device="cuda",
+                                          generator=torch.Generator().manual_seed(SEED + 31)),
+                        None, 0, 0.0)
+    return path
+
+
+def first_test_images(data: Path, n: int) -> dict:
+    """The first ``n`` test images of phase 8's dataset (from its cache)."""
+    ds = loader.PetDataset(data / "Test" / "resized", data / "Test" / "processed_labels",
+                           include_augmented=False)
+    batches = loader.batch_iterator(ds, n, num_threads=1)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def viz_evaluate(root: Path, best: Path, mpl: bool) -> None:
+    """(a) ``our_unet evaluate --visualize_samples 2`` with matplotlib, or its
+    early ImportError without; the probability forward on the card against
+    the plain versions."""
+    data, cache = recipe_data(root)
+    test_fwd = -(-RECIPE_SPLITS["Test"][1] // RECIPE_BATCH)
+
+    def evaluate(name: str, n: int) -> float:
+        t0 = time.perf_counter()
+        cli.main(["our_unet", "evaluate", "--model_path", str(best), "--data_dir", str(data),
+                  "--output_dir", str(root / name), "--batch_size", str(RECIPE_BATCH),
+                  "--decode_cache", str(cache), "--visualize_samples", str(n)])
+        return time.perf_counter() - t0
+
+    plain_wall = counted_path(lambda: evaluate("eval_noviz", 0),
+                              times(PER_FORWARD["dense"], test_fwd))
+    if mpl:
+        drawn = min(VIZ_SAMPLES, test_fwd)
+        wall = counted_path(lambda: evaluate("eval_viz", VIZ_SAMPLES),
+                            times(PER_FORWARD["dense"], test_fwd + drawn))
+        viz = root / "eval_viz" / "visualizations"
+        want = {f"{kind}_batch{i}.png" for kind in ("predictions", "error_analysis", "confidence")
+                for i in range(drawn)} | {"confusion_matrix.png"}
+        if {p.name for p in viz.iterdir()} != want or not all(
+                (viz / name).stat().st_size > 0 for name in want):
+            raise AssertionError(f"the figures: {sorted(p.name for p in viz.iterdir())}")
+        results = [json.loads((root / d / "evaluation_results.json").read_text())
+                   for d in ("eval_viz", "eval_noviz")]
+        if results[0] != results[1]:
+            raise AssertionError("the results with figures differ from those without")
+        log(f"branch: matplotlib imports; evaluate --visualize_samples {VIZ_SAMPLES}: "
+            f"{len(want)} figures, results equal those without; wall {wall:.3f} s with "
+            f"figures, {plain_wall:.3f} s without")
+    else:
+        reset_launches()
+        try:
+            evaluate("eval_viz", VIZ_SAMPLES)
+        except ImportError as e:
+            if "matplotlib" not in str(e) or "--visualize_samples 0" not in str(e):
+                raise AssertionError(f"the ImportError names no way out: {e}") from e
+            log(f"branch: matplotlib does not import; evaluate --visualize_samples "
+                f"{VIZ_SAMPLES} raised before the model loaded: {e}")
+        else:
+            raise AssertionError("evaluate --visualize_samples drew without matplotlib")
+        if launches() != NO_LAUNCHES or (root / "eval_viz").exists():
+            raise AssertionError(f"the refused evaluate launched {launches()} or wrote files")
+        log(f"evaluate --visualize_samples 0: wall {plain_wall:.3f} s")
+    model = restore_params(best, our_unet.build_model(torch.float32, "cuda")).eval()
+    _, probs_fn = our_unet.eval_fns(model, torch.float32)
+    batch = first_test_images(data, SERVE_BATCH)
+    probs = counted_path(lambda: probs_fn(batch), PER_FORWARD["dense"])
+    with plain_versions():
+        plain = counted(lambda: probs_fn(batch), NO_LAUNCHES)
+    err = rel_l2(probs, plain)
+    log(f"probs_fn b{SERVE_BATCH} float32: rel-L2 {err:.4e} against the plain versions "
+        f"(bound {E2E_F32_REL_L2}), K1/K2a {PER_FORWARD['dense']['K1']}/"
+        f"{PER_FORWARD['dense']['K2a']} a probability forward")
+    if not err <= E2E_F32_REL_L2:
+        raise AssertionError(f"probs_fn: rel-L2 {err} against the plain versions")
+    report["analysis"]["eval_wall_s"] = {"without": plain_wall,
+                                         "with": wall if mpl else None}
+
+
+def cams(best: Path, data: Path) -> None:
+    """(b) Grad-CAM of the first test image, b1 512², float32 and bf16."""
+    image = first_test_images(data, 1)["image"]
+    models = {dt: restore_params(best, our_unet.build_model(dt, "cuda")).eval()
+              for dt in (torch.float32, torch.bfloat16)}
+    f32 = models[torch.float32]
+    with deterministic():
+        cam = counted_path(lambda: gradcam(f32, image, 1, BLOCK_TARGET), CAM_PER_CALL["block"])
+        with plain_versions():
+            plain = counted(lambda: gradcam(f32, image, 1, BLOCK_TARGET), NO_LAUNCHES)
+        err = float(np.abs(cam - plain).max())
+        log(f"Grad-CAM float32 at {BLOCK_TARGET}: max |card - plain| {err:.4e} (bound "
+            f"{CAM_F32_ATOL}); launches {CAM_PER_CALL['block']}")
+        if not err <= CAM_F32_ATOL:
+            with plain_versions(k1_kernel_values):
+                values = counted(lambda: gradcam(f32, image, 1, BLOCK_TARGET),
+                                 {**NO_LAUNCHES, "K1": PER_FORWARD["dense"]["K1"]})
+            err = float(np.abs(cam - values).max())
+            log(f"  beyond it: held instead to the CAM with K1's values and the plain "
+                f"backward: max |difference| {err:.4e}")
+            if not err <= CAM_F32_ATOL:
+                raise AssertionError(f"Grad-CAM float32: {err} from the K1-values CAM")
+        for dt, model in models.items():
+            for label, target in (("default", DEFAULT_CAM_TARGET), ("block", BLOCK_TARGET)):
+                first = counted_path(lambda: gradcam(model, image, 1, target),
+                                     CAM_PER_CALL[label])
+                again = counted_path(lambda: gradcam(model, image, 1, target),
+                                     CAM_PER_CALL[label])
+                if first.shape != (IMG, IMG) or not np.isfinite(first).all() or \
+                        first.min() < 0 or first.max() > 1 + 1e-6:
+                    raise AssertionError(f"Grad-CAM {dt} {label}: shape {first.shape}, range "
+                                         f"[{first.min()}, {first.max()}]")
+                if not np.array_equal(first, again):
+                    raise AssertionError(f"Grad-CAM {dt} {label}: a second call differs")
+            ms = cuda_times(lambda img: gradcam(model, img, 1), [image], iters=CAM_TIMED)
+            report["analysis"][f"cam_ms_{str(dt).removeprefix('torch.')}"] = \
+                statistics.median(ms)
+            log(f"Grad-CAM {dt} b1 {IMG}² at the default target ({DEFAULT_CAM_TARGET}), "
+                f"forward + backward to it + CAM, CUDA events: {spread(ms)}; both targets in "
+                f"range and bit for bit on a second call")
+
+
+def profiles() -> None:
+    """(c) The cost table of each recipe's model, forward and train step."""
+    phase5 = report.get("forward", {}).get("dense", {}).get("ms")
+    for arch in profiling.ARCHES:
+        for train in (False, True):
+            batch = PROFILE_BATCH[("clip train" if arch == "clip_unet" else "train")
+                                  if train else "forward"]
+            reset_launches()
+            table = profiling.profile_table(arch, batch, IMG, train, torch.bfloat16, "cuda",
+                                            iters=PROFILE_ITERS, seed=SEED + 33)
+            counts = launches()
+            log(profiling.format_table(table["rows"], top=PROFILE_TOP, meta=table))
+            rows = {r["name"]: r for r in table["rows"]}
+            runs = PROFILE_ITERS + profiling.WARMUPS
+            for name, kernel in PROFILE_ROWS.items():
+                calls = rows[name]["calls"] if name in rows else 0
+                if calls * runs != counts[kernel]:
+                    raise AssertionError(f"{arch} {train}: row {name} {calls} calls an "
+                                         f"iteration, {counts[kernel]} {kernel} launches in "
+                                         f"{runs} runs")
+            total = sum(r["device_us"] for r in table["rows"])
+            if not abs(total - table["busy_us"]) <= PROFILE_BUSY_REL * table["busy_us"]:
+                raise AssertionError(f"{arch} {train}: rows {total} us, busy "
+                                     f"{table['busy_us']} us")
+            key = f"{arch} {'train' if train else 'forward'} b{batch}"
+            report["analysis"].setdefault("profile_ms", {})[key] = total / 1e3
+            if arch == "our_unet" and not train and phase5:
+                log(f"our_unet forward b{batch}: profiled device total {total / 1e3:.3f} ms, "
+                    f"phase 5's event-timed b{TIMED_BATCH} forward {phase5:.3f} ms, ratio "
+                    f"{total / 1e3 / phase5:.4f}")
+                if not abs(total / 1e3 - phase5) <= PROFILE_PHASE5_REL * phase5:
+                    raise AssertionError(f"the profiled forward {total / 1e3} ms against "
+                                         f"phase 5's {phase5} ms")
+            torch.cuda.empty_cache()
+
+
+def vgg_on_card() -> None:
+    """(d) A seeded torchvision-layout state dict loaded on the card and on
+    the CPU: the features of the same images."""
+    g = torch.Generator().manual_seed(SEED + 35)
+    sd, cin = {}, 3
+    plan = [ch for n, ch in vgg.VGG16_PLAN for _ in range(n)]
+    for idx, cout in zip(vgg.TORCHVISION_CONV_INDICES, plan):
+        sd[f"features.{idx}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) * \
+            (2 / (9 * cout)) ** 0.5
+        sd[f"features.{idx}.bias"] = torch.randn(cout, generator=g) * 0.1
+        cin = cout
+    x = torch.rand((VGG_BATCH, VGG_SIDE, VGG_SIDE, 3), generator=g)
+    models = {d: vgg.load_torch_vgg16_weights(sd, vgg.VGG16Features().to(d).eval())
+              for d in ("cpu", "cuda")}
+    with torch.no_grad():
+        want = models["cpu"](x)
+        got = models["cuda"](x.to("cuda"))
+    errs = {tap: rel_l2(got[tap].cpu(), want[tap]) for tap in want}
+    log(f"VGG16 loader, b{VGG_BATCH} {VGG_SIDE}² float32, card against CPU, rel-L2 by tap: "
+        + ", ".join(f"{t} {e:.3e}" for t, e in errs.items()) + f" (bound {VGG_REL_L2})")
+    if not all(e <= VGG_REL_L2 for e in errs.values()):
+        raise AssertionError(f"VGG16 features, card against CPU: {errs}")
+
+
+def latent(root: Path) -> None:
+    """(e) ``ae_recon evaluate --analyze_latent_space`` on phase 9's
+    autoencoder, or its early ImportError without scikit-learn or
+    matplotlib."""
+    data, cache = recipe_data(root)
+    recon = loader.cache_path(cache, data / "Test" / "resized", None, (IMG, IMG),
+                              mode="reconstruction")
+    if not (recon / loader.MANIFEST).exists():
+        write_recon_caches(data, cache)
+    argv = ["ae_recon", "evaluate", "--model_path", str(pretrained_ae(root)), "--data_dir",
+            str(data), "--output_dir", str(root / "latent"), "--batch_size", str(RECIPE_BATCH),
+            "--decode_cache", str(cache), "--visualize_samples", "0", "--analyze_latent_space"]
+    if importable("sklearn") and importable("matplotlib"):
+        test_fwd = -(-RECIPE_SPLITS["Test"][1] // RECIPE_BATCH)
+        t0 = time.perf_counter()
+        results = counted_path(lambda: cli.main(argv),
+                               times(PER_FORWARD["dense"], 2 * test_fwd))
+        wall = time.perf_counter() - t0
+        plots = [p.name for p in (root / "latent").glob("latent_space_*.png")]
+        if results["latent_analysis"] != {"pca_explained": None,
+                                          "n": RECIPE_SPLITS["Test"][1]} or len(plots) != 2:
+            raise AssertionError(f"latent analysis: {results['latent_analysis']}, {plots}")
+        log(f"branch: scikit-learn and matplotlib import; analyze_latent on "
+            f"{RECIPE_SPLITS['Test'][1]} test images: {sorted(plots)}, {wall:.3f} s")
+        return
+    reset_launches()
+    try:
+        cli.main(argv)
+    except ImportError as e:
+        log(f"branch: scikit-learn {'imports' if importable('sklearn') else 'does not import'},"
+            f" matplotlib {'imports' if importable('matplotlib') else 'does not import'}; "
+            f"--analyze_latent_space raised before the first encode: {e}")
+    else:
+        raise AssertionError("--analyze_latent_space ran without its packages")
+    if launches() != NO_LAUNCHES:
+        raise AssertionError(f"the refused latent analysis launched {launches()}")
+
+
+@phase("15. the analysis tools: evaluate --visualize_samples, Grad-CAM, cli profile, the "
+       "VGG16 loader, the latent analysis")
+def phase_analysis(root: Path):
+    report["analysis"] = {}
+    mpl = importable("matplotlib")
+    log(f"matplotlib {'imports' if mpl else 'does not import'}, scikit-learn "
+        f"{'imports' if importable('sklearn') else 'does not import'} on this machine")
+    best = analysis_model(root)
+    data, cache = recipe_data(root)
+    os.environ["UNET_TPU_DECODE_CACHE"] = str(cache)
+    viz_evaluate(root, best, mpl)
+    torch.cuda.empty_cache()
+    cams(best, data)
+    torch.cuda.empty_cache()
+    profiles()
+    vgg_on_card()
+    torch.cuda.empty_cache()
+    latent(root)
+
+
 # ``--ab-steps``: one checkout's phase-7 step and phase-8 recipe, through the
 # package's entry points only. Arguments: LABEL DATA CACHE.
 AB_PROGRAM = f"""
@@ -4000,7 +4329,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6-13 and 14).
+            # The counted runs of the main paths (phases 3, 6-15).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -4044,6 +4373,8 @@ def main() -> int:
             phase_spatial(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_serving(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_analysis(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

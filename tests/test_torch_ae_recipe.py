@@ -11,14 +11,26 @@ against the JAX package's.
   ``evaluation_results.json`` those in ``demo/four_recipes/``); the AE's
   ``best_model/model.pth`` loads into JAX's ``autoencoder_6stage`` and gives
   the port's float32 reconstruction to 1e-4 relative at 64²; the transfer's
-  encoder equals the AE's bit for bit and its decoders moved.
+  encoder equals the AE's bit for bit and its decoders moved. The AE's
+  figures: ``reconstructions/epoch_1.png`` from the checkpoint's snapshot and
+  ``reconstruction_comparison.png`` from the evaluate (the CLI's default
+  ``--visualize_samples 3``); ``--analyze_latent_space`` adds
+  ``latent_analysis`` and the PCA plot. Without matplotlib a snapshot prints
+  one line and training goes on; any other error in it propagates.
+- ``analyze_latent`` on 12 synthetic test images (a 2-stage autoencoder at
+  32², float32) writes both plots and returns JAX's dict; its bottlenecks
+  (``encode``) match JAX's ``return_bottleneck`` forward to rtol 1e-3 / atol
+  1e-4 with the weights carried by ``params_from_jax``.
 - Every JAX flag of ``ae_recon`` and ``ae_transfer`` exists with JAX's
   defaults; the flags that are not ported raise, naming their ROADMAP item.
 """
 
 import csv
 import json
+import sys
 from pathlib import Path
+
+import cv2
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +39,15 @@ import pytest
 import torch
 
 from unet_implementations_tpu.cli import build_parser as jax_build_parser
+from unet_implementations_tpu.data.loader import PetDataset as JaxPetDataset
 from unet_implementations_tpu.models import convert as jax_convert
+from unet_implementations_tpu.models.unet import UNet as JaxUNet
 from unet_implementations_tpu.models.unet import autoencoder_6stage as jax_autoencoder_6stage
 from unet_implementations_tpu.recipes import ae_recon as jax_ae_recon
 from unet_implementations_tpu.recipes import ae_transfer as jax_ae_transfer
 from unet_implementations_tpu_torch import cli
+from unet_implementations_tpu_torch.data.loader import PetDataset
+from unet_implementations_tpu_torch.models import convert
 from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage
 from unet_implementations_tpu_torch.recipes import ae_recon, ae_transfer, common
 from unet_implementations_tpu_torch.training import checkpoint
@@ -121,6 +137,39 @@ class TestChain:
         assert written == chain["ae_eval"] and written["num_images"] == 2
         assert np.isfinite([written[k] for k in ("mse", "psnr", "ssim")]).all()
 
+    def test_ae_figures(self, chain):
+        for png in (chain["ae"] / "reconstructions" / "epoch_1.png",
+                    chain["ae"] / "eval" / "reconstruction_comparison.png"):
+            assert png.stat().st_size > 0, png
+
+    def test_snapshot_skips_only_missing_matplotlib(self, chain, tmp_path, monkeypatch,
+                                                      capsys):
+        """The snapshot ``train`` hands the loop: without matplotlib one line
+        and no file; any other error propagates."""
+        snapshot = {}
+
+        def loop(model, optimizer, **kwargs):
+            snapshot.update(fn=kwargs["checkpoint_callback"], model=model)
+            return {}
+
+        monkeypatch.setattr(ae_recon, "train_loop", loop)
+        ae_recon.train(chain["root"] / "data", tmp_path / "o", batch_size=2, epochs=1,
+                       dtype=torch.float32, device="cpu", num_threads=1, use_mesh=False)
+        with monkeypatch.context() as mp:
+            mp.setitem(sys.modules, "matplotlib", None)
+            snapshot["fn"](snapshot["model"], 3)
+        assert "epoch 3 not drawn" in capsys.readouterr().out
+        assert not (tmp_path / "o" / "reconstructions").exists()
+        assert snapshot["model"].training
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("a fault in the forward")
+
+        monkeypatch.setattr(snapshot["model"], "forward", broken)
+        with pytest.raises(RuntimeError, match="a fault in the forward"):
+            snapshot["fn"](snapshot["model"], 4)
+        assert snapshot["model"].training
+
     def test_ae_best_model_loads_into_jax(self, chain):
         path = chain["ae"] / "best_model" / "model.pth"
         jmodel = jax_autoencoder_6stage(dtype=jnp.float32)
@@ -207,14 +256,13 @@ class TestCli:
          dict(pretrained_encoder="p", lr=5e-3, weight_decay=1e-4, momentum=0.99,
               weighted_ce=False, num_workers=3)),
         (["ae_transfer", "evaluate", "--model_path", "m", "--data_dir", "d", "--device", "cpu"],
-         dict(device="cpu", visualize_samples=0)),
+         dict(device="cpu", visualize_samples=3)),
     ])
     def test_jax_argv_parses(self, argv, want):
         args = cli.build_parser().parse_args(argv)
         assert {k: getattr(args, k) for k in want} == want
         ref = jax_build_parser().parse_args(argv)
-        assert {k: getattr(ref, k) for k in want if k != "visualize_samples"} == \
-            {k: v for k, v in want.items() if k != "visualize_samples"}
+        assert {k: getattr(ref, k) for k in want} == want
 
     def test_pretrained_encoder_required(self, capsys):
         with pytest.raises(SystemExit):
@@ -240,10 +288,21 @@ class TestCli:
         assert not (tmp_path / "o").exists()
 
     @pytest.mark.parametrize("flags", [["--analyze_latent_space"], ["--visualize_samples", "1"]])
-    def test_eval_flags_not_ported_raise(self, tmp_path, flags):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cli.main(["ae_recon", "evaluate", "--model_path", str(tmp_path / "m"),
-                      "--data_dir", str(tmp_path), "--device", "cpu", *flags])
+    def test_eval_flags_not_ported_raise(self, chain, tmp_path, flags):
+        """Ported: each flag draws its figures (the name is kept from when
+        they raised)."""
+        out = tmp_path / "eval"
+        latent = flags == ["--analyze_latent_space"]
+        results = cli.main(["ae_recon", "evaluate", "--model_path", str(chain["ae"] / "best_model"),
+                            "--data_dir", str(chain["root"] / "data"), "--output_dir", str(out),
+                            "--device", "cpu", "--f32", "--batch_size", "2", "--num_workers", "1",
+                            *(["--visualize_samples", "0"] if latent else []), *flags])
+        written = {p.name for p in out.iterdir()}
+        assert written == {"reconstruction_metrics.json", "latent_space_pca.png" if latent
+                           else "reconstruction_comparison.png"}
+        assert ("latent_analysis" in results) == latent
+        if latent:  # 2 test images: too few for the t-SNE (JAX's threshold, 10)
+            assert results["latent_analysis"] == {"pca_explained": None, "n": 2}
 
     @pytest.mark.parametrize("argv", [
         ["ae_recon", "train"], ["ae_transfer", "train", "--pretrained_encoder", "p"]])
@@ -253,3 +312,58 @@ class TestCli:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([*argv, "--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "o")])
+
+
+# A 2-stage autoencoder (dense, dropout rates 0) and 12 test images named by
+# breed: 6 cats, 6 dogs.
+TINY_AE = dict(features_per_stage=(8, 16), strides=(1, 2), encoder_dropout_rates=(0.0, 0.0),
+               decoder_dropout_rates=(0.0,), head="reconstruction", s2d_level0=False,
+               s2d_low_channel_decoders=False)
+BREEDS = ("Abyssinian", "Bengal", "Persian", "Siamese", "Sphynx", "Birman", "beagle", "boxer",
+          "pug", "samoyed", "chihuahua", "havanese")
+
+
+def test_analyze_latent_matches_jax(tmp_path):
+    rng = np.random.default_rng(31)
+    images = tmp_path / "Test" / "resized"
+    images.mkdir(parents=True)
+    for i, breed in enumerate(BREEDS):
+        cv2.imwrite(str(images / f"{breed}_{i}.jpg"),
+                    rng.integers(0, 256, (40 + i, 36, 3)).astype(np.uint8))
+    jmodel = JaxUNet(**TINY_AE)
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
+    params = jax.tree.map(lambda a: (rng.normal(size=a.shape) * 0.2).astype(np.float32), shapes)
+    model = UNet(**TINY_AE).eval()
+    model.load_state_dict(convert.params_from_jax(params, model), strict=True)
+
+    ds = PetDataset(images, None, include_augmented=False, mode="reconstruction",
+                    emit_uint8=True, target_size=(32, 32))
+    jds = JaxPetDataset(images, None, include_augmented=False, mode="reconstruction",
+                        target_size=(32, 32))
+    got = ae_recon.encode(model, ds, batch_size=5, dtype=torch.float32, num_threads=1)
+    x = np.stack([jds.load_item(i)["image"] for i in range(len(jds))])
+    want = np.asarray(jax.jit(lambda p, v: jmodel.apply(
+        {"params": p}, v, deterministic=True, return_bottleneck=True)[1])(params, jnp.asarray(x)))
+    assert got.shape == want.shape == (12, 16 * 16 * 16)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+    out = ae_recon.analyze_latent(model, ds, tmp_path / "ours", batch_size=5,
+                                  dtype=torch.float32, num_threads=1)
+    (tmp_path / "ref").mkdir()  # JAX's evaluate makes it before
+    ref = jax_ae_recon.analyze_latent(jmodel, params, jds, tmp_path, tmp_path / "ref", 5,
+                                      jnp.float32)
+    assert out == ref == {"pca_explained": None, "n": 12}
+    for d in ("ours", "ref"):
+        for name in ("latent_space_pca.png", "latent_space_tsne.png"):
+            assert (tmp_path / d / name).stat().st_size > 0, (d, name)
+
+
+def test_analyze_latent_without_sklearn_raises_before_encoding(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    encoded = count_calls(monkeypatch, ae_recon, "encode")
+    with pytest.raises(ImportError, match="scikit-learn"):
+        ae_recon.analyze_latent(UNet(**TINY_AE), None, tmp_path)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        ae_recon.evaluate(tmp_path / "none", tmp_path, tmp_path / "out", device="cpu",
+                          analyze_latent_space=True)
+    assert encoded == [] and not (tmp_path / "out").exists()

@@ -24,7 +24,8 @@ against the JAX package's, on the CPU.
   Then ``clip_unet train --online_augment``: live extraction once per
   training batch, no Train table.
 - Every JAX ``clip_unet`` and ``clip_resize`` flag exists with JAX's
-  defaults; what is not ported raises, naming its ROADMAP item.
+  defaults; the evaluates draw their figures at the default
+  ``--visualize_samples 3`` (predictions and error maps, as JAX's).
 """
 
 import csv
@@ -414,7 +415,7 @@ class TestCli:
             cli.main(argv)
         assert not (tmp_path / "o").exists()
 
-    def test_not_ported_raise(self, tmp_path, monkeypatch):
+    def test_not_ported_raise(self, chain, tmp_path, monkeypatch):
         # use_mesh=True is ported: one process (no process group) trains as
         # without it, so the call gets as far as its datasets.
         monkeypatch.setattr(clip_unet, "make_datasets", stop_at_datasets)
@@ -422,10 +423,13 @@ class TestCli:
             clip_unet.train(tmp_path, tmp_path / "o", use_mesh=True, device="cpu")
         assert json.loads((tmp_path / "o" / "training_config.json").read_text())[
             "with_clip_features"] is True
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cli.main(["clip_unet", "evaluate", "--model_path", str(tmp_path / "m"),
-                      "--data_dir", str(tmp_path), "--device", "cpu",
-                      "--visualize_samples", "2"])
+        # Ported: each evaluate of the chain drew its one batch at the CLI's
+        # default --visualize_samples 3, predictions only as JAX's (no
+        # confidence maps).
+        for name in ("table", "live", "plain"):
+            viz = chain["out"] / f"eval_{name}" / "visualizations"
+            assert sorted(p.name for p in viz.iterdir()) == [
+                "confusion_matrix.png", "error_analysis_batch0.png", "predictions_batch0.png"]
 
     @pytest.mark.parametrize("argv", [
         ["clip_unet", "train", "--output_dir", "o"], ["clip_unet", "embed"]])

@@ -24,9 +24,14 @@ one epoch of each of the four recipes under the two ranks (their full-width
 models at 512², 2 training images and 1 validation image, a global b2): one
 ``training_log.csv`` with its row written once, the same trained parameters
 on both ranks, and a ``best_model`` that holds them and loads strictly into a
-fresh model of its kind. In-process: a failed initialization raises, a single process is a
-no-op, the mesh's batch split is checked before the data loads, and
-``default_device`` takes the rank's card under a process group.
+fresh model of its kind. Then ``cli our_unet evaluate --visualize_samples 1`` under
+a launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ...; the
+file as its own worker again, ``--cli-evaluate RANK PORT DIR``): ``cli.main``
+joins the group, both ranks return the same results, and rank 0 alone writes
+``evaluation_results.json`` and the figures. In-process: a failed initialization
+raises, a single process is a no-op, the mesh's batch split is checked before
+the data loads, and ``default_device`` takes the rank's card under a process
+group.
 """
 
 from __future__ import annotations
@@ -141,6 +146,42 @@ def _train_recipes(d: Path) -> None:
                    d / f"{name}_rank{distributed.rank()}.pt")
 
 
+def cli_evaluate(rank: int, port: int, d: Path) -> None:
+    """``cli our_unet evaluate`` as a launcher starts it: the group from the
+    environment. Saves the results, the world size the recipe saw and the
+    files this rank wrote (JSON dumps and figures)."""
+    from unittest import mock
+
+    from matplotlib.figure import Figure
+
+    from unet_implementations_tpu_torch import cli
+    from unet_implementations_tpu_torch.recipes import common, our_unet
+
+    torch.set_num_threads(4)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    seen = {}
+    evaluate = our_unet.evaluate
+
+    def recorded(*args, **kwargs):
+        seen["world"] = distributed.world_size()
+        return evaluate(*args, **kwargs)
+
+    with mock.patch.object(our_unet, "evaluate", recorded), \
+            mock.patch.object(common.json, "dump", wraps=json.dump) as dumps, \
+            mock.patch.object(Figure, "savefig", autospec=True,
+                              side_effect=Figure.savefig) as figures:
+        results = cli.main(["our_unet", "evaluate", "--model_path",
+                            str(d / "our_unet" / "best_model"), "--data_dir", str(d / "data"),
+                            "--output_dir", str(d / "eval"), "--device", "cpu", "--f32",
+                            "--batch_size", "2", "--num_workers", "1",
+                            "--visualize_samples", "1"])
+    assert not distributed.is_initialized()
+    (d / f"eval_rank{rank}.json").write_text(json.dumps({
+        "results": results, "world": seen["world"], "dumps": dumps.call_count,
+        "figures": figures.call_count}))
+
+
 def worker(rank: int, port: int, d: Path) -> None:
     torch.set_num_threads(4)
     assert distributed.maybe_initialize_distributed(f"tcp://localhost:{port}", WORLD, rank,
@@ -188,7 +229,8 @@ def _write_dataset(root: Path) -> None:
     import cv2
 
     rng = np.random.default_rng(23)
-    for split, labels, n in (("Train", "resized_label", 2), ("Val", "processed_labels", 1)):
+    for split, labels, n in (("Train", "resized_label", 2), ("Val", "processed_labels", 1),
+                             ("Test", "processed_labels", 2)):
         images, masks = root / split / "resized", root / split / labels
         images.mkdir(parents=True)
         masks.mkdir(parents=True)
@@ -225,13 +267,19 @@ def dp_run(tmp_path_factory):
     torch.save(model.state_dict(), d / "init.pt")
     _write_dataset(d / "data")
 
+    _run_workers("--worker", d)
+    return {"dir": d, "state": state, "batch": batch, "model": model}
+
+
+def _run_workers(mode: str, d: Path) -> None:
+    """This file as WORLD workers in ``mode``, on a fresh port; each must exit 0."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [p for p in env.get(
         "PYTHONPATH", "").split(os.pathsep) if p])
     env["UNET_TPU_DECODE_CACHE"] = ""
-    procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(rank), str(port), str(d)],
+    procs = [subprocess.Popen([sys.executable, __file__, mode, str(rank), str(port), str(d)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               cwd=REPO, env=env)
              for rank in range(WORLD)]
@@ -246,7 +294,6 @@ def dp_run(tmp_path_factory):
                 p.wait()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-4000:]}"
-    return {"dir": d, "state": state, "batch": batch, "model": model}
 
 
 def _rel_l2(a, b) -> float:
@@ -320,6 +367,22 @@ def test_recipe_epoch_under_two_ranks(dp_run, name):
                                       dtype=torch.float32, arch=name)
 
 
+def test_evaluate_under_a_launcher(dp_run):
+    """Both ranks joined (the recipe saw a world of 2) and return the same
+    results; rank 0 alone wrote the results and the figures (the prediction
+    triptych, the error map, the confidence map, the confusion matrix)."""
+    d = dp_run["dir"]
+    _run_workers("--cli-evaluate", d)
+    ranks = [json.loads((d / f"eval_rank{r}.json").read_text()) for r in range(WORLD)]
+    assert [r["world"] for r in ranks] == [WORLD] * WORLD
+    assert ranks[0]["results"] == ranks[1]["results"]
+    assert ranks[0]["results"] == json.loads((d / "eval" / "evaluation_results.json").read_text())
+    assert [(r["dumps"], r["figures"]) for r in ranks] == [(1, 4), (0, 0)]
+    assert sorted(p.name for p in (d / "eval" / "visualizations").iterdir()) == [
+        "confidence_batch0.png", "confusion_matrix.png", "error_analysis_batch0.png",
+        "predictions_batch0.png"]
+
+
 def test_failed_initialization_raises():
     # Rank 1 of 2 finds no rank 0 at the address.
     with pytest.raises(RuntimeError, match="initialization failed"):
@@ -372,6 +435,7 @@ def test_default_device_takes_the_ranks_card(monkeypatch):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] != ["--worker"]:
-        sys.exit("usage: test_torch_distributed.py --worker RANK PORT DIR")
-    worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    modes = {"--worker": worker, "--cli-evaluate": cli_evaluate}
+    if sys.argv[1:2] not in [[m] for m in modes]:
+        sys.exit("usage: test_torch_distributed.py --worker|--cli-evaluate RANK PORT DIR")
+    modes[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))

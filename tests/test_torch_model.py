@@ -244,7 +244,9 @@ banned = ("jax", "jaxlib", "flax", "optax", "orbax", "unet_implementations_tpu")
 bad = sorted(m for m in sys.modules
              if any(m == b or m.startswith(b + ".") for b in banned))
 print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
-                  "PIL": "PIL" in sys.modules, "yaml": "yaml" in sys.modules}))
+                  "PIL": "PIL" in sys.modules, "yaml": "yaml" in sys.modules,
+                  "matplotlib": "matplotlib" in sys.modules,
+                  "sklearn": "sklearn" in sys.modules}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
@@ -258,6 +260,10 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
     assert result["yaml"] is False
     # PIL only where a mask is read or written (the raw-data tools).
     assert result["PIL"] is False
+    # matplotlib and scikit-learn only where a figure is drawn or the latent
+    # space analysed (the card machine may lack both).
+    assert result["matplotlib"] is False
+    assert result["sklearn"] is False
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
                  "kernels.winograd", "ops.s2d", "ops.losses", "ops.metrics",
@@ -267,5 +273,6 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
                  "recipes.ae_transfer", "models.clip", "recipes.clip_unet", "data.pipeline",
                  "data.augment", "parallel", "parallel.distributed", "parallel.mesh", "cli",
                  "serving", "serving.export", "data.sanity_checks", "data.download",
-                 "utils.dataset_analyzer", "utils.helpers"):
+                 "utils.dataset_analyzer", "utils.helpers", "utils.visualize",
+                 "utils.gradcam", "utils.profiling"):
         assert f"unet_implementations_tpu_torch.{name}" in result["modules"]

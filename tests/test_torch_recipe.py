@@ -15,7 +15,9 @@ against the JAX package's.
 - ``our_unet train --online_augment`` on the CPU: one augmentation per
   training batch, ``Train/augmented/`` not read.
 - The argv lists of ``tests/test_cli.py``'s ``our_unet`` cases parse, every
-  JAX ``our_unet`` flag exists, and the flags that are not ported raise.
+  JAX ``our_unet`` flag exists with JAX's defaults, and the flags that are not
+  ported raise. ``evaluate``'s default ``--visualize_samples 3`` draws the
+  figures, and its results equal those of ``--visualize_samples 0``.
 """
 
 import csv
@@ -256,7 +258,7 @@ class TestCli:
               no_mesh=True, weighted_ce=False)),
         (["our_unet", "evaluate", "--model_path", "m", "--data_dir", "d",
           "--num_workers", "2", "--device", "cpu"],
-         dict(num_workers=2, device="cpu", visualize_samples=0,
+         dict(num_workers=2, device="cpu", visualize_samples=3,
               output_dir="evaluation_results", batch_size=32)),
     ])
     def test_jax_argv_parses(self, argv, want):
@@ -289,11 +291,25 @@ class TestCli:
             cli.main(argv)
         assert not (tmp_path / "o").exists()
 
-    def test_visualize_samples_raises(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cli.main(["our_unet", "evaluate", "--model_path", str(tmp_path / "m"),
-                      "--data_dir", str(tmp_path), "--device", "cpu",
-                      "--visualize_samples", "1"])
+    def test_visualize_samples_raises(self, recipe_run, tmp_path):
+        """Ported (the name is kept from when it raised): the fixture's
+        evaluate drew its one batch at the default --visualize_samples 3, and
+        gives the results of an evaluate that draws nothing."""
+        viz = recipe_run["out"] / "eval" / "visualizations"
+        assert sorted(p.name for p in viz.iterdir()) == [
+            "confidence_batch0.png", "confusion_matrix.png", "error_analysis_batch0.png",
+            "predictions_batch0.png"]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("UNET_TPU_DECODE_CACHE", "")
+            plain = cli.main(["our_unet", "evaluate", "--model_path",
+                              str(recipe_run["out"] / "best_model"), "--data_dir",
+                              str(recipe_run["root"] / "data"), "--output_dir",
+                              str(tmp_path / "plain"), "--device", "cpu", "--f32",
+                              "--batch_size", "2", "--num_workers", "2",
+                              "--decode_cache", str(recipe_run["root"] / "cache"),
+                              "--visualize_samples", "0"])
+        assert plain == recipe_run["results"]
+        assert not (tmp_path / "plain" / "visualizations").exists()
 
     def test_no_card_raises(self, tmp_path, monkeypatch):
         """Without ``--device`` the recipe runs on CUDA, and says so when

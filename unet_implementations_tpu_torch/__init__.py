@@ -29,9 +29,15 @@ keeps the reference's module names so each counterpart is easy to find:
                  ``torch.distributed``, with the global batch's loss; and
                  spatial partitioning, each image's rows over the ranks of
                  a (data, space) grid.
+- ``serving``  — the ``torch.export`` serving artifact.
+- ``utils``    — the figures (``visualize``), Grad-CAM (``gradcam``), the
+                 per-op cost table and kernel breakdown (``profiling``), the
+                 dataset analyzer and helpers.
 - ``cli``      — ``our_unet|ae_recon|ae_transfer train|evaluate``,
                  ``clip_unet train|evaluate|embed``, ``clip_resize``,
-                 ``augment`` and ``predict``.
+                 ``augment``, ``predict``, ``export``, ``convert``,
+                 ``export_torch``, ``pipeline``, ``sanity_checks``,
+                 ``download`` and ``profile``.
 
 Public functions keep the JAX layout: NHWC in, NHWC float32 logits out.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they never

@@ -28,23 +28,28 @@
     python -m unet_implementations_tpu_torch.cli pipeline \\
         --raw_dir <raw> --processed_dir <processed data>
     python -m unet_implementations_tpu_torch.cli sanity_checks --data_dir <processed data>
+    python -m unet_implementations_tpu_torch.cli profile [--arch A] [--batch_size N] \\
+        [--size S] [--train] [--top K] [--f32] [--device D]
 
 Data-parallel training runs one process per GPU under a launcher:
 
     python -m torch.distributed.run --nproc_per_node N \\
         -m unet_implementations_tpu_torch.cli our_unet train ...
 
-Each ``train`` command joins the process group the launcher describes
-(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
-``parallel/distributed.py``), takes the card ``cuda:LOCAL_RANK`` and trains
-on its stripe of the training files; ``--batch_size`` is the global batch,
-split evenly over the ranks (and their ``--grad_accum`` microbatches), and
-the loss is the global batch's. Only rank 0 writes files. ``--no_mesh`` keeps
-such a launch from wrapping the model: every rank then trains the same model
-alone on the whole training set, and rank 0 writes. The backend is NCCL on a
-card and gloo on the CPU. ``evaluate`` stays one process: JAX's
-mesh there spreads one process's batch over its local chips, which a
-one-process-per-GPU port has no counterpart of.
+Every command of the four recipes (``our_unet``, ``ae_recon``,
+``ae_transfer``, ``clip_unet``), as in JAX, joins the process group the
+launcher describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``; ``parallel/distributed.py``) and takes the card
+``cuda:LOCAL_RANK``. A ``train`` command trains on its stripe of the
+training files; ``--batch_size`` is the global batch, split evenly over the
+ranks (and their ``--grad_accum`` microbatches), and the loss is the global
+batch's. Only rank 0 writes files. ``--no_mesh`` keeps such a launch from
+wrapping the model: every rank then trains the same model alone on the whole
+training set, and rank 0 writes. The backend is NCCL on a card and gloo on
+the CPU. Under a launcher each rank of ``evaluate`` evaluates the whole test
+set on its own card and returns the same results; rank 0 alone writes them
+and the figures (JAX's mesh there spreads one process's batch over its local
+chips, which a one-process-per-GPU port has no counterpart of).
 
 Spatial partitioning shards each image's rows over N ranks, in training and
 in serving:
@@ -72,9 +77,12 @@ command opens. ``--amp`` and ``--reduced_complexity`` are accepted and do
 nothing, and so is ``clip_unet train --use_clip``. ``--grad_accum N`` trains
 each batch as N sequential microbatches with one optimizer update.
 ``--online_augment`` augments each training batch on the device (and, in
-``clip_unet``, extracts its CLIP features live). Not ported yet, and refused:
-``--visualize_samples`` > 0 (so it defaults to 0 here, 3 in JAX) and
-``--analyze_latent_space``.
+``clip_unet``, extracts its CLIP features live). ``evaluate
+--visualize_samples N`` (default 3, as in JAX) draws the first N batches'
+figures (``utils/visualize.py``), and ``ae_recon evaluate
+--analyze_latent_space`` the bottlenecks' PCA and t-SNE; both need
+matplotlib (and the latter scikit-learn), and raise before the model loads
+without them: pass ``--visualize_samples 0`` where matplotlib is missing.
 
 ``--model_path`` of ``evaluate`` is a checkpoint directory or a reference
 ``.pth``; that of ``predict`` too, or a serving artifact that ``export``
@@ -85,6 +93,12 @@ serves on) in place of ``--platforms``; ``convert`` writes this package's
 checkpoint directory where JAX's writes Orbax, and ``export_torch`` reads
 one. ``pipeline``, ``sanity_checks`` and ``download`` are JAX's raw-data
 tools (``data/pipeline.py``, ``data/sanity_checks.py``, ``data/download.py``).
+
+``profile`` takes JAX's flags with ``--device``: where JAX prints an analytic
+cost table of the compiled program, it profiles a few forwards (``--train``:
+train steps) after warm-up with ``torch.profiler`` and prints the measured
+device time of each ATen op and ``unet_torch`` operator beside its FLOPs,
+bytes and roofline at H100 ceilings (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -149,17 +163,18 @@ def _add_eval_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", default="evaluation_results")
     p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--visualize_samples", type=int, default=0, help="not ported: only 0")
-    # JAX's evaluate spreads one process's batch over its local chips; one
-    # process per GPU has no counterpart of that.
-    p.description = ("Evaluation runs in one process on one device, also under a launcher "
-                     "of several ranks.")
+    p.add_argument("--visualize_samples", type=int, default=3,
+                   help="draw the first N batches' predictions, error and confidence maps "
+                        "and the confusion matrix into <output_dir>/visualizations "
+                        "(matplotlib); 0 draws nothing")
     p.add_argument("--f32", action="store_true", help="compute in float32 (default bf16)")
     _add_compat_flags(p)
 
 
 CLIP_MODELS = ["ViT-B/16", "ViT-B/32", "ViT-L/14"]
 ARCHES = ["our_unet", "clip_unet", "ae_recon", "ae_transfer"]
+# The commands that join a launcher's process group, as in JAX.
+RECIPES = ("our_unet", "ae_recon", "ae_transfer", "clip_unet")
 
 
 def _add_clip_flags(p: argparse.ArgumentParser) -> None:
@@ -198,7 +213,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--ssim_weight", type=float, default=0.0)
     e = ae_sub.add_parser("evaluate")
     _add_eval_flags(e)
-    e.add_argument("--analyze_latent_space", action="store_true", help="not ported")
+    e.add_argument("--analyze_latent_space", action="store_true",
+                   help="PCA and t-SNE plots of the test images' bottlenecks "
+                        "(scikit-learn, matplotlib)")
 
     tr = sub.add_parser("ae_transfer",
                         help="train or evaluate the UNet on a frozen autoencoder encoder")
@@ -296,6 +313,19 @@ def build_parser() -> argparse.ArgumentParser:
                           "(default: cuda)")
     exp.add_argument("--f32", action="store_true")
 
+    prof = sub.add_parser("profile", help="profile a model's forward (or train step) and "
+                                          "print its per-op device time, FLOPs, bytes and "
+                                          "roofline")
+    prof.add_argument("--arch", default="our_unet", choices=ARCHES)
+    prof.add_argument("--batch_size", type=int, default=128)
+    prof.add_argument("--size", type=int, default=512)
+    prof.add_argument("--train", action="store_true",
+                      help="profile the full train step instead of inference")
+    prof.add_argument("--top", type=int, default=30)
+    prof.add_argument("--f32", action="store_true")
+    prof.add_argument("--device", default=None,
+                      help="torch device, e.g. cuda:1 or cpu (default: cuda)")
+
     pred = sub.add_parser("predict", help="run a trained UNet on an image file or directory")
     pred.add_argument("--model_path", required=True,
                       help="a checkpoint directory, a reference-schema .pth, or a serving "
@@ -341,13 +371,13 @@ def _seg_train_kwargs(args) -> dict:
 def main(argv: Optional[Sequence[str]] = None):
     """Run one command; returns what its recipe returns (the training
     loop's result, the evaluation results, or the number of images
-    predicted). A ``train`` command, and ``predict --spatial``, joins the
+    predicted). A recipe command, and ``predict --spatial``, joins the
     launcher's process group first, if there is one, and leaves it when it
     returns."""
     args = build_parser().parse_args(argv)
     if getattr(args, "decode_cache", None):
         os.environ["UNET_TPU_DECODE_CACHE"] = args.decode_cache
-    if getattr(args, "cmd", None) != "train" and getattr(args, "spatial", 0) <= 1:
+    if args.command not in RECIPES and getattr(args, "spatial", 0) <= 1:
         return _run(args)
     from unet_implementations_tpu_torch.parallel import distributed
 
@@ -478,6 +508,13 @@ def _run(args):
         print(f"exported {args.arch} -> {out} (batch={meta['batch_size']}, "
               f"{meta['img_size']}px, device={meta['device']})")
         return meta
+    if args.command == "profile":
+        from unet_implementations_tpu_torch.utils import profiling
+
+        table = profiling.profile_table(args.arch, args.batch_size, args.size, args.train,
+                                        _dtype(args), args.device)
+        print(profiling.format_table(table["rows"], top=args.top, meta=table))
+        return table
     if args.command == "predict":
         from unet_implementations_tpu_torch.recipes.common import predict_segmentation
 

@@ -293,6 +293,34 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
+# The least work of one call, for its roofline bound (``chip_smoke.py``, the
+# cost table of ``utils/profiling.py``): each input read once, each output
+# written once, and the float32 operations per element.
+def forward_bytes(shape, itemsize: int) -> int:
+    """K1's forward: x read and y written; the float32 statistics and
+    affines are not counted."""
+    return 2 * math.prod(shape) * itemsize
+
+
+def forward_operations(shape) -> int:
+    """The x and x*x sums (3) and the subtract, two multiplies, add and
+    select (5) per element."""
+    return 8 * math.prod(shape)
+
+
+def backward_bytes(shape, itemsize: int, group: int = 1) -> int:
+    """K1bwd: x and dy read and dx written, with the float32 statistics,
+    affines and parameter gradients."""
+    b, c = shape[0], shape[-1]
+    return 3 * math.prod(shape) * itemsize + 4 * (2 * b * c + 4 * (c // group))
+
+
+def backward_operations(shape) -> int:
+    """xhat and the pre-activation (4), dpre (1), the two sums (3) and dx (5)
+    per element."""
+    return 13 * math.prod(shape)
+
+
 def forward_buffers(x: torch.Tensor) -> tuple:
     """(y, partials, count, mean, rstd) for a forward of x (contiguous)."""
     b, h, w, c = x.shape

@@ -43,6 +43,7 @@ otherwise.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -152,6 +153,26 @@ def _check(x, scale1, bias1, weight2, scale2, bias2) -> None:
             raise ValueError(f"norm affines must have {c} entries, got {tuple(t.shape)}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_s2d_tail needs x contiguous at a 16-byte aligned address")
+
+
+def tail_bytes(shape, itemsize: int) -> int:
+    """The least bytes of one call (and of its conv launch alone): x, the
+    (B, H', W', 4C) conv_0 output, read once and the output of its shape
+    written once (its roofline bound, ``chip_smoke.py`` and
+    ``utils/profiling.py``)."""
+    return 2 * math.prod(shape) * itemsize
+
+
+def tail_conv_flops(shape) -> int:
+    """The multiply-adds of the tail's 3x3 conv (C in, C out at each of the
+    4 sub-pixels), counted as 2 operations each."""
+    return 2 * math.prod(shape) * 9 * (shape[-1] // 4)
+
+
+def tail_norm_operations(shape) -> int:
+    """The norms' float32 operations per element: IN1 and IN2 sums (3 + 3),
+    IN1's normalize and activation (6), IN2's apply (5)."""
+    return 17 * math.prod(shape)
 
 
 def kernel_weights(weight2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

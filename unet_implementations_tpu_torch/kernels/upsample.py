@@ -48,6 +48,7 @@ kernel here, so there is none: it is plain torch ops on both devices.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -165,6 +166,19 @@ class _Upsample2x(torch.autograd.Function):
 def _upsample(x: torch.Tensor, s2d: bool) -> torch.Tensor:
     _build.uses_kernel(x)  # raises on a device other than the CPU or CUDA
     return _Upsample2x.apply(x, s2d) if _build.records_grad(x) else _op(x, s2d)
+
+
+def upsample_bytes(shape, itemsize: int) -> int:
+    """The least bytes of one call of either wrapper: x read once and the 4x
+    larger output written once (its roofline bound, ``chip_smoke.py`` and
+    ``utils/profiling.py``)."""
+    return 5 * math.prod(shape) * itemsize
+
+
+def upsample_operations(shape) -> int:
+    """Float32 operations of one call: 2 H-lerps and 4 W-lerps of 3
+    operations per input element (the shared halo lerps counted once)."""
+    return 18 * math.prod(shape)
 
 
 def _check_input(x: torch.Tensor, name: str) -> None:

@@ -4,8 +4,8 @@ Counterpart of ``unet_implementations_tpu/models/vgg.py``. The reference's
 ``PerceptualLoss`` builds torchvision VGG16 with ``weights=None``, that is with
 random weights, and so does the JAX package by default: a Kaiming fan-out
 normal init (std = sqrt(2 / (9·Cout)), zero bias), here drawn from a given
-generator. Loading pretrained torchvision weights (``load_torch_vgg16_weights``
-in JAX) is not ported: no weights are available offline.
+generator. ``load_torch_vgg16_weights`` loads a torchvision VGG16
+``state_dict`` (pretrained weights, where a user has the file) instead.
 
 Feature taps: relu1_2, relu2_2, relu3_3, relu4_3 (the reference defaults).
 Input and outputs are NHWC, as in JAX; parameters are float32 and each conv
@@ -14,7 +14,8 @@ casts them to the compute dtype at the call.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from pathlib import Path
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +27,8 @@ from unet_implementations_tpu_torch.models.blocks import conv2d, kaiming_conv, n
 
 # VGG16 conv plan: (conv count, channels) per block.
 VGG16_PLAN = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+# torchvision's ``features.{i}`` index of each conv, in order.
+TORCHVISION_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 # tap name -> (block index, conv index within the block)
 TAPS = {"relu1_2": (0, 1), "relu2_2": (1, 1), "relu3_3": (2, 2), "relu4_3": (3, 2)}
 DEFAULT_TAPS = ("relu1_2", "relu2_2", "relu3_3", "relu4_3")
@@ -86,3 +89,27 @@ def vgg_params_from_jax(params: Dict, model: VGG16Features) -> Dict[str, torch.T
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         sd[f"convs.{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"], np.float32))
     return sd
+
+
+def load_torch_vgg16_weights(source: str | Path | Mapping[str, torch.Tensor],
+                             model: VGG16Features) -> VGG16Features:
+    """Load a torchvision VGG16 ``state_dict`` (``features.{i}.weight`` and
+    ``.bias`` of its 13 convs; a dict, or a file that ``torch.load`` reads
+    with ``weights_only=True`` on the CPU) into ``model``'s convs, strictly:
+    every conv the model's taps use must be there. Returns the model, its
+    float32 parameters on its device."""
+    sd = (torch.load(str(source), map_location="cpu", weights_only=True)
+          if isinstance(source, (str, Path)) else source)
+    names = [f"conv{b + 1}_{i + 1}" for b, (n, _) in enumerate(VGG16_PLAN) for i in range(n)]
+    device = next(model.parameters()).device
+    ours = {}
+    for name, idx in zip(names, TORCHVISION_CONV_INDICES):
+        if name not in model.convs:
+            continue
+        for part in ("weight", "bias"):
+            key = f"features.{idx}.{part}"
+            if key not in sd:
+                raise KeyError(f"{key} ({name}) is missing from the VGG16 state dict")
+            ours[f"convs.{name}.{part}"] = sd[key].to(device=device, dtype=torch.float32)
+    model.load_state_dict(ours, strict=True)
+    return model

@@ -18,9 +18,16 @@ Entry points run on CUDA unless ``device`` names another device. Gradient
 accumulation and data parallelism work as in ``recipes/our_unet.py``; the
 MSE (like every reconstruction term) is a mean over equal local batches, so
 the ranks' averaged gradient is the global batch's with no reduction in the
-loss. Not ported (it raises ``NotImplementedError``): the latent space
-analysis. The reconstruction snapshots and comparison grids (matplotlib)
-are not drawn; ``checkpoint_callback`` is the hook where they would go.
+loss.
+
+The figures (``utils/visualize.py``, matplotlib): at every checkpoint the
+first validation images' original | reconstruction | error strips go to
+``reconstructions/epoch_{n}.png``; without matplotlib the snapshot prints one
+line and training goes on (JAX skips a snapshot on any error; here any other
+error propagates). ``evaluate`` with ``visualize_samples`` > 0 writes
+``reconstruction_comparison.png`` of the first test images, and with
+``analyze_latent_space`` the PCA and t-SNE of the test images' bottlenecks
+(``analyze_latent``, scikit-learn).
 """
 
 from __future__ import annotations
@@ -28,17 +35,19 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
+from unet_implementations_tpu_torch.data.pipeline import is_cat_image
 from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage
 from unet_implementations_tpu_torch.ops.losses import FeatureFns, reconstruction_loss
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
+from unet_implementations_tpu_torch.parallel.distributed import is_primary
 from unet_implementations_tpu_torch.parallel.mesh import create_mesh, stripe, wrap
 from unet_implementations_tpu_torch.recipes.common import check_grad_accum, evaluate_reconstruction
-from unet_implementations_tpu_torch.recipes.our_unet import not_ported
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
 from unet_implementations_tpu_torch.training.loop import train_loop, write_training_config
 from unet_implementations_tpu_torch.training.steps import (
@@ -49,6 +58,7 @@ from unet_implementations_tpu_torch.training.steps import (
     to_device,
 )
 from unet_implementations_tpu_torch.training.train_state import adam_l2, cosine_lr
+from unet_implementations_tpu_torch.utils.visualize import require_matplotlib, save_comparison_grid
 
 ARCH_CONFIG = {
     "head": "reconstruction",
@@ -125,13 +135,13 @@ def train(
     num_threads: int = 8,
     grad_accum: int = 1,
     use_mesh: bool = True,
-    checkpoint_callback: Optional[Callable[[nn.Module, int], None]] = None,
     verbose: bool = True,
 ) -> Dict:
     """Train the autoencoder from scratch (or from ``resume``, a checkpoint
-    directory) and return the loop's result. ``checkpoint_callback(model,
-    epoch)`` runs after each checkpoint is written (by rank 0 alone under
-    data parallelism)."""
+    directory) and return the loop's result. After each checkpoint (rank 0
+    alone under data parallelism) the first ``min(4, batch_size)``
+    validation images and their reconstructions are drawn to
+    ``reconstructions/epoch_{n}.png``."""
     check_grad_accum(batch_size, grad_accum, use_mesh=use_mesh)
     device = default_device(device)
     mesh = create_mesh(device) if use_mesh else None
@@ -181,6 +191,20 @@ def train(
     def val_batches():
         return batch_iterator(val_ds, batch_size, num_threads=num_threads)
 
+    def save_recon_samples(model: nn.Module, epoch: int) -> None:
+        try:
+            require_matplotlib("the reconstruction snapshot")
+        except ImportError as e:
+            if verbose:
+                print(f"reconstruction snapshot of epoch {epoch} not drawn: {e}")
+            return
+        model.eval()
+        try:
+            save_comparison(model, val_ds, min(4, batch_size), dtype,
+                            output_dir / "reconstructions" / f"epoch_{epoch}.png")
+        finally:
+            model.train()
+
     return train_loop(
         trained, optimizer,
         train_step=train_step,
@@ -199,10 +223,37 @@ def train(
         best_metric=best,
         early_stopping_state=es_state,
         arch_config=ARCH_CONFIG,
-        checkpoint_callback=checkpoint_callback,
+        checkpoint_callback=save_recon_samples,
         mesh=mesh,
         verbose=verbose,
     )
+
+
+def save_comparison(model: nn.Module, dataset: PetDataset, n: int, dtype: torch.dtype,
+                    path: Path) -> None:
+    """The first ``n`` images of ``dataset`` (reconstruction mode, uint8)
+    beside ``model``'s reconstructions, drawn by ``save_comparison_grid``."""
+    batches = batch_iterator(dataset, n, num_threads=1)
+    try:
+        first = next(batches)
+    finally:
+        batches.close()
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        images = normalize_image(to_device(first["image"], device), mode="unit")
+        recon = model(images.to(dtype))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_comparison_grid(images.float().cpu().numpy(), recon.float().cpu().numpy(), path)
+
+
+def require_latent_packages() -> None:
+    """Raise ``ImportError`` unless scikit-learn and matplotlib import."""
+    try:
+        import sklearn  # noqa: F401
+    except ImportError as e:
+        raise ImportError(f"--analyze_latent_space needs scikit-learn, which cannot be "
+                          f"imported ({e})") from e
+    require_matplotlib("--analyze_latent_space")
 
 
 def evaluate(
@@ -220,11 +271,16 @@ def evaluate(
 ) -> Dict:
     """Evaluate a checkpoint directory, or a reference ``.pth`` of the
     autoencoder, on ``Test/resized``: per-image MSE, PSNR and SSIM, written
-    as ``reconstruction_metrics.json``."""
-    if analyze_latent_space:
-        raise not_ported("--analyze_latent_space", 8)
+    as ``reconstruction_metrics.json``. ``visualize_samples`` > 0 also draws
+    ``reconstruction_comparison.png`` of the first ``min(8, batch_size)``
+    test images (JAX draws it in every evaluate; its CLI's default of 3 does
+    here too). ``analyze_latent_space`` adds ``results["latent_analysis"]``
+    (``analyze_latent``). The packages each needs are checked before the
+    model loads; under a process group only rank 0 writes."""
     if visualize_samples > 0:
-        raise not_ported("--visualize_samples", 8)
+        require_matplotlib("--visualize_samples", "--visualize_samples 0")
+    if analyze_latent_space:
+        require_latent_packages()
     device = default_device(device)
     model = restore_params(model_path, build_model(dtype, device)).eval()
 
@@ -240,5 +296,69 @@ def evaluate(
         images = normalize_image(to_device(batch["image"], device), mode="unit")
         return model(images.to(dtype))
 
-    return evaluate_reconstruction(recon_fn, test_ds, batch_size, output_dir,
-                                   num_threads=num_threads, verbose=verbose)
+    results = evaluate_reconstruction(recon_fn, test_ds, batch_size, output_dir,
+                                      num_threads=num_threads, verbose=verbose)
+    if visualize_samples > 0 and output_dir is not None and is_primary() and len(test_ds):
+        save_comparison(model, test_ds, min(8, batch_size), dtype,
+                        Path(output_dir) / "reconstruction_comparison.png")
+    if analyze_latent_space:
+        results["latent_analysis"] = analyze_latent(model, test_ds, output_dir, batch_size,
+                                                    dtype, num_threads, verbose)
+    return results
+
+
+def encode(model: UNet, dataset: PetDataset, batch_size: int = 32,
+           dtype: torch.dtype = torch.bfloat16, num_threads: int = 8) -> np.ndarray:
+    """The flattened bottleneck of every image of ``dataset``
+    (reconstruction mode), (N, H'·W'·C) float32, in the dataset's order: the
+    forward with ``return_bottleneck`` on the model's device."""
+    device = next(model.parameters()).device
+    zs = []
+    with torch.inference_mode():
+        for batch in batch_iterator(dataset, batch_size, num_threads=num_threads):
+            images = normalize_image(to_device(batch["image"], device), mode="unit")
+            zs.append(model(images.to(dtype), return_bottleneck=True)[1].float().cpu().numpy())
+    return np.concatenate(zs)
+
+
+def analyze_latent(model: UNet, test_ds: PetDataset, output_dir: str | Path,
+                   batch_size: int = 32, dtype: torch.dtype = torch.bfloat16,
+                   num_threads: int = 8, verbose: bool = True) -> Dict:
+    """PCA and t-SNE scatters of the test images' flattened bottlenecks,
+    coloured by the breed in each file name (cat or dog):
+    ``latent_space_pca.png`` and, with at least 10 images,
+    ``latent_space_tsne.png`` (``init="pca"``, perplexity ``min(30, max(2,
+    n // 4))``), as JAX's. Returns ``{"pca_explained": None, "n": n}``.
+    Needs scikit-learn and matplotlib (checked before the first encode)."""
+    require_latent_packages()
+    from sklearn.decomposition import PCA
+    from sklearn.manifold import TSNE
+
+    z = encode(model, test_ds, batch_size, dtype, num_threads)
+    labels = np.array([1 if is_cat_image(p.stem) else 2 for p in test_ds.image_files])[:len(z)]
+    out = {"pca_explained": None, "n": int(len(z))}
+    if not is_primary():
+        return out
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    scatters = [("PCA", "latent_space_pca.png", PCA(n_components=2).fit_transform(z))]
+    if len(z) >= 10:
+        tsne = TSNE(n_components=2, init="pca", perplexity=min(30, max(2, len(z) // 4)))
+        scatters.append(("t-SNE", "latent_space_tsne.png", tsne.fit_transform(z)))
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    for title, name, xy in scatters:
+        fig, ax = plt.subplots(figsize=(8, 6))
+        for cls, label, color in [(1, "cat", "tab:red"), (2, "dog", "tab:green")]:
+            sel = labels == cls
+            ax.scatter(xy[sel, 0], xy[sel, 1], s=8, label=label, color=color)
+        ax.legend()
+        ax.set_title(f"Latent space ({title})")
+        fig.savefig(output_dir / name, dpi=120)
+        plt.close(fig)
+    if verbose:
+        print(f"latent analysis: {len(z)} images -> {output_dir}")
+    return out

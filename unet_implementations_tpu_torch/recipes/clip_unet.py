@@ -25,8 +25,9 @@ extraction agree. Evaluation conditions on the features unless
 ``use_clip_features=False`` (the reference evaluator's quirk). Gradient
 accumulation splits the features with their rows, and training is
 data-parallel under a process group as in ``recipes/our_unet.py`` (each rank
-builds the tables of its own stripe). Not ported (it raises
-``NotImplementedError``): the evaluation's visualizations.
+builds the tables of its own stripe). ``evaluate`` with ``visualize_samples``
+draws the first batches' predictions and error maps, as JAX's does (no
+confidence maps).
 """
 
 from __future__ import annotations
@@ -42,18 +43,19 @@ from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.loader import PetDataset, batch_iterator
 from unet_implementations_tpu_torch.models.clip import CLIP_CONFIGS, ClipFeatureExtractor
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
+from unet_implementations_tpu_torch.parallel.distributed import is_primary
 from unet_implementations_tpu_torch.parallel.mesh import create_mesh, stripe
 from unet_implementations_tpu_torch.recipes import our_unet
 from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
-    not_ported,
     wrap_online_augment_clip,
 )
 from unet_implementations_tpu_torch.training.checkpoint import restore_params
 from unet_implementations_tpu_torch.training.loop import write_training_config
 from unet_implementations_tpu_torch.training.steps import to_device
 from unet_implementations_tpu_torch.training.train_state import sgd_nesterov
+from unet_implementations_tpu_torch.utils.visualize import require_matplotlib
 
 # The tower's random weights, when no checkpoint is given, in every command.
 CLIP_SEED = 0
@@ -133,7 +135,7 @@ def dump_embeddings(
     """Write each split's embedding table to
     ``output_dir/clip_embeddings_{split}.npz`` (default ``output_dir``:
     ``data_dir/clip_embeddings``); a split without ``resized/`` is skipped.
-    Returns {split: path}."""
+    Under a process group only rank 0 writes. Returns {split: path}."""
     data_dir = Path(data_dir)
     out = Path(output_dir) if output_dir is not None else data_dir / "clip_embeddings"
     extractor = ClipFeatureExtractor(clip_model, clip_weights, dtype=dtype, device=device,
@@ -150,8 +152,10 @@ def dump_embeddings(
                         clip_dir=data_dir / split / "resized_clip")
         table = _embedding_table(extractor, ds, batch_size)
         path = _table_file(out, split)
-        np.savez(path, embeddings=table, files=np.asarray([f.name for f in ds.image_files]),
-                 model=np.asarray(clip_model))
+        if is_primary():
+            np.savez(path, embeddings=table,
+                     files=np.asarray([f.name for f in ds.image_files]),
+                     model=np.asarray(clip_model))
         written[split] = str(path)
         if verbose:
             print(f"embed: {split}: {table.shape} -> {path}")
@@ -301,9 +305,11 @@ def evaluate(
     """Evaluate a checkpoint directory or a reference ``.pth`` on ``Test/``
     at each image's original resolution: conditioned on the Test table of
     ``embeddings_dir`` where it fits, else on live extraction; with
-    ``use_clip_features=False`` unconditioned (the fusion is skipped)."""
+    ``use_clip_features=False`` unconditioned (the fusion is skipped).
+    ``visualize_samples`` > 0 also draws the first batches' predictions and
+    error maps (matplotlib, checked before the model loads)."""
     if visualize_samples > 0:
-        raise not_ported("--visualize_samples", 8)
+        require_matplotlib("--visualize_samples", "--visualize_samples 0")
     device = default_device(device)
     clip_dim = CLIP_CONFIGS[clip_model].output_dim
     model = restore_params(model_path, build_model(dtype, device, clip_dim=clip_dim)).eval()
@@ -340,4 +346,5 @@ def evaluate(
         return torch.argmax(model(images, features), dim=-1).to(torch.int32)
 
     return evaluate_segmentation(predict_fn, test_ds, batch_size, output_dir,
-                                 num_threads=num_threads, verbose=verbose)
+                                 visualize_samples=visualize_samples, num_threads=num_threads,
+                                 verbose=verbose)

@@ -9,8 +9,10 @@ on the model's device (``data/augment.py``). In evaluation the forward and
 the argmax run on the model's device; the nearest resize back to each image's
 original size runs on the host with torch/cv2 floor index math, as the
 reference eval protocol does. ``evaluate_segmentation`` writes
-``evaluation_results.json`` with the reference's schema,
-``evaluate_reconstruction`` the JAX package's ``reconstruction_metrics.json``.
+``evaluation_results.json`` with the reference's schema (and, with
+``visualize_samples``, the figures of ``utils/visualize.py``),
+``evaluate_reconstruction`` the JAX package's ``reconstruction_metrics.json``;
+under a process group only rank 0 writes them.
 ``predict_segmentation(spatial=N)`` serves with each image's rows over the N
 ranks of a space group (``parallel/spatial.py``), and from a serving
 artifact (``serving/export.py``) it replays the exported program.
@@ -26,7 +28,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from unet_implementations_tpu_torch import default_device, not_ported  # noqa: F401
+from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.data.augment import (
     augment_and_normalize,
     augment_and_normalize_with_clip,
@@ -50,7 +52,8 @@ from unet_implementations_tpu_torch.serving.export import (
 )
 from unet_implementations_tpu_torch.training.checkpoint import model_file
 from unet_implementations_tpu_torch.training.steps import to_device
-from unet_implementations_tpu_torch.utils.visualize import colorize_mask
+from unet_implementations_tpu_torch.utils import visualize as V
+from unet_implementations_tpu_torch.utils.visualize import colorize_mask, require_matplotlib
 
 IMAGE_SIZE = 512
 # Batches whose forward is dispatched before the oldest one's predictions
@@ -164,6 +167,8 @@ def evaluate_segmentation(
     dataset: PetDataset,
     batch_size: int = 32,
     output_dir: Optional[str | Path] = None,
+    visualize_samples: int = 0,
+    probs_fn: Optional[Callable[[Dict], torch.Tensor]] = None,
     num_threads: int = 8,
     verbose: bool = True,
 ) -> Dict:
@@ -175,24 +180,61 @@ def evaluate_segmentation(
     confusion matrix. The forwards run ahead of the host by
     ``EVAL_RUN_AHEAD`` batches, so the host's resizes overlap the device's
     work. Returns the reference's results dict and writes
-    ``evaluation_results.json`` when ``output_dir`` is given.
+    ``evaluation_results.json`` when ``output_dir`` is given; under a process
+    group of several ranks only rank 0 writes (every rank returns the same
+    results).
+
+    ``visualize_samples > 0`` (with ``output_dir``) draws the first N
+    batches into ``visualizations/``: ``predictions_batch{i}.png`` (the
+    batch's triptychs), ``error_analysis_batch{i}.png`` (its first image)
+    and, with ``probs_fn(batch) -> (B, H, W, C)`` softmax probabilities on
+    the device, ``confidence_batch{i}.png``; then ``confusion_matrix.png``.
+    The probability forward runs only for the batches drawn, dispatched with
+    their predictions, and only the first image's (H, W, C) map comes back.
+    The results do not depend on the figures.
     """
+    write = output_dir is not None and is_primary()
+    viz_dir = None
+    if visualize_samples > 0 and write:
+        require_matplotlib("evaluate's figures", "--visualize_samples 0")
+        viz_dir = Path(output_dir) / "visualizations"
+        viz_dir.mkdir(parents=True, exist_ok=True)
     metrics = SegmentationMetrics(num_classes=3, ignore_index=255)
 
-    def process(batch, preds):
+    def dispatch(i, batch):
+        preds = predict_fn(batch)
+        # The second forward only for the batches whose confidence maps are
+        # drawn; it stays on the device until ``process`` reads it.
+        probs = (probs_fn(batch)[0] if probs_fn is not None and viz_dir is not None
+                 and i < visualize_samples else None)
+        return i, batch, preds, probs
+
+    def process(i, batch, preds, probs):
         preds = preds.cpu().numpy() if isinstance(preds, torch.Tensor) else np.asarray(preds)
         for pred, mask, dims in zip(preds, batch["mask"], batch["original_dims"]):
             orig = (int(dims[0]), int(dims[1]))
             metrics.update(resize_nearest_np(pred.astype(np.uint8), orig),
                            resize_nearest_np(mask.astype(np.uint8), orig))
+        if viz_dir is None or i >= visualize_samples:
+            return
+        image, masks = np.asarray(batch["image"]), batch["mask"]
+        V.visualize_prediction_batch(image, masks, preds, viz_dir / f"predictions_batch{i}.png")
+        V.visualize_error_analysis(image[0], preds[0], masks[0],
+                                   viz_dir / f"error_analysis_batch{i}.png")
+        if probs is not None:
+            V.visualize_confidence_maps(image[0], probs.float().cpu().numpy(),
+                                        viz_dir / f"confidence_batch{i}.png")
 
     pending = deque()
-    for batch in batch_iterator(dataset, batch_size, shuffle=False, num_threads=num_threads):
-        pending.append((batch, predict_fn(batch)))
+    batches = batch_iterator(dataset, batch_size, shuffle=False, num_threads=num_threads)
+    for i, batch in enumerate(batches):
+        pending.append(dispatch(i, batch))
         if len(pending) > EVAL_RUN_AHEAD:
             process(*pending.popleft())
     while pending:
         process(*pending.popleft())
+    if viz_dir is not None:
+        V.plot_confusion_matrix(metrics.cm, viz_dir / "confusion_matrix.png")
 
     def cls_result(c):
         return {
@@ -222,7 +264,7 @@ def evaluate_segmentation(
                   f"Recall: {m['recall']:.4f} | IoU: {m['iou']:.4f} | "
                   f"Dice: {m['dice']:.4f}")
 
-    if output_dir is not None:
+    if write:
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         with open(output_dir / "evaluation_results.json", "w") as f:
@@ -272,7 +314,7 @@ def evaluate_reconstruction(
     if verbose:
         print(f"MSE: {results['mse']:.6f}  PSNR: {results['psnr']:.2f} dB  "
               f"SSIM: {results['ssim']:.4f}  (n={results['num_images']})")
-    if output_dir is not None:
+    if output_dir is not None and is_primary():
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         with open(output_dir / "reconstruction_metrics.json", "w") as f:

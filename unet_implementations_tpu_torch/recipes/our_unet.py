@@ -23,8 +23,8 @@ group (a (data, space) grid, ``parallel/spatial.py``): the ranks of a space
 group read the same stripe, each trains on its rows of the images, and the
 update is the global batch's. It needs the mesh (not ``use_mesh=False``) and
 refuses ``grad_accum`` > 1, as JAX does; validation runs unsharded on every
-rank. Not ported yet (raises ``NotImplementedError``): the evaluation's
-visualizations.
+rank. ``evaluate`` with ``visualize_samples`` draws the first batches'
+figures (``recipes/common.py::evaluate_segmentation``).
 """
 
 from __future__ import annotations
@@ -47,7 +47,6 @@ from unet_implementations_tpu_torch.parallel.spatial import (
 from unet_implementations_tpu_torch.recipes.common import (
     check_grad_accum,
     evaluate_segmentation,
-    not_ported,
     wrap_online_augment,
 )
 from unet_implementations_tpu_torch.training.checkpoint import restore_checkpoint, restore_params
@@ -59,6 +58,7 @@ from unet_implementations_tpu_torch.training.steps import (
     to_device,
 )
 from unet_implementations_tpu_torch.training.train_state import poly_lr, sgd_nesterov
+from unet_implementations_tpu_torch.utils.visualize import require_matplotlib
 
 ARCH_CONFIG = {
     "num_classes": 3,
@@ -306,9 +306,11 @@ def evaluate(
 ) -> Dict:
     """Evaluate a checkpoint directory, or a reference ``.pth`` (such as
     the JAX package's ``cli export_torch`` writes), on ``Test/`` at each
-    image's original resolution."""
+    image's original resolution; ``visualize_samples`` > 0 also draws the
+    first batches' predictions, error maps and confidence maps (matplotlib,
+    checked before the model loads)."""
     if visualize_samples > 0:
-        raise not_ported("--visualize_samples", 8)
+        require_matplotlib("--visualize_samples", "--visualize_samples 0")
     device = default_device(device)
     model = restore_params(model_path, build_model(dtype, device)).eval()
 
@@ -320,10 +322,27 @@ def evaluate(
     if verbose:
         print(f"Test dataset size: {len(test_ds)} images")
 
+    predict_fn, probs_fn = eval_fns(model, dtype)
+    return evaluate_segmentation(predict_fn, test_ds, batch_size, output_dir,
+                                 visualize_samples=visualize_samples, probs_fn=probs_fn,
+                                 num_threads=num_threads, verbose=verbose)
+
+
+def eval_fns(model: UNet, dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """``evaluate``'s two forwards of a host batch on the model's device:
+    ``predict_fn(batch)`` -> (B, H, W) int32 argmax, ``probs_fn(batch)`` ->
+    (B, H, W, C) float32 softmax of the float32 logits."""
+    device = next(model.parameters()).device
+
+    def logits(batch):
+        return model(to_device(batch["image"], device).to(dtype))
+
     @torch.inference_mode()
     def predict_fn(batch):
-        images = to_device(batch["image"], device).to(dtype)
-        return torch.argmax(model(images), dim=-1).to(torch.int32)
+        return torch.argmax(logits(batch), dim=-1).to(torch.int32)
 
-    return evaluate_segmentation(predict_fn, test_ds, batch_size, output_dir,
-                                 num_threads=num_threads, verbose=verbose)
+    @torch.inference_mode()
+    def probs_fn(batch):
+        return torch.softmax(logits(batch), dim=-1)
+
+    return predict_fn, probs_fn
