@@ -13,7 +13,8 @@ dense): dense, and the JAX model's space-to-depth layout (``s2d_level0`` and
 ``s2d_low_channel_decoders``: level 0 and decoder_3 in s2d). Seven kernels: K1 (InstanceNorm+LeakyReLU) and
 K1bwd (its backward), K2a (2x upsample, dense), K2b (2x upsample into s2d),
 K3 (the fused s2d block tail) and K4/K4f (the Winograd s2d conv, with the
-unfolded and the folded U).
+unfolded and the folded U); and the fp8 conv of the fp8 conv mode (phase
+16), which replaces no TPU kernel.
 
 Phases (any failure makes the script exit non-zero without the kernels line):
 
@@ -271,6 +272,37 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    0`` to their evaluates, and phases 9 and 12 count ``ae_recon train``'s
    snapshot forwards (one a checkpoint) where matplotlib imports.
 
+16. The model's remaining fields and the fp8 conv mode (``ops/quant.py``,
+   ``UNET_TPU_CONV_FP8``), ``unet_6stage`` at 512² bf16 from a seeded
+   generator. (a) Every fp8 conv call of a b8 forward of each layout and of
+   the (f) model, recorded under ``all``, on random inputs of its shapes, in
+   both fp8 dtypes: the kernel's fp8 casts of x and the weight bit for bit the
+   plain cast; the conv alone within FP8_ULPS of the plain version (or of the
+   exact sum, see FP8_ULPS); the call with its bias and residual within its
+   epilogue's roundings; a second call bit for bit; nvcc's report for the fp8
+   conv kernel, which must spill nothing. (b) Each layout at b8 under ``all``
+   and ``128``: K1/K2a/K2b/K3 and fp8 launches a forward (28 and 17 fp8, the
+   split decoders' conv_0 two each; K3 0, its blocks' conv_1 quantized),
+   finite logits, the mean drift and argmax agreement against the bf16
+   model, and the argmax agreement with the same model through the plain
+   versions (fp8 included) at least the fp8 model's with bf16; an artifact
+   exported under ``all`` at b2 replays bit for bit the eager forward, one
+   fp8 node a launch. (c) Printed: the b128 forward, policy off and ``all``
+   (e5m2), each layout; the kernel at each distinct call of the dense b128
+   forward beside its plain version, cuDNN's bf16 conv of that shape and its
+   bound (the kernels line's row sums them over the forward's 28 calls). (d)
+   Printed: each dense decoder's conv_0 as the split conv against ``cat`` and
+   one conv at b128, and phases 5 and 7's dense readings beside PR 16's. (e)
+   The dense step with and without ``remat`` from the same weights and
+   generator seed: at b8 under deterministic cuDNN the loss bit for bit and
+   the gradients within TRAIN_F32_PLAIN_GRAD_REL (K1 and K2a launch twice a
+   remat step: the backward reruns the blocks); then b32 and b64 times and
+   peak memory, printed. (f) ``UNet(kernel_size=5, n_conv_per_stage=3,
+   n_conv_per_stage_decoder=1)`` at b4: K1bwd at its shapes, the forward at
+   phase 4's bounds (K1/K2a 23/5), one train step at phase 7's (K1bwd 23),
+   with the gate against the kernel's values set from the step with K1bwd's
+   sums reordered (see ``fields_model``).
+
 ``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
 comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
 phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups), the
@@ -292,8 +324,8 @@ and TF32 off in every process (``NVIDIA_TF32_OVERRIDE=0``).
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6-13, 14's replays and 15; phase 13's in
-its ranks).
+runs of the main paths (phases 3, 6-13, 14's replays, 15 and 16; phase 13's
+in its ranks).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
@@ -326,6 +358,7 @@ from unet_implementations_tpu_torch import cli
 from unet_implementations_tpu_torch.data import augment, loader
 from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch, synthetic_sample
 from unet_implementations_tpu_torch.kernels import _build
+from unet_implementations_tpu_torch.kernels import fp8_conv as k8
 from unet_implementations_tpu_torch.kernels import instance_norm as k1
 from unet_implementations_tpu_torch.kernels import s2d_region as k3
 from unet_implementations_tpu_torch.kernels import upsample as k2
@@ -346,6 +379,7 @@ from unet_implementations_tpu_torch.models.unet import (
     encoder_param_names,
     unet_6stage,
 )
+from unet_implementations_tpu_torch.ops import quant
 from unet_implementations_tpu_torch.ops.normalize import normalize_image
 from unet_implementations_tpu_torch.ops.resize import resize_bilinear, upsample2x_nhwc
 from unet_implementations_tpu_torch.parallel import distributed
@@ -384,6 +418,7 @@ from unet_implementations_tpu_torch.utils.gradcam import gradcam
 from unet_implementations_tpu_torch.utils.profiling import (
     BF16_TENSOR_FLOPS_PER_S,
     F32_FLOPS_PER_S,
+    FP8_TENSOR_FLOPS_PER_S,
     HBM_BYTES_PER_S,
 )
 
@@ -631,8 +666,10 @@ TRAIN_F32_GRAD_REL = 1e-4
 L2_MULTIPLE = 4
 
 failures: list[str] = []
-report: dict = {"err": dict.fromkeys(KERNELS, 0.0), "path_launches": dict.fromkeys(KERNELS, 0),
-                "rows": {}, "bound_by": {}}
+# The fp8 conv (phase 16) is counted apart from KERNELS: the policy is off in
+# every other phase, so their expected launches do not name it.
+report: dict = {"err": dict.fromkeys(KERNELS + ("fp8",), 0.0),
+                "path_launches": dict.fromkeys(KERNELS + ("fp8",), 0), "rows": {}, "bound_by": {}}
 
 
 def log(msg: str) -> None:
@@ -683,6 +720,7 @@ def reset_launches() -> None:
     k1.fused_instance_norm.split_backward_launches = 0
     k4.winograd_conv_s2d.launches = 0
     k4.winograd_conv_s2d.launches_folded = 0
+    k8.fp8_conv.launches = 0
 
 
 def add_path_launches() -> None:
@@ -1730,8 +1768,11 @@ def one_step(layout: str, state: dict, dtype, batch: dict, mode: str,
     return loss, grads, grad_groups(model)
 
 
-def check_train_step(layout: str, state: dict, batch: dict,
-                     objective: str = "segmentation") -> dict:
+def check_train_step(layout: str, state: dict, batch: dict, objective: str = "segmentation",
+                     f32_grad_rel: float = TRAIN_F32_GRAD_REL) -> dict:
+    """The b8 step checks of phase 7 (the docstring's gates); ``f32_grad_rel``
+    the bound against the step with the kernel's values (phase 16 (f) passes
+    its measured one)."""
     runs = {(torch.float32, mode): one_step(layout, state, torch.float32, batch, mode, objective)
             for mode in STEP_MODES}
     runs.update({(torch.bfloat16, mode): one_step(layout, state, torch.bfloat16, batch, mode,
@@ -1779,14 +1820,14 @@ def check_train_step(layout: str, state: dict, batch: dict,
         f"{gk[worst_ratio]:.4e}/{gp[worst_ratio]:.4e}); |loss - f32 plain| {dl_k:.3e}/{dl_p:.3e}")
     checks = {"f32 loss": loss_rel <= TRAIN_F32_LOSS_REL,
               "f32 loss, kernel values": values_loss_rel <= TRAIN_F32_LOSS_REL,
-              "f32 grads": g32[worst32] <= TRAIN_F32_GRAD_REL,
+              "f32 grads": g32[worst32] <= f32_grad_rel,
               "f32 grads vs plain": g_plain[worst_plain] <= TRAIN_F32_PLAIN_GRAD_REL,
               "bf16 grads": ratio[worst_ratio] <= 1 + E2E_BF16_SLACK,
               "bf16 all grads": all_k <= all_p * (1 + E2E_BF16_SLACK),
               "bf16 loss": dl_k <= dl_p * (1 + E2E_BF16_SLACK),
               "finite": all(math.isfinite(r[0]) for r in runs.values())}
     log(f"{name} train-step bounds: f32 loss rel <= {TRAIN_F32_LOSS_REL:g}, f32 grad rel-L2 "
-        f"<= {TRAIN_F32_GRAD_REL:g} (against the kernel's values with the plain gradient) and "
+        f"<= {f32_grad_rel:.3e} (against the kernel's values with the plain gradient) and "
         f"<= {TRAIN_F32_PLAIN_GRAD_REL:g} (against the plain step), bf16 within "
         f"{E2E_BF16_SLACK:g} of the bf16 plain step: {checks}")
     if not all(checks.values()):
@@ -4225,6 +4266,538 @@ def phase_analysis(root: Path):
 
 # ``--ab-steps``: one checkout's phase-7 step and phase-8 recipe, through the
 # package's entry points only. Arguments: LABEL DATA CACHE.
+# Phase 16: the model's remaining fields (the dense decoders' split conv,
+# remat, kernel_size, n_conv_per_stage) and the fp8 conv mode.
+FP8_TYPES = {"e5m2": torch.float8_e5m2, "e4m3": torch.float8_e4m3fn}
+FP8_VARS = ("UNET_TPU_CONV_FP8", "UNET_TPU_CONV_FP8_DTYPE")
+# The policies of (b): every conv, and the convs whose input grid is 128 or more.
+FP8_POLICIES = {"all": 0, "128": 128}
+# The fp8 conv against its plain version. Both sum the same fp8 products,
+# exact in float32, in float32 in another order, so the conv alone (no bias,
+# no residual) may round to the neighbouring bf16 value (FP8_ULPS). Where the
+# sums cancel, the order moves the result by more than its own ulp: such an
+# element must be within FP8_ULPS of the exact sum plus float32's summation
+# bound (FP8_SUM_REL). A call with a bias or a residual rounds once more at
+# each add, and may move one ulp at each rounded value: where the bias cancels
+# the conv, the output's ulp is far below the conv's.
+FP8_ULPS = 1.0
+# The float32 summation bound: any order of K float32 additions of the exact
+# products lies within about K * 2^-24 * sum|products| of the exact sum.
+FP8_SUM_REL = 2.0 ** -24
+# At most this many elements of one call may need the exact sums.
+FP8_MAX_FAR = 4096
+FP8_KERNEL = "fp8_conv_kernel"
+# (f): a model with JAX's other fields: 5x5 convs, 3 conv units an encoder
+# stage and 1 a decoder, at b4. K1: 6 x 3 + 5 x 1 a forward, as many K1bwd a
+# step; K2a 5; no K3 (dense).
+FIELDS16 = {"kernel_size": 5, "n_conv_per_stage": 3, "n_conv_per_stage_decoder": 1}
+FIELDS_BATCH = 4
+FIELDS_PER_FORWARD = {**NO_LAUNCHES, "K1": 6 * 3 + 5, "K2a": len(K2_INPUTS)}
+FIELDS_PER_STEP = {**FIELDS_PER_FORWARD, "K1bwd": 6 * 3 + 5}
+OBJECTIVES["fields"] = (
+    lambda dtype, device, **layout: UNet(dtype=dtype, **layout, **FIELDS16).to(device),
+    lambda m: make_segmentation_train_step(m, sgd_nesterov(m.parameters())))
+STEP_LAUNCHES["fields"] = {"dense": FIELDS_PER_STEP}
+OBJECTIVE_NAMES["fields"] = "k5 3/1 "
+# (e): the dense step with and without remat. Under remat the backward
+# reruns each block's forward: K1 and K2a launch twice a step.
+REMAT_BATCHES = (32, 64)
+REMAT_PER_STEP = {**PER_STEP["dense"], "K1": 2 * sum(K1_CALLS), "K2a": 2 * len(K2_INPUTS)}
+# PR 16's readings the split conv's predictions are held against (its chip
+# run 9: phase 5's dense b128 forward, phase 7's dense b32 step and peak).
+PR16_FORWARD_MS, PR16_STEP_MS, PR16_STEP_PEAK_GIB = 103.961, 99.589, 14.63
+
+
+@contextmanager
+def fp8_policy(grid: str, fp8: str = "e5m2"):
+    saved = {k: os.environ.get(k) for k in FP8_VARS}
+    os.environ.update(zip(FP8_VARS, (grid, fp8)))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextmanager
+def fp8_route(fn):
+    """``ops/quant.py``'s fp8 conv replaced by ``fn`` (a spy, the plain version)."""
+    real = quant.fp8_conv
+    quant.fp8_conv = fn
+    try:
+        yield real
+    finally:
+        quant.fp8_conv = real
+
+
+def fp8_counted(fn, expected: dict, n_fp8: int, path: bool = True):
+    """``counted`` with the fp8 conv's launches read too (``n_fp8``); with
+    ``path`` both go into the kernels line."""
+    out = counted(fn, expected)
+    if k8.fp8_conv.launches != n_fp8:
+        raise AssertionError(f"expected {n_fp8} fp8 conv launches, got {k8.fp8_conv.launches}")
+    if path:
+        add_path_launches()
+        report["path_launches"]["fp8"] += n_fp8
+    return out
+
+
+def conv_grids(layout: str) -> list:
+    """(input grid, segments) of each conv of ``unet_6stage``'s 512² forward,
+    in order: the encoders, the decoders (conv_0 of two segments), the head.
+    In s2d the level-0 convs, encoder_1's stride-2 feed and decoder_3 (wrapped)
+    see the half grid."""
+    sides = [IMG >> lv for lv in range(len(DEFAULT_FEATURES))]
+    half = 2 if layout == "s2d" else 1
+    convs = []
+    for i, side in enumerate(sides):
+        convs += [(sides[max(i - 1, 0)] // (half if i <= 1 else 1), 1),
+                  (side // (half if i == 0 else 1), 1)]
+    for level in range(len(sides) - 2, -1, -1):
+        grid = sides[level] // (half if level <= 1 else 1)
+        convs += [(grid, 2), (grid, 1)]
+    return convs + [(sides[0] // half, 1)]
+
+
+def fp8_expected(layout: str, min_grid: int) -> tuple[dict, int]:
+    """The kernels' launches and the fp8 conv's of one forward under the
+    policy: K3 runs only where conv_1 is not quantized (each K3 replaces two
+    K1 launches)."""
+    n_fp8 = sum(seg for grid, seg in conv_grids(layout) if grid >= min_grid)
+    per_forward = dict(PER_FORWARD[layout])
+    if layout == "s2d":
+        k3 = sum(1 for _, side, _ in K3_CALLS if side < min_grid)
+        per_forward.update(K3=k3, K1=sum(K1_CALLS) - 2 * k3)
+    return per_forward, n_fp8
+
+
+def seeded_model(dtype, layout: str = "dense", **fields) -> UNet:
+    return UNet(dtype=dtype, generator=torch.Generator().manual_seed(SEED + 16),
+                **LAYOUTS[layout], **fields).to("cuda").eval()
+
+
+def exact_at(xq, wq, stride: int, padding, where) -> tuple:
+    """The exact sums (float64, on the CPU: products of fp8 values and their
+    sums of a few thousand terms are exact there) of the fp8 conv at output
+    elements ``where`` (B, Ho, Wo, Cout index tensors), and the sums of the
+    products' magnitudes."""
+    t, _, le, _ = padding
+    cout, cin, kh, kw = wq.shape
+    x64, w64 = xq.double().cpu(), wq.double().cpu()
+    out, mag = [], []
+    for b, oy, ox, n in zip(*(w.tolist() for w in where)):
+        acc = accm = 0.0
+        for ky in range(kh):
+            for kx in range(kw):
+                iy, ix = oy * stride - t + ky, ox * stride - le + kx
+                if 0 <= iy < x64.shape[1] and 0 <= ix < x64.shape[2]:
+                    prod = x64[b, iy, ix] * w64[n, :, ky, kx]
+                    acc += float(prod.sum())
+                    accm += float(prod.abs().sum())
+        out.append(acc)
+        mag.append(accm)
+    return torch.tensor(out, dtype=torch.float64), torch.tensor(mag, dtype=torch.float64)
+
+
+def fp8_call_inputs(sig: tuple, seed: int):
+    """Random bf16 inputs of one recorded call: x, a kernel of the model's
+    init scale, a bias, and a residual where the call had one."""
+    x_shape, w_shape, stride, padding, has_bias, has_res = sig
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cout, cin, kh, kw = w_shape
+    x = torch.randn(x_shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(w_shape, generator=g, device="cuda")
+         * (2 / (kh * kw * cout)) ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn(cout, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    out_shape = k8.output_size(x_shape, w_shape, stride, padding)
+    res = torch.randn(out_shape, generator=g, device="cuda").to(torch.bfloat16)
+    return x, w, bias if has_bias else None, res if has_res else None, stride, padding
+
+
+def bf16_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 spacing (one ulp) at |t|, elementwise, in float32."""
+    mag = t.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_fp8_sums(sig: tuple, got, want, xq, wq, stride: int, padding) -> str:
+    """The conv alone (no bias or residual) against the plain version: within
+    FP8_ULPS, or where not, within FP8_ULPS of the exact sum plus the float32
+    summation bound (FP8_SUM_REL · K · sum|products|)."""
+    ulps = bf16_ulps_map(got, want)
+    far = torch.nonzero(ulps > FP8_ULPS, as_tuple=True)
+    note = f"max {float(ulps.max()):.1f} ulp, {float((ulps > 0).float().mean()):.2e} off"
+    if not len(far[0]):
+        return note
+    if len(far[0]) > FP8_MAX_FAR:
+        raise AssertionError(f"{sig}: {len(far[0])} elements beyond {FP8_ULPS} ulp")
+    exact, absum = exact_at(xq, wq, stride, padding, far)
+    k = sig[1][1] * sig[1][2] * sig[1][3]
+    err = (got[far].double().cpu() - exact).abs()
+    allowed = FP8_ULPS * bf16_spacing(exact).double() + FP8_SUM_REL * k * absum
+    note += (f"; {len(far[0])} beyond, there |kernel - exact| / allowed max "
+             f"{float((err / allowed).max()):.3f}, |plain - exact| / allowed max "
+             f"{float(((want[far].double().cpu() - exact).abs() / allowed).max()):.3f}")
+    if bool((err > allowed).any()):
+        raise AssertionError(f"{sig}: the kernel misses the exact sum: {note}")
+    return note
+
+
+def check_fp8_call(sig: tuple, fp8: str, seed: int) -> str:
+    """(a) at one recorded call: the quantized operands bit for bit the plain
+    cast; the conv alone against the plain version (``check_fp8_sums``); the
+    call as recorded (bias, residual) within the roundings of its epilogue:
+    one ulp at each of its rounded values (the conv's, the residual sum's, the
+    output's) beyond the conv's own difference; a second call bit for bit."""
+    x, w, bias, res, stride, padding = fp8_call_inputs(sig, seed)
+    dt = FP8_TYPES[fp8]
+    for name, t in (("x", x), ("weight", w)):
+        if not torch.equal(k8.fp8_bits(t, dt), k8.fp8_bits_plain(t, dt)):
+            raise AssertionError(f"{sig}: the kernel's fp8 cast of {name} is not the plain one")
+    xq = k8.fp8_values(k8.fp8_bits_plain(x, dt), dt)
+    wq = k8.fp8_values(k8.fp8_bits_plain(w, dt), dt)
+    k8.fp8_conv.launches = 0
+    conv = k8.fp8_conv(x, w, None, None, stride, padding, dt)
+    conv_plain = k8._plain_conv(x, w, None, None, stride, padding, dt)
+    note = check_fp8_sums(sig, conv, conv_plain, xq, wq, stride, padding)
+    got = k8.fp8_conv(x, w, bias, res, stride, padding, dt)
+    again = k8.fp8_conv(x, w, bias, res, stride, padding, dt)
+    if k8.fp8_conv.launches != 3:
+        raise AssertionError(f"{sig}: {k8.fp8_conv.launches} launches for 3 calls")
+    want = k8._plain_conv(x, w, bias, res, stride, padding, dt)
+    # Each rounding of the epilogue may move the conv's difference by one
+    # ulp at the value it rounds.
+    allowed = (conv.float() - conv_plain.float()).abs()
+    if res is not None:
+        allowed += bf16_spacing(torch.maximum((res + conv).float().abs(),
+                                              (res + conv_plain).float().abs()))
+    if bias is not None:
+        allowed += bf16_spacing(torch.maximum(got.float().abs(), want.float().abs()))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    report["err"]["fp8"] = max(report["err"]["fp8"], err)
+    over = int((diff > allowed).sum())
+    same = torch.equal(got, again)
+    if over or not same:
+        raise AssertionError(f"{sig} {fp8}: {over} elements beyond the epilogue's roundings "
+                             f"from the plain version, repeat {same}")
+    return (f"x {sig[0]} w {sig[1]} s{stride} pad {tuple(padding)}"
+            f"{' +res' if res is not None else ''}{' +bias' if bias is not None else ''} "
+            f"{fp8}: the conv {note}; the call max |err| {err:.3e}, "
+            f"{int((diff > 0).sum())} elements off, repeat {same}")
+
+
+def record_fp8_calls(model, x: torch.Tensor) -> list:
+    """The fp8 conv calls (signatures, in order) of ``model(x)`` under ``all``."""
+    seen = []
+
+    def spy(x, w, bias, residual, stride, padding, fp8):
+        seen.append((tuple(x.shape), tuple(w.shape), stride, tuple(padding), bias is not None,
+                     residual is not None))
+        return real(x, w, bias, residual, stride, padding, fp8)
+
+    with fp8_route(spy) as real, fp8_policy("all"), torch.inference_mode():
+        model(x)
+    return seen
+
+
+def fp8_kernel_checks(x8: torch.Tensor) -> dict:
+    """(a): every distinct fp8 conv call of a b8 forward of each layout and
+    of the k = 5 model, both fp8 dtypes. Returns the dense calls."""
+    check_no_spills(FP8_KERNEL)
+    calls = {}
+    for label, model in (("dense", seeded_model(torch.bfloat16)),
+                         ("s2d", seeded_model(torch.bfloat16, "s2d")),
+                         ("k5 3/1", seeded_model(torch.bfloat16, **FIELDS16))):
+        calls[label] = record_fp8_calls(model, x8)
+        del model
+        log(f"(a) {label}: {len(calls[label])} fp8 conv calls a b{SERVE_BATCH} forward, "
+            f"{len(set(calls[label]))} distinct")
+    done = set()
+    for label, sigs in calls.items():
+        for i, sig in enumerate(dict.fromkeys(sigs)):
+            if sig in done:
+                continue
+            done.add(sig)
+            for fp8 in FP8_TYPES:
+                log(f"   {check_fp8_call(sig, fp8, SEED + i)}")
+            torch.cuda.empty_cache()
+    return calls["dense"]
+
+
+def fp8_policies(x8: torch.Tensor) -> None:
+    """(b): each layout under ``all`` and ``128``: launch counts, logits
+    finite, drift and argmax agreement against the bf16 model, and the
+    kernels' fp8 model against the plain versions' fp8 model."""
+    for layout in LAYOUTS:
+        model = seeded_model(torch.bfloat16, layout)
+        with torch.inference_mode(), deterministic():
+            ref = counted(lambda: model(x8), PER_FORWARD[layout])
+            for policy, min_grid in FP8_POLICIES.items():
+                per_forward, n_fp8 = fp8_expected(layout, min_grid)
+                with fp8_policy(policy):
+                    got = fp8_counted(lambda: model(x8), per_forward, n_fp8)
+                    with plain_versions(), fp8_route(k8._plain_conv):
+                        plain = fp8_counted(lambda: model(x8), NO_LAUNCHES, 0, path=False)
+                drift = float((got - ref).abs().mean())
+                vs_bf16 = compare(got, ref)[1]
+                vs_plain = compare(got, plain)[1]
+                plain_vs_bf16 = compare(plain, ref)[1]
+                ok = (bool(torch.isfinite(got).all()) and drift > 0
+                      and vs_plain >= vs_bf16)
+                log(f"(b) {layout} policy {policy} e5m2: fp8 launches {n_fp8}, "
+                    f"{({k: v for k, v in per_forward.items() if v})}; mean |logit drift| "
+                    f"{drift:.4e} (logit std {float(ref.std()):.4f}); argmax agreement with "
+                    f"bf16 {vs_bf16:.6f}, with the plain versions' fp8 model {vs_plain:.6f} "
+                    f"(plain fp8 with bf16 {plain_vs_bf16:.6f}): {ok}")
+                if not ok:
+                    raise AssertionError(f"{layout} {policy}: the fp8 model misses its checks")
+        del model
+        torch.cuda.empty_cache()
+
+
+def fp8_artifact(tmp: Path, x8: torch.Tensor) -> None:
+    """(b): an artifact of the dense model exported under ``all`` replays
+    bit for bit the eager forward under ``all``."""
+    model = seeded_model(torch.bfloat16)
+    per_forward, n_fp8 = fp8_expected("dense", 0)
+    x = x8[:2]
+    with fp8_policy("all"):
+        served, export_s, mib = artifact(model, tmp / "fp8_artifact", 2)
+        with torch.inference_mode():
+            eager = fp8_counted(lambda: model(x), per_forward, n_fp8, path=False)
+    with torch.inference_mode():
+        replay = fp8_counted(lambda: served(x), per_forward, n_fp8)
+    nodes = sum(1 for n in served.program.graph.nodes
+                if n.op == "call_function" and str(n.target).startswith("unet_torch.fp8_conv"))
+    same = torch.equal(replay, eager)
+    log(f"(b) dense artifact exported under all at b2 ({export_s:.1f} s, {mib:.1f} MiB): "
+        f"{nodes} fp8 conv nodes, replay bit for bit the eager forward: {same}")
+    if not same or nodes != n_fp8:
+        raise AssertionError(f"the fp8 artifact: replay equal {same}, {nodes} nodes")
+
+
+def fp8_times(dense_calls: list) -> None:
+    """(c): the b128 forward with the policy off and ``all`` (e5m2), each
+    layout; the kernel at each distinct call of the dense forward at b128,
+    beside cuDNN's bf16 conv of the same shape and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    xb = torch.randn((TIMED_BATCH, IMG, IMG, 3), generator=g, device="cuda").to(torch.bfloat16)
+    report["fp8_forward"] = {}
+    for layout in LAYOUTS:
+        model = seeded_model(torch.bfloat16, layout)
+        for policy in ("off", "all"):
+            per_forward, n_fp8 = ((PER_FORWARD[layout], 0) if policy == "off"
+                                  else fp8_expected(layout, 0))
+            with fp8_policy(policy), torch.inference_mode():
+                ms = cuda_times(lambda a: fp8_counted(lambda: model(a), per_forward, n_fp8),
+                                [xb], iters=5)
+            report["fp8_forward"][(layout, policy)] = statistics.median(ms)
+            log(f"(c) {layout} b{TIMED_BATCH} forward, policy {policy}: {spread(ms)}")
+        del model
+        torch.cuda.empty_cache()
+    del xb
+    totals = [0.0, 0.0, 0.0, 0.0]
+    counts = {sig: dense_calls.count(sig) for sig in dict.fromkeys(dense_calls)}
+    by_ops_total = by_bytes_total = 0.0
+    with torch.inference_mode():
+        for i, (sig, n) in enumerate(counts.items()):
+            big = ((TIMED_BATCH, *sig[0][1:]), *sig[1:])
+            x, w, bias, res, stride, padding = fp8_call_inputs(big, SEED + i)
+            dt = torch.float8_e5m2
+            by_bytes = bytes_ms(k8.conv_bytes(x.shape, w.shape, stride, padding, 2,
+                                              res is not None, bias is not None))
+            by_ops = (k8.conv_flops(x.shape, w.shape, stride, padding)
+                      / FP8_TENSOR_FLOPS_PER_S * 1e3)
+            wc = w.contiguous(memory_format=torch.channels_last)
+            row = time_kernel(
+                f"(c) fp8 conv x{n} x {tuple(x.shape)} w {tuple(w.shape)} s{stride} pad "
+                f"{padding}{' +res' if res is not None else ''}",
+                lambda a: k8.fp8_conv(a, w, bias, res, stride, padding, dt),
+                lambda a: k8._plain_conv(a, w, bias, res, stride, padding, dt), [x],
+                bound(by_bytes, by_ops),
+                library=lambda a: quant._conv2d(a.permute(0, 3, 1, 2), wc, bias, stride,
+                                                padding), iters=5)
+            totals = [tot + n * v for tot, v in zip(totals, row)]
+            by_ops_total += n * by_ops
+            by_bytes_total += n * by_bytes
+            del x, w, wc, bias, res
+            torch.cuda.empty_cache()
+    report["bound_by"]["fp8"] = bound(by_bytes_total, by_ops_total)[1]
+    report["rows"]["fp8"] = totals
+    log(f"(c) fp8 conv over the {len(dense_calls)} calls of the dense b{TIMED_BATCH} "
+        f"forward: kernel {totals[0]:.3f} ms, plain {totals[1]:.3f}, bound {totals[2]:.3f}, "
+        f"cuDNN bf16 {totals[3]:.3f}")
+
+
+def split_conv_ab() -> None:
+    """(d): per dense decoder, conv_0 as the split conv (two segments) against
+    ``torch.cat`` and one conv, at the b128 forward's shapes (bf16,
+    inference), timed alone in turns; outputs compared."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    with torch.inference_mode():
+        for d, (side, c_up) in enumerate(K2_INPUTS):
+            feats = DEFAULT_FEATURES[len(DEFAULT_FEATURES) - 2 - d]
+            s2 = 2 * side
+
+            def act(c):
+                return torch.randn((TIMED_BATCH, s2, s2, c), generator=g, device="cuda").to(
+                    torch.bfloat16).permute(0, 3, 1, 2)
+
+            up, skip = act(c_up), act(feats)
+            w = (torch.randn((feats, c_up + feats, 3, 3), generator=g, device="cuda")
+                 * (2 / (9 * feats)) ** 0.5).to(torch.bfloat16).contiguous(
+                     memory_format=torch.channels_last)
+            bias = torch.zeros(feats, device="cuda", dtype=torch.bfloat16)
+            ws = w.split([c_up, feats], dim=1)
+
+            def split(_):
+                return quant.qconv_sum((up, skip), ws, bias, 1, 1)
+
+            def cat(_):
+                both = torch.cat([up, skip], dim=1).contiguous(memory_format=torch.channels_last)
+                return F.conv2d(both, w, bias, 1, 1)
+
+            rel = rel_l2(split(None).float(), cat(None).float())
+            a, b = cuda_times(split, [None], 5), cuda_times(cat, [None], 5)
+            a2, b2 = cuda_times(split, [None], 5), cuda_times(cat, [None], 5)
+            log(f"(d) decoder_{d} conv_0 b{TIMED_BATCH} {s2}² ({c_up}+{feats} -> {feats}): split "
+                f"{spread(a + a2)}, cat + one conv {spread(b + b2)}; rel-L2 {rel:.2e}")
+            del up, skip, w
+            torch.cuda.empty_cache()
+
+
+def remat_steps() -> None:
+    """(e): the dense bf16 step with and without remat from the same weights
+    and generator seed: one step each under deterministic cuDNN (the loss bit
+    for bit, the gradients' worst group rel-L2 within phase 7's
+    TRAIN_F32_PLAIN_GRAD_REL), then the times and peak memory at each batch."""
+    state = {k: v.clone() for k, v in seeded_model(torch.float32).state_dict().items()}
+
+    def model_of(remat):
+        m = UNet(dtype=torch.bfloat16, remat=remat).to("cuda")
+        m.load_state_dict(state, strict=True)
+        return m
+
+    check = device_batch(as_uint8(synthetic_batch(SEED + 19, CHECK_BATCH, IMG)))
+    runs = {}
+    per_step = {False: PER_STEP["dense"], True: REMAT_PER_STEP}
+    for remat in (False, True):
+        model = model_of(remat)
+        step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with deterministic():
+            loss = counted_path(lambda: step(check, gen), per_step[remat])
+        runs[remat] = (loss.clone(), {n: p.grad.detach().float().clone()
+                                      for n, p in model.named_parameters()}, grad_groups(model))
+        del model, step
+    groups = group_rel_l2(runs[True][1], runs[False][1], runs[False][2])
+    worst = max(groups, key=groups.get)
+    same = torch.equal(runs[True][0], runs[False][0])
+    log(f"(e) b{CHECK_BATCH} step, remat against none: loss bit for bit {same} "
+        f"({float(runs[True][0]):.7f}); gradients worst group rel-L2 {groups[worst]:.3e} "
+        f"({worst})")
+    if not same or groups[worst] > TRAIN_F32_PLAIN_GRAD_REL:
+        raise AssertionError("(e) the remat step differs from the plain step")
+    del runs, check
+    torch.cuda.empty_cache()
+    report["remat"] = {}
+    for batch_size in REMAT_BATCHES:
+        batch = device_batch(as_uint8(synthetic_batch(SEED + 20, batch_size, IMG)))
+        for remat in (False, True):
+            model = model_of(remat)
+            step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+            report["remat"][(batch_size, remat)] = timed_steps(
+                f"(e) dense train step{' remat' if remat else ''}", step, batch,
+                per_step[remat], batch_size)
+            del model, step
+            torch.cuda.empty_cache()
+        (ms0, peak0), (ms1, peak1) = (report["remat"][(batch_size, r)] for r in (False, True))
+        log(f"(e) b{batch_size}: remat {ms1 / ms0:.3f}x the time, peak {peak1:.2f} against "
+            f"{peak0:.2f} GiB ({1 - peak1 / peak0:.1%} lower)")
+        del batch
+        torch.cuda.empty_cache()
+
+
+@contextmanager
+def k1bwd_reordered():
+    """K1bwd on the spatially flipped x and dy, its dx flipped back: the same
+    function and the same slopes, its float32 sums in another order."""
+    launch = k1._cuda_backward
+
+    def flipped(x, scale, bias, mean, rstd, dy, *rest):
+        dx, dscale, dbias = launch(x.flip((1, 2)).contiguous(), scale, bias, mean, rstd,
+                                   dy.flip((1, 2)).contiguous(), *rest)
+        return dx.flip((1, 2)).contiguous(), dscale, dbias
+
+    k1._cuda_backward = flipped
+    try:
+        yield
+    finally:
+        k1._cuda_backward = launch
+
+
+def fields_model() -> None:
+    """(f): ``UNet(kernel_size=5, n_conv_per_stage=3, n_conv_per_stage_decoder=1)``
+    at 512² b4: K1bwd at its b4 shapes, the forward with the kernels against
+    the plain versions at phase 4's bounds, and one train step at phase 7's,
+    except one: this model's float32 gradients move by some 5e-3 (worst
+    group) when K1bwd alone sums in another order (``k1bwd_reordered``; the
+    default model 8e-6 at b4, where TRAIN_F32_GRAD_REL was set), so its step is
+    held to the step with the kernel's values within (1 + E2E_BF16_SLACK) of
+    that reordering's own move, measured here on the same weights and batch."""
+    model = seeded_model(torch.bfloat16, **FIELDS16)
+    reference = seeded_model(torch.float32, **FIELDS16)
+    reference.load_state_dict(model.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    pixels = torch.randint(0, 256, (FIELDS_BATCH, IMG, IMG, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    for side, c in LEVELS:
+        for dt in (torch.float32, torch.bfloat16):
+            log(f"(f) {check_k1_bwd(k1_bwd_inputs(FIELDS_BATCH, side, c, dt))}")
+    check_forwards(model, reference, normalize_image(pixels), FIELDS_PER_FORWARD, path=True)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, reference
+    torch.cuda.empty_cache()
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 22, FIELDS_BATCH, IMG)))
+    kernels = one_step("dense", state, torch.float32, batch, "kernels", "fields")
+    with k1bwd_reordered():
+        reordered = one_step("dense", state, torch.float32, batch, "kernels", "fields")
+    control = group_rel_l2(reordered[1], kernels[1], kernels[2])
+    worst = max(control, key=control.get)
+    log(f"(f) K1bwd's sums reordered against the kernels' step: worst group rel-L2 "
+        f"{control[worst]:.3e} ({worst}), median {statistics.median(control.values()):.3e}")
+    check_train_step("dense", state, batch, objective="fields",
+                     f32_grad_rel=max(TRAIN_F32_GRAD_REL,
+                                      (1 + E2E_BF16_SLACK) * control[worst]))
+
+
+@phase("16. the model's remaining fields and the fp8 conv mode (unet_6stage 512² bf16)")
+def phase_fields(root: Path):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    x8 = torch.randn((SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda")
+    dense_calls = fp8_kernel_checks(x8)
+    fp8_policies(x8)
+    fp8_artifact(root, x8)
+    del x8
+    torch.cuda.empty_cache()
+    fp8_times(dense_calls)
+    split_conv_ab()
+    fwd = report.get("forward", {}).get("dense", {}).get("ms", float("nan"))
+    step = report.get("train", {}).get("dense", {})
+    log(f"(d) this run's dense b{TIMED_BATCH} forward (phase 5) {fwd:.3f} ms against PR 16's "
+        f"{PR16_FORWARD_MS} ({fwd / PR16_FORWARD_MS - 1:+.2%}); b{TRAIN_BATCH} step (phase 7) "
+        f"{step.get('step_ms', float('nan')):.3f} ms against {PR16_STEP_MS} "
+        f"({step.get('step_ms', float('nan')) / PR16_STEP_MS - 1:+.2%}), peak "
+        f"{step.get('peak_gib', float('nan')):.2f} GiB against {PR16_STEP_PEAK_GIB} "
+        f"({step.get('peak_gib', float('nan')) - PR16_STEP_PEAK_GIB:+.2f} GiB)")
+    remat_steps()
+    fields_model()
+
+
 AB_PROGRAM = f"""
 import statistics, sys, tempfile
 import torch
@@ -4323,13 +4896,17 @@ def kernels_line() -> dict:
         ("K4f winograd_conv_s2d (Winograd F(2,3) s2d conv, folded U, fwd and dx)",
          "unet_implementations_tpu_torch/kernels/csrc/winograd.cu",
          "unet_implementations_tpu/kernels/winograd.py:266", "K4f"),
+        ("fp8_conv (the fp8 conv mode's conv, e5m2/e4m3 operands, float32 sums, fwd; "
+         "replaces no Pallas kernel: JAX's qconv is an XLA fp8 conv)",
+         "unet_implementations_tpu_torch/kernels/csrc/fp8_conv.cu",
+         "unet_implementations_tpu/ops/quant.py:81", "fp8"),
     ]
     out = []
     for name, source, replaces, key in meta:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6-15).
+            # The counted runs of the main paths (phases 3, 6-16).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -4375,6 +4952,8 @@ def main() -> int:
             phase_serving(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_analysis(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_fields(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)

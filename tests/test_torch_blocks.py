@@ -95,7 +95,7 @@ def test_region_applicable_grad():
     w = torch.zeros(8, 8, 3, 3, requires_grad=True)
     assert not s2d_region.region_applicable(x, v, v, w, v, v)
     assert not s2d_region.region_applicable(x.requires_grad_(), v, v, v, v, v)
-    assert s2d_region.region_applicable(x.detach(), v, v, v, v, v)
+    assert s2d_region.region_applicable(x.detach(), v, v, w.detach(), v, v)
     with torch.no_grad():
         assert s2d_region.region_applicable(x, v, v, w, v, v)
 
@@ -132,3 +132,65 @@ def test_eval_forward_with_grad_matches_jax(config, flags, tail_calls):
     got = model(torch.from_numpy(x))
     assert got.requires_grad and tail_calls == []
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-3, atol=1e-4)
+
+
+def _up_block_state(tree) -> dict:
+    """JAX ``UpBlock`` params -> the port's ``UpBlock`` state dict (dropout 0:
+    three slots a conv)."""
+    sd = {}
+    for j in range(2):
+        conv, norm = tree["conv_block"][f"conv_{j}"], tree["conv_block"][f"norm_{j}"]
+        sd[f"conv_block.block.{3 * j}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1))))
+        sd[f"conv_block.block.{3 * j}.bias"] = torch.from_numpy(np.asarray(conv["bias"]))
+        sd[f"conv_block.block.{3 * j + 1}.weight"] = torch.from_numpy(np.asarray(norm["scale"]))
+        sd[f"conv_block.block.{3 * j + 1}.bias"] = torch.from_numpy(np.asarray(norm["bias"]))
+    return sd
+
+
+def test_dense_up_block_split_conv_matches_jax(monkeypatch):
+    """The dense decoder passes [upsampled, skip] to conv_0 unconcatenated
+    (its ``qconv_sum`` takes two segments) and matches JAX's ``UpBlock``, whose
+    ``ConvOp`` sums the two segments' convs: float32 at this file's rtol 1e-3 /
+    atol 1e-4; bf16 no further from JAX's float32 block than JAX's own bf16
+    block is, within 25% of its rel-L2 (the bound of ``chip_smoke.py``'s bf16
+    forwards, E2E_BF16_SLACK)."""
+    from unet_implementations_tpu.models.blocks import UpBlock as JaxUpBlock
+
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
+    skip = rng.normal(size=(2, 16, 16, 8)).astype(np.float32)
+    jblock = JaxUpBlock(features=8)
+    shapes = jax.eval_shape(jblock.init, jax.random.key(0), jnp.asarray(x), jnp.asarray(skip))
+    params = _seeded_params(shapes["params"], rng)
+
+    def jax_out(dtype):
+        block = JaxUpBlock(features=8, dtype=dtype)
+        return np.asarray(block.apply({"params": params}, jnp.asarray(x, dtype),
+                                      jnp.asarray(skip, dtype)).astype(jnp.float32))
+
+    port = blocks.UpBlock(16, 8, 8).eval()
+    port.load_state_dict(_up_block_state(params), strict=True)
+    segments = []
+    real_sum = blocks.qconv_sum
+
+    def spy(xs, *a, **k):
+        segments.append([tuple(xi.shape[:2]) for xi in xs])
+        return real_sum(xs, *a, **k)
+
+    monkeypatch.setattr(blocks, "qconv_sum", spy)
+
+    def port_out(dtype):
+        def nchw(a):
+            return torch.from_numpy(a).to(dtype).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            return port(nchw(x), nchw(skip)).permute(0, 2, 3, 1).float().numpy()
+
+    want32, got32 = jax_out(jnp.float32), port_out(torch.float32)
+    assert segments == [[(2, 16), (2, 8)], [(2, 8)]]
+    np.testing.assert_allclose(got32, want32, rtol=1e-3, atol=1e-4)
+
+    def rel(a):
+        return float(np.linalg.norm(a - want32) / np.linalg.norm(want32))
+
+    assert rel(port_out(torch.bfloat16)) <= 1.25 * rel(jax_out(jnp.bfloat16))

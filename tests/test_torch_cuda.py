@@ -34,7 +34,12 @@ backward is plain torch on both devices: its gradients are held to the CPU's.
 SSIM's blur is elementwise float32, so with TF32 allowed in cuDNN it still
 equals a float64 computation on the CPU to 1e-5. The CLIP tower launches no
 kernel of the port; in float32 (TF32 off) it equals the CPU's to 1e-5
-relative L2.
+relative L2. The fp8 conv (``kernels/fp8_conv.py``): its casts bit for bit
+the plain version's on every bf16 and fp16 value; the conv alone (no bias) within
+one bf16 ulp of the exact sum (float64 of the same fp8 values, on the CPU)
+plus float32's summation bound, K·2^-24·Σ|products| (the plain version sums
+the same exact products in float32 in another order); the mode raises under
+autograd.
 """
 
 import numpy as np
@@ -42,6 +47,7 @@ import pytest
 import torch
 
 from unet_implementations_tpu_torch.data.synthetic import as_uint8, synthetic_batch
+from unet_implementations_tpu_torch.kernels import fp8_conv as k8
 from unet_implementations_tpu_torch.kernels import instance_norm as torch_in
 from unet_implementations_tpu_torch.kernels import s2d_region as torch_region
 from unet_implementations_tpu_torch.kernels import winograd
@@ -820,3 +826,53 @@ def test_ddp_step_at_world_size_one_over_nccl(monkeypatch):
     assert abs(ddp_loss - loss) <= 1e-6 * abs(loss)
     for key, value in ddp.items():
         assert _rel_l2(value, plain[key]) <= 1e-6, key
+
+
+@pytest.mark.parametrize("fp8", [torch.float8_e5m2, torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fp8_cast_bitwise(dtype, fp8):
+    _need_cuda()
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(dtype)
+    got = k8.fp8_bits(bits.to("cuda"), fp8).cpu()
+    assert torch.equal(got, k8.fp8_bits_plain(bits, fp8))
+
+
+@pytest.mark.parametrize("fp8", [torch.float8_e5m2, torch.float8_e4m3fn])
+@pytest.mark.parametrize("shape,k,stride,padding", [
+    ((2, 17, 23, 3, 8), 3, 1, (1, 1, 1, 1)), ((2, 16, 16, 24, 40), 3, 2, (1, 1, 1, 1)),
+    ((1, 12, 12, 12, 70), 5, 1, (2, 2, 2, 2)), ((2, 9, 9, 64, 32), 2, 1, (1, 0, 1, 0)),
+    ((2, 10, 12, 32, 12), 1, 1, (0, 0, 0, 0)), ((1, 11, 8, 16, 16), 3, 1, (0, 0, 1, 1))])
+def test_fp8_conv(shape, k, stride, padding, fp8):
+    _need_cuda()
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device="cuda").manual_seed(cin + cout)
+    x = torch.randn((b, h, w, cin), generator=g, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn((cout, cin, k, k), generator=g, device="cuda") * 0.2).to(torch.bfloat16)
+    before = k8.fp8_conv.launches
+    got = k8.fp8_conv(x, wt, None, None, stride, padding, fp8)
+    assert k8.fp8_conv.launches == before + 1
+    assert got.shape == k8.output_size(x.shape, wt.shape, stride, padding)
+
+    xq, wq = (k8.fp8_values(k8.fp8_bits_plain(a.cpu(), fp8), fp8).double() for a in (x, wt))
+    t, bo, le, r = padding
+
+    def conv(a, ww):
+        return torch.nn.functional.conv2d(torch.nn.functional.pad(
+            a.permute(0, 3, 1, 2), (le, r, t, bo)), ww, stride=stride).permute(0, 2, 3, 1)
+
+    exact, absum = conv(xq, wq), conv(xq.abs(), wq.abs())
+    spacing = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
+    err = (got.double().cpu() - exact).abs()
+    assert bool((err <= spacing + cin * k * k * 2.0 ** -24 * absum).all())
+    assert torch.equal(got, k8.fp8_conv(x, wt, None, None, stride, padding, fp8))
+
+
+def test_fp8_mode_raises_under_autograd(monkeypatch):
+    _need_cuda()
+    from unet_implementations_tpu_torch.ops import quant
+
+    monkeypatch.setenv("UNET_TPU_CONV_FP8", "all")
+    x = torch.zeros((1, 8, 8, 8), device="cuda", dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    w = torch.zeros((8, 8, 3, 3), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        quant.qconv(x, w, None, 1, 1)

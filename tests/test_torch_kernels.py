@@ -259,7 +259,7 @@ class TestBuild:
 
     def test_sources_and_flags(self):
         names = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-        assert names == ["instance_norm.cu", "runtime.cu", "s2d_region.cu", "upsample.cu",
-                         "winograd.cu"]
+        assert names == ["fp8_conv.cu", "instance_norm.cu", "runtime.cu", "s2d_region.cu",
+                         "upsample.cu", "winograd.cu"]
         assert "-gencode=arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
 

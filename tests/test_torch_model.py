@@ -24,13 +24,17 @@ from unet_implementations_tpu.models.unet import UNet as JaxUNet
 from unet_implementations_tpu.models.unet import unet_6stage as jax_unet_6stage
 from unet_implementations_tpu.ops.normalize import normalize_image as jax_normalize
 from unet_implementations_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
+from unet_implementations_tpu.ops.resize import resize_nearest as jax_resize_nearest
 from unet_implementations_tpu.utils.visualize import colorize_mask as jax_colorize
 from unet_implementations_tpu_torch import default_device
+from unet_implementations_tpu_torch.kernels import s2d_region
+from unet_implementations_tpu_torch.models import blocks
 from unet_implementations_tpu_torch.models import convert
 from unet_implementations_tpu_torch.models.unet import S2D_LAYOUT as S2D
 from unet_implementations_tpu_torch.models.unet import UNet, unet_6stage
 from unet_implementations_tpu_torch.ops import normalize as torch_normalize
-from unet_implementations_tpu_torch.ops.resize import resize_bilinear
+from unet_implementations_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from unet_implementations_tpu_torch.parallel.spatial import SpatialContext
 from unet_implementations_tpu_torch.utils.visualize import colorize_mask
 
 REPO = Path(__file__).resolve().parents[1]
@@ -150,6 +154,97 @@ class TestS2dLayout:
         assert float((got - want).norm() / want.norm()) <= 1e-5
 
 
+# Three stages, 32 channels at stage 1: with the s2d layout and k = 3 the
+# stride-2 s2d feed, and decoder_0 wrapped in s2d.
+WRAP3 = dict(features_per_stage=(8, 32, 16), strides=(1, 2, 2),
+             encoder_dropout_rates=(0.0, 0.1, 0.2), decoder_dropout_rates=(0.2, 0.0))
+FIELDS = {"k5": dict(kernel_size=5),
+          "convs3-1": dict(n_conv_per_stage=3, n_conv_per_stage_decoder=1)}
+
+
+class TestModelFields:
+    """``kernel_size``, ``n_conv_per_stage`` and ``n_conv_per_stage_decoder``
+    against JAX's UNet at 64² float32 (rtol 1e-3, atol 1e-4, as above), in
+    the dense layout and the s2d one, and the JAX rules that need k = 3."""
+
+    @pytest.mark.parametrize("layout", ["dense", "s2d"])
+    @pytest.mark.parametrize("fields", sorted(FIELDS))
+    def test_matches_jax(self, fields, layout):
+        flags = S2D if layout == "s2d" else {"s2d_level0": False,
+                                             "s2d_low_channel_decoders": False}
+        config = {**WRAP3, **FIELDS[fields]}
+        jmodel, params, model, x = _jax_and_port(config, 64, seed=21, **flags)
+        jmodel = JaxUNet(**config, **flags)
+        want = np.asarray(jax.jit(lambda p, a: jmodel.apply({"params": p}, a))(
+            params, jnp.asarray(x)))
+        with torch.no_grad():
+            got = model(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)
+
+    @pytest.mark.parametrize("fields", sorted(FIELDS))
+    def test_converter_round_trip(self, fields):
+        config = {**WRAP3, **FIELDS[fields]}
+        jmodel, params, model, _ = _jax_and_port(config, 16, seed=22)
+        ours = convert.params_from_jax(params, model)
+        ref = params_to_torch_unet_state_dict(params, jmodel)
+        assert ours.keys() == ref.keys() == model.state_dict().keys()
+        for k in ref:
+            np.testing.assert_array_equal(ours[k].numpy(), ref[k], err_msg=k)
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in ref.items()},
+                              strict=True)
+        n = config.get("n_conv_per_stage", 2)
+        assert len(model.encoder_stages[1].block) == 4 * n  # dropout 0.1: 4 slots a conv
+
+    def test_k5_rules(self, monkeypatch):
+        """With k = 5 the s2d layout keeps level 0 in s2d but takes no s2d
+        feed into encoder_1, wraps no decoder in s2d and runs no fused tail
+        (a 5×5 conv_1): spies on the three paths."""
+        from unet_implementations_tpu_torch.models import unet as unet_module
+
+        calls = {"stride2": 0, "tail": 0, "s2d": 0}
+        stride2, tail = blocks.conv_s2d_to_dense_stride2, blocks.fused_s2d_tail
+        to_s2d = unet_module.space_to_depth
+
+        def spy_s2d(*a):
+            calls["s2d"] += 1
+            return to_s2d(*a)
+
+        def spy_stride2(*a):
+            calls["stride2"] += 1
+            return stride2(*a)
+
+        def spy_tail(*a):
+            calls["tail"] += 1
+            return tail(*a)
+
+        monkeypatch.setattr(blocks, "conv_s2d_to_dense_stride2", spy_stride2)
+        monkeypatch.setattr(blocks, "fused_s2d_tail", spy_tail)
+        monkeypatch.setattr(unet_module, "space_to_depth", spy_s2d)
+        x = torch.from_numpy(np.random.default_rng(23).normal(size=(2, 32, 32, 3)).astype(
+            np.float32))
+        # k = 3: level 0 and decoder_0's skip into s2d; k = 5: level 0 only.
+        for k, want in ((3, {"stride2": 1, "tail": 3, "s2d": 2}),
+                        (5, {"stride2": 0, "tail": 0, "s2d": 1})):
+            calls.update(stride2=0, tail=0, s2d=0)
+            model = UNet(**WRAP3, **S2D, kernel_size=k).eval()
+            with torch.no_grad():
+                out = model(x)
+            assert calls == want, k
+            assert out.shape == (2, 32, 32, 3)
+
+    def test_region_applicable_refuses_k5(self):
+        x = torch.zeros(1, 4, 4, 32)
+        v = torch.ones(8)
+        with torch.no_grad():
+            assert s2d_region.region_applicable(x, v, v, torch.zeros(8, 8, 3, 3), v, v)
+            assert not s2d_region.region_applicable(x, v, v, torch.zeros(8, 8, 5, 5), v, v)
+
+    def test_spatial_k5_not_ported(self):
+        model = UNet(**WRAP3, kernel_size=5)
+        with pytest.raises(NotImplementedError, match="kernel_size != 3"):
+            model(torch.zeros(1, 16, 32, 3), spatial=SpatialContext(None, 2, 0))
+
+
 class TestConvert:
     @pytest.mark.parametrize("config", [TINY, NARROW6], ids=["tiny3", "narrow6"])
     def test_params_from_jax_equals_reference_export(self, config):
@@ -214,6 +309,23 @@ class TestOps:
         want = np.asarray(jax_resize_bilinear(jnp.asarray(x), out_size))
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
+    @pytest.mark.parametrize("case", ["mask-up", "mask-down", "nhwc-up", "nhwc-down"])
+    def test_resize_nearest_bitwise(self, case):
+        rng = np.random.default_rng(len(case))
+        up = case.endswith("up")
+        if case.startswith("mask"):
+            x = rng.integers(0, 3, (2, 13, 17)).astype(np.int32)
+            size, axes = ((29, 40) if up else (5, 8)), (-2, -1)
+        else:
+            x = rng.normal(size=(2, 13, 17, 3)).astype(np.float32)
+            size, axes = ((27, 51) if up else (6, 7)), (1, 2)
+        want = np.asarray(jax_resize_nearest(jnp.asarray(x), size, spatial_axes=axes))
+        got = resize_nearest(torch.from_numpy(x), size, spatial_axes=axes).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        if case.startswith("mask"):  # the default axes are the last two
+            np.testing.assert_array_equal(resize_nearest(torch.from_numpy(x), size).numpy(), want)
+
     def test_colorize_mask(self):
         mask = np.random.default_rng(2).choice([0, 1, 2, 255], (7, 9)).astype(np.uint8)
         np.testing.assert_array_equal(colorize_mask(mask), jax_colorize(mask))
@@ -266,7 +378,8 @@ print(json.dumps({"modules": names, "bad": bad, "cv2": "cv2" in sys.modules,
     assert result["sklearn"] is False
     assert "unet_implementations_tpu_torch.recipes.common" in result["modules"]
     for name in ("kernels.instance_norm", "kernels.upsample", "kernels.s2d_region",
-                 "kernels.winograd", "ops.s2d", "ops.losses", "ops.metrics",
+                 "kernels.winograd", "kernels.fp8_conv", "ops.quant", "ops.s2d", "ops.losses",
+                 "ops.metrics",
                  "training.train_state", "training.steps", "data.synthetic",
                  "data.loader", "training.early_stopping", "training.checkpoint",
                  "training.loop", "recipes.our_unet", "models.vgg", "recipes.ae_recon",

@@ -8,9 +8,10 @@ keeps the reference's module names so each counterpart is easy to find:
                  bottleneck fusion, the frozen CLIP ViT tower, the VGG16
                  feature extractor of the perceptual loss, and the
                  JAX-params / reference-``.pth`` converters.
-- ``ops``      — pixel normalization, the bilinear resize primitives (the
-                 plain versions the kernels are held to), the segmentation
-                 and reconstruction losses and the metrics.
+- ``ops``      — pixel normalization, the resize primitives (the plain
+                 versions the kernels are held to), the segmentation and
+                 reconstruction losses, the metrics, and the fp8 conv mode's
+                 policy (``quant``).
 - ``kernels``  — hand-written CUDA C++ kernels for ``sm_90a`` (``csrc/``),
                  built with ``nvcc`` at first use and bound with ``ctypes``;
                  the differentiable ones carry their backward.

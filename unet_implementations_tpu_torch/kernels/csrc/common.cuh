@@ -9,8 +9,9 @@
 
 namespace unet {
 
-// dtype codes shared with the Python wrappers (kernels/_build.py).
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+// dtype codes shared with the Python wrappers (kernels/_build.py; float16
+// only in kernels/fp8_conv.py).
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {

@@ -240,16 +240,18 @@ def _cuda_forward(x, scale1, bias1, weight2, scale2, bias2, eps, negative_slope)
     return out
 
 
-def region_applicable(x: torch.Tensor, *params: torch.Tensor) -> bool:
-    """Whether ``fused_s2d_tail(x, *params)`` is a call the kernel takes: x is
-    (B, H′, W′, 4C) float32 or bfloat16 with C in ``CHANNELS``, and autograd
-    would not record it (grad mode is off, or neither x nor a parameter
-    requires grad)."""
+def region_applicable(x: torch.Tensor, scale1: torch.Tensor, bias1: torch.Tensor,
+                      weight2: torch.Tensor, scale2: torch.Tensor, bias2: torch.Tensor) -> bool:
+    """Whether ``fused_s2d_tail(x, ...)`` is a call the kernel takes: x is
+    (B, H′, W′, 4C) float32 or bfloat16 with C in ``CHANNELS``, conv_1's
+    ``weight2`` is (C, C, 3, 3), and autograd would not record it (grad mode
+    is off, or neither x nor a parameter requires grad)."""
     if x.ndim != 4 or x.shape[-1] % 4 or x.shape[-1] // 4 not in CHANNELS:
         return False
-    if x.dtype not in _build.DTYPE_CODES:
+    c = x.shape[-1] // 4
+    if x.dtype not in _build.DTYPE_CODES or tuple(weight2.shape) != (c, c, 3, 3):
         return False
-    return not _build.records_grad(x, *params)
+    return not _build.records_grad(x, scale1, bias1, weight2, scale2, bias2)
 
 
 # The tail as an operator (``torch.ops.unet_torch.s2d_tail``): the launch on

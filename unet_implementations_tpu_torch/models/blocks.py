@@ -14,14 +14,21 @@ the s2d convs transform it at call time.
 
 Parameters are float32, as the JAX model's (flax's default ``param_dtype``);
 every conv casts its weight and bias to the activation's dtype at the call,
-as the JAX ``ConvOp`` does, so a bf16 model trains float32 masters. Channel
-dropout draws from the ``torch.Generator`` passed down from ``UNet.forward``.
+as the JAX ``ConvOp`` does, so a bf16 model trains float32 masters. Every
+conv of a block goes through ``ops/quant.py::qconv_sum`` (the fp8 conv mode,
+off by default). Channel dropout draws from the ``torch.Generator`` passed
+down from ``UNet.forward``.
+
+A dense decoder does not materialize the concat of its upsampled input and
+its skip: conv_0 takes the pair and sums the two segments' convs, as JAX's
+``ConvOp`` does with a tuple input.
 
 Under spatial partitioning ``UNet.forward`` also passes down a
 ``parallel/spatial.py::SpatialContext``: the dense blocks then run on a row
 shard of each image. A 3×3 conv pads the shard with its neighbours' edge rows
-(``pad_rows``), K1 normalizes with the whole images' statistics, and K2a
-upsamples the shard with one halo row a side (``upsample2x_nhwc_halo``).
+(``pad_rows``; a split conv pads each segment), K1 normalizes with the whole
+images' statistics, and K2a upsamples the shard with one halo row a side
+(``upsample2x_nhwc_halo``).
 Channel dropout is per (image, channel), so the ranks of a space group, whose
 generators draw alike, drop the same channels.
 
@@ -47,6 +54,7 @@ from unet_implementations_tpu_torch.kernels.upsample import (
     upsample2x_nhwc_fast,
     upsample2x_nhwc_halo,
 )
+from unet_implementations_tpu_torch.ops.quant import qconv_sum, quantizes
 from unet_implementations_tpu_torch.ops.s2d import (
     conv_s2d,
     conv_s2d_multi,
@@ -78,25 +86,39 @@ def kaiming_conv(cin: int, cout: int, kernel_size: int, stride: int,
     return conv.to(memory_format=torch.channels_last)
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d,
-           spatial: Optional[SpatialContext] = None) -> torch.Tensor:
-    """``conv`` applied in x's dtype: its float32 weight and bias are cast at
-    the call. On a row shard (``spatial``) a 3×3 conv takes the neighbours'
-    edge rows as its row padding: one row a side at stride 1; at stride 2,
-    whose even shard's last output row reads its own last row, only the row
-    above."""
-    weight, bias = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
-    if spatial is None or conv.kernel_size[0] == 1:
-        return F.conv2d(x, weight, bias, conv.stride, conv.padding)
-    padded = nchw(pad_rows(nhwc(x), spatial, below=conv.stride[0] == 1))
-    return F.conv2d(padded, weight, bias, conv.stride, (0, conv.padding[1]))
+def plain_conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` in x's dtype through ``F.conv2d`` alone: the convs that JAX
+    runs as ``nn.Conv`` (the CLIP fusion, VGG16), which the fp8 mode does not
+    take."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
+                    conv.padding)
+
+
+def conv2d(x, conv: nn.Conv2d, spatial: Optional[SpatialContext] = None) -> torch.Tensor:
+    """``conv`` applied in the activation's dtype (its float32 weight and bias
+    are cast at the call) through ``qconv_sum``. ``x`` is an NCHW tensor, or a
+    tuple of them whose logical channel-concat the conv takes without
+    materializing it: the sum of each segment's conv by its slice of the
+    kernel, the bias once. On a row shard (``spatial``) a 3×3 conv takes the
+    neighbours' edge rows as its row padding, each segment its own: one row a
+    side at stride 1; at stride 2, whose even shard's last output row reads its
+    own last row, only the row above. The fp8 policy then sees the whole
+    image's rows."""
+    xs = x if isinstance(x, tuple) else (x,)
+    weight, bias = conv.weight.to(xs[0].dtype), conv.bias.to(xs[0].dtype)
+    weights = (weight,) if len(xs) == 1 else weight.split([xi.shape[1] for xi in xs], dim=1)
+    stride, pad = conv.stride[0], conv.padding[0]
+    rows = None if spatial is None else xs[0].shape[2] * spatial.size
+    if spatial is not None and conv.kernel_size[0] > 1:
+        xs = [nchw(pad_rows(nhwc(xi), spatial, below=stride == 1)) for xi in xs]
+        return qconv_sum(xs, weights, bias, stride, (0, 0, pad, pad), rows)
+    return qconv_sum(xs, weights, bias, stride, pad, rows)
 
 
 # The reference block: InstanceNorm2d(eps=1e-5, affine) + LeakyReLU(0.01)
-# after every 3x3 conv, two convs per block.
+# after every conv.
 EPS = 1e-5
 NEGATIVE_SLOPE = 0.01
-N_CONVS = 2
 
 
 class InstanceNorm(nn.Module):
@@ -157,19 +179,22 @@ class ChannelDropout(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """2 x [3x3 Conv -> InstanceNorm+LeakyReLU -> channel dropout]; the
-    stride applies to the first conv only.
+    """n_convs x [k×k Conv (padding k//2) -> InstanceNorm+LeakyReLU ->
+    channel dropout]; the stride applies to the first conv only.
 
     Layouts (``forward`` arguments):
-    - dense (default): ``x`` is a dense tensor, and the block runs the
-      units of the reference's ``block`` Sequential in order;
+    - dense (default): ``x`` is a dense tensor, or a tuple of them that conv_0
+      takes as one channel-concat (``conv2d``), and the block runs the units
+      of the reference's ``block`` Sequential in order;
     - ``s2d``: ``x`` is an s2d tensor, or with ``s2d_segments_first`` a tuple
       of s2d tensors whose logical channel-concat conv_0 takes without
       materializing it (segments: their dense channel counts); the output is
-      s2d. In eval mode conv_0 is followed by the fused tail (K3) where
-      ``region_applicable`` allows it: a width K3 takes, and a call autograd
-      would not record (K3 has no backward). Otherwise, and in training, the
-      block runs its module path;
+      s2d. In eval mode a two-conv block follows conv_0 with the fused tail
+      (K3) where ``region_applicable`` allows it (a 3×3 kernel, a width K3
+      takes, and a call autograd would not record: K3 has no backward) and the
+      fp8 policy would not quantize conv_1 (JAX's tail quantizes it through
+      ``conv_s2d``). Otherwise, and in training, the block runs its module
+      path;
     - ``s2d_input_first``: conv_0 is the stride-2 conv taking an s2d tensor,
       with a dense half-resolution output; the rest of the block is dense.
 
@@ -177,13 +202,14 @@ class ConvBlock(nn.Module):
     """
 
     def __init__(self, cin: int, features: int, stride: int = 1, dropout_rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, n_convs: int = 2,
+                 kernel_size: int = 3):
         super().__init__()
         layers = []
         c = cin
-        for i in range(N_CONVS):
+        for i in range(n_convs):
             layers += [
-                kaiming_conv(c, features, 3, stride if i == 0 else 1, generator),
+                kaiming_conv(c, features, kernel_size, stride if i == 0 else 1, generator),
                 InstanceNorm(features),
                 FusedActivation(),
             ]
@@ -191,6 +217,7 @@ class ConvBlock(nn.Module):
                 layers.append(ChannelDropout(dropout_rate))
             c = features
         self.block = nn.Sequential(*layers)
+        self.n_convs = n_convs
         self.dropout_rate = dropout_rate
         self.step = 4 if dropout_rate > 0 else 3
 
@@ -226,7 +253,7 @@ class ConvBlock(nn.Module):
             x = self._conv0(x, s2d_input_first, s2d_segments_first)
         else:
             x = conv2d(x, self._unit(0)[0], spatial)
-        if s2d and N_CONVS == 2 and not self.training:
+        if s2d and self.n_convs == 2 and not self.training and not quantizes(x):
             # The fused tail (K3): IN -> lrelu -> conv_1 -> IN -> lrelu.
             # Dropout is off in eval mode; conv_1's bias cancels in IN2.
             (_, norm0), (conv1, norm1) = self._unit(0), self._unit(1)
@@ -234,7 +261,7 @@ class ConvBlock(nn.Module):
             if region_applicable(*tail):
                 return nchw(fused_s2d_tail(*tail, EPS, NEGATIVE_SLOPE))
         group = 4 if s2d else 1
-        for i in range(N_CONVS):
+        for i in range(self.n_convs):
             conv, norm = self._unit(i)
             if i > 0:
                 x = (nchw(conv_s2d(nhwc(x), conv.weight, conv.bias)) if s2d
@@ -244,21 +271,25 @@ class ConvBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """Bilinear upsample to the skip's size, concat [upsampled, skip], ConvBlock.
+    """Bilinear upsample to the skip's size, logical concat [upsampled, skip],
+    ConvBlock.
 
     Dense: an exact 2x step goes through the K2a kernel, any other size ratio
-    (odd input sizes) through ``resize_bilinear``, and the concat is
-    materialized. On a row shard (``spatial``) the step must be an exact 2x,
-    which K2a takes with one halo row a side. ``s2d``: ``skip`` is an s2d
+    (odd input sizes) through ``resize_bilinear``, and the pair goes to the
+    block's conv_0 as two segments, never concatenated. On a row shard
+    (``spatial``) the step must be an exact 2x, which K2a takes with one halo
+    row a side. ``s2d``: ``skip`` is an s2d
     tensor at ``x``'s spatial size; K2b emits the upsample straight into s2d
     layout, and the two s2d tensors go to the block as segments, never
     concatenated.
     """
 
     def __init__(self, cin: int, skip_channels: int, features: int, dropout_rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, n_convs: int = 2,
+                 kernel_size: int = 3):
         super().__init__()
-        self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, generator)
+        self.conv_block = ConvBlock(cin + skip_channels, features, 1, dropout_rate, generator,
+                                    n_convs, kernel_size)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor, s2d: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -282,5 +313,4 @@ class UpBlock(nn.Module):
             x = nchw(upsample2x_nhwc_fast(nhwc(x)))
         elif size != skip_size:
             x = nchw(resize_bilinear(nhwc(x), skip_size))
-        x = torch.cat([x, skip], dim=1).contiguous(memory_format=torch.channels_last)
-        return self.conv_block(x, generator=generator, spatial=spatial)
+        return self.conv_block((x, skip), generator=generator, spatial=spatial)

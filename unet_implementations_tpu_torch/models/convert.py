@@ -11,7 +11,9 @@ keys, which the JAX package also writes (``cli export_torch``):
 
 Inside each ``block`` every conv occupies [Conv2d, InstanceNorm, LeakyReLU(,
 dropout)], so the conv of unit j sits at j*step and its norm at j*step+1,
-with step 4 when the stage's dropout rate is > 0, else 3.
+with step 4 when the stage's dropout rate is > 0, else 3; a block has the
+model's ``n_conv_per_stage`` (encoder) or ``n_conv_per_stage_decoder``
+(decoder) units.
 
 ``clip_params_from_jax`` carries the JAX CLIP tower's weights into the
 port's tower (``models/clip.py``), whose keys are the OpenAI visual tower's.
@@ -31,7 +33,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from unet_implementations_tpu_torch.models.blocks import N_CONVS
 from unet_implementations_tpu_torch.models.unet import UNet, autoencoder_6stage, unet_6stage
 
 
@@ -47,12 +48,14 @@ def _vec(v) -> torch.Tensor:
 
 def params_from_jax(params: Dict, model: UNet) -> Dict[str, torch.Tensor]:
     """The JAX ``UNet`` params tree (nested dict of arrays) as the port's
-    float32 ``state_dict``; load it with ``model.load_state_dict(sd)``."""
+    float32 ``state_dict``; load it with ``model.load_state_dict(sd)``. The
+    model's ``n_conv_per_stage`` and ``n_conv_per_stage_decoder`` give the
+    conv units of each encoder and decoder block."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def emit_block(prefix: str, tree: Dict, dropout: float):
+    def emit_block(prefix: str, tree: Dict, n_convs: int, dropout: float):
         step = 4 if dropout > 0 else 3
-        for j in range(N_CONVS):
+        for j in range(n_convs):
             conv_idx, norm_idx = j * step, j * step + 1
             sd[f"{prefix}.block.{conv_idx}.weight"] = _conv_oihw(tree[f"conv_{j}"]["kernel"])
             sd[f"{prefix}.block.{conv_idx}.bias"] = _vec(tree[f"conv_{j}"]["bias"])
@@ -60,11 +63,11 @@ def params_from_jax(params: Dict, model: UNet) -> Dict[str, torch.Tensor]:
             sd[f"{prefix}.block.{norm_idx}.bias"] = _vec(tree[f"norm_{j}"]["bias"])
 
     for i in range(model.n_stages):
-        emit_block(f"encoder_stages.{i}", params[f"encoder_{i}"],
+        emit_block(f"encoder_stages.{i}", params[f"encoder_{i}"], model.n_conv_per_stage,
                    model.encoder_dropout_rates[i])
     for d in range(model.n_stages - 1):
         emit_block(f"decoder_stages.{d}.conv_block", params[f"decoder_{d}"]["conv_block"],
-                   model.decoder_dropout_rates[d])
+                   model.n_conv_per_stage_decoder, model.decoder_dropout_rates[d])
     head = "segmentation_output" if model.head == "segmentation" else "reconstruction_output.0"
     sd[f"{head}.weight"] = _conv_oihw(params["head"]["kernel"])
     sd[f"{head}.bias"] = _vec(params["head"]["bias"])

@@ -11,16 +11,18 @@ grafted from an autoencoder and frozen (``recipes/ae_transfer.py``). The
 CLIP_UNet model is the segmentation UNet with ``clip_fusion``: a global
 (B, clip_dim) image embedding fused at the bottleneck. Under spatial
 partitioning (``parallel/spatial.py``) the dense model runs on a row shard of
-each image.
+each image. ``remat`` recomputes each block's activations in the backward
+(JAX's ``nn.remat``), with the same channel-dropout masks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unet_implementations_tpu_torch import default_device, not_ported
 from unet_implementations_tpu_torch.models.blocks import (
@@ -31,6 +33,7 @@ from unet_implementations_tpu_torch.models.blocks import (
     kaiming_conv,
     nchw,
     nhwc,
+    plain_conv2d,
 )
 from unet_implementations_tpu_torch.ops.s2d import conv_s2d, depth_to_space, space_to_depth
 from unet_implementations_tpu_torch.parallel.spatial import SpatialContext
@@ -48,6 +51,32 @@ IN_CHANNELS = 3  # RGB
 # The JAX model's default layout: level 0, and the decoders under 128
 # channels, in space-to-depth. Keywords of ``UNet`` and ``unet_6stage``.
 S2D_LAYOUT = {"s2d_level0": True, "s2d_low_channel_decoders": True}
+
+
+def remat_call(fn: Callable, args: tuple, generator: Optional[torch.Generator]):
+    """``fn(*args, generator)`` under ``torch.utils.checkpoint`` (non-
+    reentrant): only its inputs are saved, and the backward reruns it.
+
+    Channel dropout draws from ``generator``, an explicit generator that the
+    checkpoint's ``preserve_rng_state`` does not cover: the rerun would draw
+    new masks and the gradients would be wrong. So every run of ``fn`` draws
+    from a fresh generator set to the state ``generator`` has now, and after
+    the forward ``generator`` takes the state the first run left, as if it had
+    drawn the masks itself."""
+    if generator is None:
+        return checkpoint(lambda *a: fn(*a, None), *args, use_reentrant=False)
+    state = generator.get_state()
+    runs = []
+
+    def run(*a):
+        g = torch.Generator(device=generator.device)
+        g.set_state(state)
+        runs.append(g)
+        return fn(*a, g)
+
+    out = checkpoint(run, *args, use_reentrant=False)
+    generator.set_state(runs[0].get_state())
+    return out
 
 
 class UNet(nn.Module):
@@ -71,6 +100,15 @@ class UNet(nn.Module):
     on the CPU from ``generator`` (a fresh seed-0 generator when None); move
     it with ``.to(device)``. In training mode its channel dropout draws from
     the generator ``forward`` is given.
+
+    ``kernel_size`` (the k×k of every block conv, padding k//2),
+    ``n_conv_per_stage`` and ``n_conv_per_stage_decoder`` (conv units per
+    encoder and decoder block) and ``remat`` are JAX's fields with its
+    defaults (3, 2, 2, False). A kernel size other than 3 turns off the s2d
+    feed of encoder_1, keeps it dense, and runs no decoder in s2d, as in JAX.
+    ``remat``: in training with grad enabled, each encoder stage and each
+    decoder runs under ``remat_call``, which saves only its inputs and
+    recomputes the rest in the backward.
 
     ``s2d_level0`` runs the full-resolution level (encoder_0, the last
     decoder, the head) in space-to-depth layout, and
@@ -96,6 +134,10 @@ class UNet(nn.Module):
         head: str = "segmentation",
         clip_fusion: bool = False,
         clip_dim: int = 512,
+        kernel_size: int = 3,
+        n_conv_per_stage: int = 2,
+        n_conv_per_stage_decoder: int = 2,
+        remat: bool = False,
     ):
         super().__init__()
         if head not in HEADS:
@@ -113,17 +155,23 @@ class UNet(nn.Module):
         self.head = head
         self.clip_fusion = clip_fusion
         self.clip_dim = clip_dim
+        self.kernel_size = kernel_size
+        self.n_conv_per_stage = n_conv_per_stage
+        self.n_conv_per_stage_decoder = n_conv_per_stage_decoder
+        self.remat = remat
         cin = IN_CHANNELS
         encoders = []
         for i in range(n):
             encoders.append(ConvBlock(cin, features_per_stage[i], strides[i],
-                                      encoder_dropout_rates[i], generator))
+                                      encoder_dropout_rates[i], generator, n_conv_per_stage,
+                                      kernel_size))
             cin = features_per_stage[i]
         self.encoder_stages = nn.ModuleList(encoders)
         decoders = []
         for d in range(n - 1):
             feats = features_per_stage[n - 2 - d]
-            decoders.append(UpBlock(cin, feats, feats, decoder_dropout_rates[d], generator))
+            decoders.append(UpBlock(cin, feats, feats, decoder_dropout_rates[d], generator,
+                                    n_conv_per_stage_decoder, kernel_size))
             cin = feats
         self.decoder_stages = nn.ModuleList(decoders)
         if head == "segmentation":
@@ -159,11 +207,14 @@ class UNet(nn.Module):
         ``spatial``: ``x`` is this rank's row shard (B, H/S, W, C_in) of the
         images of a space group of S ranks, and so is the output (JAX's
         spatially sharded forward). The shards must stay equal and even at
-        every level: H divisible by 2^(stages-1)·S. The dense layout only."""
+        every level: H divisible by 2^(stages-1)·S. The dense layout and 3×3
+        convs only."""
         n = self.n_stages
         if spatial is not None:
             if self.s2d_level0 or self.s2d_low_channel_decoders:
                 raise not_ported("--spatial with the s2d layout", 7)
+            if self.kernel_size != 3:
+                raise not_ported("--spatial with kernel_size != 3", 7)
             down = math.prod(self.strides)
             if x.shape[1] % down:
                 raise ValueError(
@@ -173,21 +224,21 @@ class UNet(nn.Module):
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         # The JAX model's rules: the s2d level needs even sizes and a
         # stride-1 first stage; encoder_1 then takes the s2d skip through a
-        # transformed stride-2 conv.
+        # transformed stride-2 conv, which needs a 3×3 kernel.
         use_s2d = (self.s2d_level0 and self.strides[0] == 1
                    and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
-        feed_s2d = use_s2d and n > 2 and self.strides[1] == 2
+        feed_s2d = use_s2d and n > 2 and self.strides[1] == 2 and self.kernel_size == 3
         skips = []
         for i, stage in enumerate(self.encoder_stages[:-1]):
             s2d_stage = use_s2d and i == 0
             if s2d_stage:
                 x = nchw(space_to_depth(nhwc(x)))
-            x = stage(x, s2d=s2d_stage, s2d_input_first=feed_s2d and i == 1, generator=generator,
-                      spatial=spatial)
+            x = self._block(stage, (x,), generator, s2d=s2d_stage,
+                            s2d_input_first=feed_s2d and i == 1, spatial=spatial)
             skips.append(x)  # skip 0 stays s2d for the last decoder
             if s2d_stage and not feed_s2d:
                 x = nchw(depth_to_space(nhwc(x)))
-        x = self.encoder_stages[-1](x, generator=generator, spatial=spatial)
+        x = self._block(self.encoder_stages[-1], (x,), generator, spatial=spatial)
         if self.clip_fusion and clip_features is not None:
             x = self._fuse(x, clip_features, spatial)
         bottleneck = x
@@ -198,12 +249,13 @@ class UNet(nn.Module):
             s2d_stage = use_s2d and skip_idx == 0
             # Decoders under 128 channels run in s2d too (the JAX rule).
             s2d_wrap = (self.s2d_low_channel_decoders and not s2d_stage
-                        and feats < 128 and (4 * feats) % 128 == 0
+                        and feats < 128 and (4 * feats) % 128 == 0 and self.kernel_size == 3
                         and skip.shape[2] == 2 * x.shape[2] and skip.shape[3] == 2 * x.shape[3]
                         and skip.shape[2] % 2 == 0 and skip.shape[3] % 2 == 0)
             if s2d_wrap:
                 skip = nchw(space_to_depth(nhwc(skip)))
-            x = decoder(x, skip, s2d=s2d_stage or s2d_wrap, generator=generator, spatial=spatial)
+            x = self._block(decoder, (x, skip), generator, s2d=s2d_stage or s2d_wrap,
+                            spatial=spatial)
             if s2d_wrap:
                 x = nchw(depth_to_space(nhwc(x)))
         head = (self.segmentation_output if self.head == "segmentation"
@@ -218,6 +270,16 @@ class UNet(nn.Module):
         if return_bottleneck:
             return out, nhwc(bottleneck).reshape(bottleneck.shape[0], -1)
         return out
+
+    def _block(self, block: nn.Module, args: tuple, generator, **kwargs) -> torch.Tensor:
+        """``block(*args, generator=generator, **kwargs)``; under ``remat`` in
+        training with grad enabled, through ``remat_call``."""
+        def fn(*a):
+            return block(*a[:-1], generator=a[-1], **kwargs)
+
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat_call(fn, args, generator)
+        return fn(*args, generator)
 
     def load_reference_state_dict(self, sd: dict) -> "UNet":
         """``load_state_dict(sd, strict=True)``, except that a ``clip_fusion``
@@ -242,7 +304,7 @@ class UNet(nn.Module):
         cf = cf[:, :, None, None].expand(b, self.clip_dim, h, w)
         x = torch.cat([x, cf], dim=1).contiguous(memory_format=torch.channels_last)
         conv, norm = self.clip_fusion_conv[0], self.clip_fusion_conv[1]
-        return norm(conv2d(x, conv), spatial=spatial)
+        return norm(plain_conv2d(x, conv), spatial=spatial)
 
 
 def unet_6stage(dtype: torch.dtype = torch.float32, device=None,

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_implementations_tpu_torch import default_device
-from unet_implementations_tpu_torch.models.blocks import conv2d, kaiming_conv, nchw, nhwc
+from unet_implementations_tpu_torch.models.blocks import kaiming_conv, nchw, nhwc, plain_conv2d
 
 # VGG16 conv plan: (conv count, channels) per block.
 VGG16_PLAN = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -60,7 +60,7 @@ class VGG16Features(nn.Module):
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         for b, (n_convs, _) in enumerate(VGG16_PLAN[:self.last_block + 1]):
             for i in range(n_convs):
-                x = F.relu(conv2d(x, self.convs[f"conv{b + 1}_{i + 1}"]))
+                x = F.relu(plain_conv2d(x, self.convs[f"conv{b + 1}_{i + 1}"]))
                 if (b, i) in self.wanted:
                     out[self.wanted[(b, i)]] = nhwc(x)
             if b < self.last_block:

@@ -1,6 +1,7 @@
 """Resize primitives with torch/cv2 semantics, NHWC.
 
-Counterpart of ``unet_implementations_tpu/ops/resize.py``. Bilinear uses
+Counterpart of ``unet_implementations_tpu/ops/resize.py``. Nearest uses
+the source index ``floor(dst * in/out)``. Bilinear uses
 half-pixel centers with edge clamping (``F.interpolate(mode="bilinear",
 align_corners=False)``); the source coordinates are computed in float32 as
 torch's own kernels do.
@@ -17,6 +18,24 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
+    """Source index of each output position, ``floor(dst * in/out)`` computed
+    in float64 on the host (as torch and JAX do), clipped to the input."""
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * (in_size / out_size)).astype(np.int64)
+    return torch.from_numpy(np.clip(idx, 0, in_size - 1)).to(device)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int],
+                   spatial_axes: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
+    """Nearest-neighbour resize along two axes (default the last two: masks;
+    ``(1, 2)`` for NHWC images), the asymmetric ``floor(dst * in/out)``
+    mapping of ``F.interpolate(mode="nearest")`` and cv2's ``INTER_NEAREST``.
+    Any dtype; the values are gathered, not computed."""
+    ax_h, ax_w = (a % x.ndim for a in spatial_axes)
+    x = torch.index_select(x, ax_h, _nearest_indices(size[0], x.shape[ax_h], x.device))
+    return torch.index_select(x, ax_w, _nearest_indices(size[1], x.shape[ax_w], x.device))
 
 
 def _linear_weights(out_size: int, in_size: int, device=None):

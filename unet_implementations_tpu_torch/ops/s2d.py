@@ -14,8 +14,9 @@ each segment separately and sums, without materializing the concat.
 
 Every function takes and returns NHWC tensors, as the JAX functions do;
 conv kernels are in torch's (Cout, Cin, kh, kw) layout. The convs run as
-``F.conv2d`` on NCHW views in channels_last memory (cuDNN on the card), so
-an NHWC-contiguous input reaches cuDNN without a copy.
+``ops/quant.py::qconv`` on NCHW views in channels_last memory: ``F.conv2d``
+(cuDNN on the card), so an NHWC-contiguous input reaches cuDNN without a
+copy, or the fp8 conv where the fp8 mode takes the conv.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from unet_implementations_tpu_torch.ops.quant import qconv, qconv_sum
 from unet_implementations_tpu_torch.ops.resize import lerp2_taps
 
 
@@ -209,15 +210,15 @@ def transform_kernel_stride2(kernel: torch.Tensor) -> torch.Tensor:
 def conv_s2d_to_dense_stride2(x: torch.Tensor, kernel: torch.Tensor,
                               bias: torch.Tensor) -> torch.Tensor:
     """Stride-2 3×3 conv of an s2d input (B, H′, W′, 4Cin) into a DENSE
-    (B, H′, W′, Cout) map.
+    (B, H′, W′, Cout) map: a 2×2 conv padded (1, 0) in rows and columns.
 
-    The (1, 0) padding is done as padding 1 on both sides and dropping the
-    last output row and column: one extra row and column of products, and
-    no padded copy of the input. The returned NHWC view is not contiguous.
+    Through ``F.conv2d`` the (1, 0) padding is done as padding 1 on both sides
+    and dropping the last output row and column: one extra row and column of
+    products, and no padded copy of the input; the returned NHWC view is then
+    not contiguous.
     """
     kt = transform_kernel_stride2(kernel.to(x.dtype))
-    y = F.conv2d(_nchw(x), kt, bias.to(x.dtype), padding=1)
-    return _nhwc(y)[:, :x.shape[1], :x.shape[2]]
+    return _nhwc(qconv(_nchw(x), kt, bias.to(x.dtype), 1, (1, 0, 1, 0)))
 
 
 def s2d_bias(bias: torch.Tensor) -> torch.Tensor:
@@ -232,23 +233,22 @@ def conv_s2d(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]
     dtype and transformed here; ``bias`` None adds none."""
     kt = transform_kernel(kernel.to(x.dtype), in_segments)
     b = None if bias is None else s2d_bias(bias).to(x.dtype)
-    return _nhwc(F.conv2d(_nchw(x), kt, b, padding=kt.shape[-1] // 2))
+    return _nhwc(qconv(_nchw(x), kt, b, 1, kt.shape[-1] // 2))
 
 
 def conv_s2d_multi(xs: Sequence[torch.Tensor], kernel: torch.Tensor, bias: torch.Tensor,
                    segments: Sequence[int]) -> torch.Tensor:
     """Stride-1 s2d conv over a channel-concat of s2d tensors without
     materializing the concat: ``conv(concat(xs), K) == Σ conv(x_i, K_i)``,
-    with ``K_i`` the kernel's slice of segment i. The bias goes with the
-    first segment's conv; the others are added into its output in place."""
+    with ``K_i`` the kernel's slice of segment i (``qconv_sum``)."""
     if len(xs) != len(segments):
         raise ValueError(f"{len(xs)} inputs for {len(segments)} segments")
-    y, base = None, 0
-    for i, (x, cs) in enumerate(zip(xs, segments)):
-        yi = conv_s2d(x, kernel[:, base:base + cs], bias if i == 0 else None)
-        y = yi if y is None else y.add_(yi)
-        base += cs
-    return y
+    kernel = kernel.to(xs[0].dtype)
+    bounds = np.cumsum((0, *segments))
+    kts = [transform_kernel(kernel[:, lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    y = qconv_sum([_nchw(x) for x in xs], kts, s2d_bias(bias).to(xs[0].dtype), 1,
+                  kts[0].shape[-1] // 2)
+    return _nhwc(y)
 
 
 def instance_norm_s2d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

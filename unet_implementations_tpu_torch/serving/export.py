@@ -9,7 +9,8 @@ the weights inside. Every kernel on the inference path is an operator
 one node per kernel launch: 22 K1 and 5 K2a in the dense 6-stage model; 16
 K1, 3 K2a, 2 K2b and 3 K3 in the space-to-depth layout (``S2D_LAYOUT``).
 Replayed on the card, those nodes launch the kernels; on the CPU, their plain
-versions.
+versions. Exported under the fp8 conv mode (``UNET_TPU_CONV_FP8``, read
+while tracing), each quantized conv is a ``unet_torch::fp8_conv`` node.
 
 Artifact layout (a directory):
 
@@ -33,7 +34,12 @@ import numpy as np
 import torch
 
 from unet_implementations_tpu_torch import default_device
-from unet_implementations_tpu_torch.kernels import instance_norm, s2d_region, upsample  # noqa: F401
+from unet_implementations_tpu_torch.kernels import (  # noqa: F401
+    fp8_conv,
+    instance_norm,
+    s2d_region,
+    upsample,
+)
 
 ARTIFACT_FORWARD = "forward.pt2"
 ARTIFACT_META = "export_meta.json"

@@ -242,11 +242,12 @@ def _print(r: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): device memory rate,
-# the float32 rate outside the tensor cores, and the dense bf16 tensor-core
-# rate.
+# the float32 rate outside the tensor cores, and the dense bf16 and fp8
+# tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
+FP8_TENSOR_FLOPS_PER_S = 1979e12
 
 PORT_PREFIX = f"{_build.OPS_NAMESPACE}::"
 # The port's operators and the bytes of one call, by their kernels' own
