@@ -279,18 +279,25 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    both fp8 dtypes: the kernel's fp8 casts of x and the weight bit for bit the
    plain cast; the conv alone within FP8_ULPS of the plain version (or of the
    exact sum, see FP8_ULPS); the call with its bias and residual within its
-   epilogue's roundings; a second call bit for bit; nvcc's report for the fp8
-   conv kernel, which must spill nothing. (b) Each layout at b8 under ``all``
-   and ``128``: K1/K2a/K2b/K3 and fp8 launches a forward (28 and 17 fp8, the
-   split decoders' conv_0 two each; K3 0, its blocks' conv_1 quantized),
+   epilogue's roundings; a second call bit for bit; where the wgmma kernel
+   takes the call (``wgmma_applicable``: Cin and Cout multiples of 32), its
+   packed weights bit for bit ``pack_weight_plain`` and its own launch count;
+   nvcc's report for both fp8 conv kernels, which must spill nothing. (b)
+   Each layout at b8 under ``all`` and ``128``: K1/K2a/K2b/K3 and fp8
+   launches a forward (28 and 17 fp8, the split decoders' conv_0 two each,
+   all but the first conv and the head (2) the wgmma kernel's; K3 0, its
+   blocks' conv_1 quantized),
    finite logits, the mean drift and argmax agreement against the bf16
    model, and the argmax agreement with the same model through the plain
    versions (fp8 included) at least the fp8 model's with bf16; an artifact
    exported under ``all`` at b2 replays bit for bit the eager forward, one
    fp8 node a launch. (c) Printed: the b128 forward, policy off and ``all``
-   (e5m2), each layout; the kernel at each distinct call of the dense b128
-   forward beside its plain version, cuDNN's bf16 conv of that shape and its
-   bound (the kernels line's row sums them over the forward's 28 calls). (d)
+   (e5m2), each layout; at each distinct call of the dense b128 forward the
+   kernel that takes it and, where that is the wgmma kernel, the general
+   kernel on the same call (``_cuda_conv(general=True)``, the yardstick), in
+   turns, beside the plain version, cuDNN's bf16 conv of that shape and the
+   bound (the kernels line's two fp8 rows sum them over the calls each kernel
+   takes); the wgmma kernel's total must be below the general kernel's. (d)
    Printed: each dense decoder's conv_0 as the split conv against ``cat`` and
    one conv at b128, and phases 5 and 7's dense readings beside PR 16's. (e)
    The dense step with and without ``remat`` from the same weights and
@@ -666,10 +673,13 @@ TRAIN_F32_GRAD_REL = 1e-4
 L2_MULTIPLE = 4
 
 failures: list[str] = []
+# Each failed phase's traceback, repeated at the end of stderr.
+failure_traces: list[str] = []
 # The fp8 conv (phase 16) is counted apart from KERNELS: the policy is off in
 # every other phase, so their expected launches do not name it.
-report: dict = {"err": dict.fromkeys(KERNELS + ("fp8",), 0.0),
-                "path_launches": dict.fromkeys(KERNELS + ("fp8",), 0), "rows": {}, "bound_by": {}}
+FP8_KEYS = ("fp8_wgmma", "fp8")
+report: dict = {"err": dict.fromkeys(KERNELS + FP8_KEYS, 0.0),
+                "path_launches": dict.fromkeys(KERNELS + FP8_KEYS, 0), "rows": {}, "bound_by": {}}
 
 
 def log(msg: str) -> None:
@@ -685,7 +695,8 @@ def phase(name: str):
                 return fn(*args, **kwargs)
             except Exception:
                 failures.append(name)
-                log(f"!! phase failed: {name}\n{traceback.format_exc()}")
+                failure_traces.append(traceback.format_exc())
+                log(f"!! phase failed: {name}\n{failure_traces[-1]}")
                 return None
             finally:
                 log(f"   ({time.perf_counter() - t0:.1f} s)")
@@ -721,6 +732,7 @@ def reset_launches() -> None:
     k4.winograd_conv_s2d.launches = 0
     k4.winograd_conv_s2d.launches_folded = 0
     k8.fp8_conv.launches = 0
+    k8.fp8_conv.wgmma_launches = 0
 
 
 def add_path_launches() -> None:
@@ -4286,7 +4298,8 @@ FP8_ULPS = 1.0
 FP8_SUM_REL = 2.0 ** -24
 # At most this many elements of one call may need the exact sums.
 FP8_MAX_FAR = 4096
-FP8_KERNEL = "fp8_conv_kernel"
+# The wgmma kernel and the general one.
+FP8_KERNELS = ("fp8_conv_wgmma_kernel", "fp8_conv_kernel")
 # (f): a model with JAX's other fields: 5x5 convs, 3 conv units an encoder
 # stage and 1 a decoder, at b4. K1: 6 x 3 + 5 x 1 a forward, as many K1bwd a
 # step; K2a 5; no K3 (dense).
@@ -4333,15 +4346,19 @@ def fp8_route(fn):
         quant.fp8_conv = real
 
 
-def fp8_counted(fn, expected: dict, n_fp8: int, path: bool = True):
-    """``counted`` with the fp8 conv's launches read too (``n_fp8``); with
-    ``path`` both go into the kernels line."""
+def fp8_counted(fn, expected: dict, n_fp8: int, n_wgmma: int, path: bool = True):
+    """``counted`` with the fp8 conv's launches read too: ``n_fp8`` in all,
+    ``n_wgmma`` of them the wgmma kernel's; with ``path`` they go into the
+    kernels line."""
     out = counted(fn, expected)
-    if k8.fp8_conv.launches != n_fp8:
-        raise AssertionError(f"expected {n_fp8} fp8 conv launches, got {k8.fp8_conv.launches}")
+    got = (k8.fp8_conv.launches, k8.fp8_conv.wgmma_launches)
+    if got != (n_fp8, n_wgmma):
+        raise AssertionError(f"expected {n_fp8} fp8 conv launches, {n_wgmma} of them the "
+                             f"wgmma kernel's, got {got}")
     if path:
         add_path_launches()
-        report["path_launches"]["fp8"] += n_fp8
+        report["path_launches"]["fp8_wgmma"] += n_wgmma
+        report["path_launches"]["fp8"] += n_fp8 - n_wgmma
     return out
 
 
@@ -4362,16 +4379,19 @@ def conv_grids(layout: str) -> list:
     return convs + [(sides[0] // half, 1)]
 
 
-def fp8_expected(layout: str, min_grid: int) -> tuple[dict, int]:
+def fp8_expected(layout: str, min_grid: int) -> tuple[dict, int, int]:
     """The kernels' launches and the fp8 conv's of one forward under the
-    policy: K3 runs only where conv_1 is not quantized (each K3 replaces two
-    K1 launches)."""
-    n_fp8 = sum(seg for grid, seg in conv_grids(layout) if grid >= min_grid)
+    policy, and how many of those the wgmma kernel takes (all but the first
+    conv, Cin 3 or 12, and the head, Cout 3 or 12): K3 runs only where conv_1
+    is not quantized (each K3 replaces two K1 launches)."""
+    grids = conv_grids(layout)
+    n_fp8 = sum(seg for grid, seg in grids if grid >= min_grid)
+    n_general = sum(seg for grid, seg in (grids[0], grids[-1]) if grid >= min_grid)
     per_forward = dict(PER_FORWARD[layout])
     if layout == "s2d":
         k3 = sum(1 for _, side, _ in K3_CALLS if side < min_grid)
         per_forward.update(K3=k3, K1=sum(K1_CALLS) - 2 * k3)
-    return per_forward, n_fp8
+    return per_forward, n_fp8, n_fp8 - n_general
 
 
 def seeded_model(dtype, layout: str = "dense", **fields) -> UNet:
@@ -4459,14 +4479,20 @@ def check_fp8_call(sig: tuple, fp8: str, seed: int) -> str:
             raise AssertionError(f"{sig}: the kernel's fp8 cast of {name} is not the plain one")
     xq = k8.fp8_values(k8.fp8_bits_plain(x, dt), dt)
     wq = k8.fp8_values(k8.fp8_bits_plain(w, dt), dt)
-    k8.fp8_conv.launches = 0
+    plan = k8.wgmma_plan(x.shape, w.shape, stride, padding)
+    if plan is not None and not torch.equal(
+            k8.pack_weight(w, dt, plan.bn).view(torch.int16),
+            k8.pack_weight_plain(w, dt, plan.bn).view(torch.int16)):
+        raise AssertionError(f"{sig}: the wgmma kernel's packed weights are not the plain ones")
+    k8.fp8_conv.launches = k8.fp8_conv.wgmma_launches = 0
     conv = k8.fp8_conv(x, w, None, None, stride, padding, dt)
     conv_plain = k8._plain_conv(x, w, None, None, stride, padding, dt)
     note = check_fp8_sums(sig, conv, conv_plain, xq, wq, stride, padding)
     got = k8.fp8_conv(x, w, bias, res, stride, padding, dt)
     again = k8.fp8_conv(x, w, bias, res, stride, padding, dt)
-    if k8.fp8_conv.launches != 3:
-        raise AssertionError(f"{sig}: {k8.fp8_conv.launches} launches for 3 calls")
+    counts = (k8.fp8_conv.launches, k8.fp8_conv.wgmma_launches)
+    if counts != (3, 0 if plan is None else 3):
+        raise AssertionError(f"{sig}: launches (all, wgmma) {counts} for 3 calls")
     want = k8._plain_conv(x, w, bias, res, stride, padding, dt)
     # Each rounding of the epilogue may move the conv's difference by one
     # ulp at the value it rounds.
@@ -4478,15 +4504,17 @@ def check_fp8_call(sig: tuple, fp8: str, seed: int) -> str:
         allowed += bf16_spacing(torch.maximum(got.float().abs(), want.float().abs()))
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    report["err"]["fp8"] = max(report["err"]["fp8"], err)
+    key = "fp8" if plan is None else "fp8_wgmma"
+    report["err"][key] = max(report["err"][key], err)
     over = int((diff > allowed).sum())
     same = torch.equal(got, again)
     if over or not same:
         raise AssertionError(f"{sig} {fp8}: {over} elements beyond the epilogue's roundings "
                              f"from the plain version, repeat {same}")
+    kernel = "general" if plan is None else f"wgmma {tuple(plan)}"
     return (f"x {sig[0]} w {sig[1]} s{stride} pad {tuple(padding)}"
             f"{' +res' if res is not None else ''}{' +bias' if bias is not None else ''} "
-            f"{fp8}: the conv {note}; the call max |err| {err:.3e}, "
+            f"{fp8} [{kernel}]: the conv {note}; the call max |err| {err:.3e}, "
             f"{int((diff > 0).sum())} elements off, repeat {same}")
 
 
@@ -4507,7 +4535,9 @@ def record_fp8_calls(model, x: torch.Tensor) -> list:
 def fp8_kernel_checks(x8: torch.Tensor) -> dict:
     """(a): every distinct fp8 conv call of a b8 forward of each layout and
     of the k = 5 model, both fp8 dtypes. Returns the dense calls."""
-    check_no_spills(FP8_KERNEL)
+    for kernel in FP8_KERNELS:
+        log(f"{kernel}:")
+        check_no_spills(kernel)
     calls = {}
     for label, model in (("dense", seeded_model(torch.bfloat16)),
                          ("s2d", seeded_model(torch.bfloat16, "s2d")),
@@ -4537,18 +4567,19 @@ def fp8_policies(x8: torch.Tensor) -> None:
         with torch.inference_mode(), deterministic():
             ref = counted(lambda: model(x8), PER_FORWARD[layout])
             for policy, min_grid in FP8_POLICIES.items():
-                per_forward, n_fp8 = fp8_expected(layout, min_grid)
+                per_forward, n_fp8, n_wgmma = fp8_expected(layout, min_grid)
                 with fp8_policy(policy):
-                    got = fp8_counted(lambda: model(x8), per_forward, n_fp8)
+                    got = fp8_counted(lambda: model(x8), per_forward, n_fp8, n_wgmma)
                     with plain_versions(), fp8_route(k8._plain_conv):
-                        plain = fp8_counted(lambda: model(x8), NO_LAUNCHES, 0, path=False)
+                        plain = fp8_counted(lambda: model(x8), NO_LAUNCHES, 0, 0, path=False)
                 drift = float((got - ref).abs().mean())
                 vs_bf16 = compare(got, ref)[1]
                 vs_plain = compare(got, plain)[1]
                 plain_vs_bf16 = compare(plain, ref)[1]
                 ok = (bool(torch.isfinite(got).all()) and drift > 0
                       and vs_plain >= vs_bf16)
-                log(f"(b) {layout} policy {policy} e5m2: fp8 launches {n_fp8}, "
+                log(f"(b) {layout} policy {policy} e5m2: fp8 launches {n_fp8} "
+                    f"({n_wgmma} wgmma, {n_fp8 - n_wgmma} general), "
                     f"{({k: v for k, v in per_forward.items() if v})}; mean |logit drift| "
                     f"{drift:.4e} (logit std {float(ref.std()):.4f}); argmax agreement with "
                     f"bf16 {vs_bf16:.6f}, with the plain versions' fp8 model {vs_plain:.6f} "
@@ -4563,14 +4594,14 @@ def fp8_artifact(tmp: Path, x8: torch.Tensor) -> None:
     """(b): an artifact of the dense model exported under ``all`` replays
     bit for bit the eager forward under ``all``."""
     model = seeded_model(torch.bfloat16)
-    per_forward, n_fp8 = fp8_expected("dense", 0)
+    per_forward, n_fp8, n_wgmma = fp8_expected("dense", 0)
     x = x8[:2]
     with fp8_policy("all"):
         served, export_s, mib = artifact(model, tmp / "fp8_artifact", 2)
         with torch.inference_mode():
-            eager = fp8_counted(lambda: model(x), per_forward, n_fp8, path=False)
+            eager = fp8_counted(lambda: model(x), per_forward, n_fp8, n_wgmma, path=False)
     with torch.inference_mode():
-        replay = fp8_counted(lambda: served(x), per_forward, n_fp8)
+        replay = fp8_counted(lambda: served(x), per_forward, n_fp8, n_wgmma)
     nodes = sum(1 for n in served.program.graph.nodes
                 if n.op == "call_function" and str(n.target).startswith("unet_torch.fp8_conv"))
     same = torch.equal(replay, eager)
@@ -4582,55 +4613,95 @@ def fp8_artifact(tmp: Path, x8: torch.Tensor) -> None:
 
 def fp8_times(dense_calls: list) -> None:
     """(c): the b128 forward with the policy off and ``all`` (e5m2), each
-    layout; the kernel at each distinct call of the dense forward at b128,
-    beside cuDNN's bf16 conv of the same shape and the bound."""
+    layout; at each distinct call of the dense forward at b128 the kernel
+    that takes it and, where that is the wgmma kernel, the general kernel
+    on the same call, in turns, beside the plain version, cuDNN's bf16 conv
+    of the same shape and the bound. Fails unless the wgmma kernel's total is
+    below the general kernel's on the calls it takes."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 17)
     xb = torch.randn((TIMED_BATCH, IMG, IMG, 3), generator=g, device="cuda").to(torch.bfloat16)
     report["fp8_forward"] = {}
     for layout in LAYOUTS:
         model = seeded_model(torch.bfloat16, layout)
         for policy in ("off", "all"):
-            per_forward, n_fp8 = ((PER_FORWARD[layout], 0) if policy == "off"
-                                  else fp8_expected(layout, 0))
+            per_forward, n_fp8, n_wgmma = ((PER_FORWARD[layout], 0, 0) if policy == "off"
+                                           else fp8_expected(layout, 0))
             with fp8_policy(policy), torch.inference_mode():
-                ms = cuda_times(lambda a: fp8_counted(lambda: model(a), per_forward, n_fp8),
-                                [xb], iters=5)
+                ms = cuda_times(lambda a: fp8_counted(lambda: model(a), per_forward, n_fp8,
+                                                      n_wgmma), [xb], iters=5)
             report["fp8_forward"][(layout, policy)] = statistics.median(ms)
             log(f"(c) {layout} b{TIMED_BATCH} forward, policy {policy}: {spread(ms)}")
         del model
         torch.cuda.empty_cache()
     del xb
-    totals = [0.0, 0.0, 0.0, 0.0]
+    # [kernel, plain, bound, cuDNN] summed over the calls each kernel takes;
+    # the general kernel on the wgmma kernel's calls.
+    totals = {key: [0.0, 0.0, 0.0, 0.0] for key in FP8_KEYS}
+    by_ops = dict.fromkeys(FP8_KEYS, 0.0)
+    by_bytes = dict.fromkeys(FP8_KEYS, 0.0)
+    calls = dict.fromkeys(FP8_KEYS, 0)
+    general_on_wgmma = 0.0
     counts = {sig: dense_calls.count(sig) for sig in dict.fromkeys(dense_calls)}
-    by_ops_total = by_bytes_total = 0.0
     with torch.inference_mode():
         for i, (sig, n) in enumerate(counts.items()):
             big = ((TIMED_BATCH, *sig[0][1:]), *sig[1:])
             x, w, bias, res, stride, padding = fp8_call_inputs(big, SEED + i)
             dt = torch.float8_e5m2
-            by_bytes = bytes_ms(k8.conv_bytes(x.shape, w.shape, stride, padding, 2,
-                                              res is not None, bias is not None))
-            by_ops = (k8.conv_flops(x.shape, w.shape, stride, padding)
-                      / FP8_TENSOR_FLOPS_PER_S * 1e3)
+            key = "fp8_wgmma" if k8.wgmma_applicable(x.shape, w.shape, stride, padding) else "fp8"
+            call_bytes = bytes_ms(k8.conv_bytes(x.shape, w.shape, stride, padding, 2,
+                                                res is not None, bias is not None))
+            call_ops = (k8.conv_flops(x.shape, w.shape, stride, padding)
+                        / FP8_TENSOR_FLOPS_PER_S * 1e3)
             wc = w.contiguous(memory_format=torch.channels_last)
-            row = time_kernel(
-                f"(c) fp8 conv x{n} x {tuple(x.shape)} w {tuple(w.shape)} s{stride} pad "
-                f"{padding}{' +res' if res is not None else ''}",
-                lambda a: k8.fp8_conv(a, w, bias, res, stride, padding, dt),
-                lambda a: k8._plain_conv(a, w, bias, res, stride, padding, dt), [x],
-                bound(by_bytes, by_ops),
-                library=lambda a: quant._conv2d(a.permute(0, 3, 1, 2), wc, bias, stride,
-                                                padding), iters=5)
-            totals = [tot + n * v for tot, v in zip(totals, row)]
-            by_ops_total += n * by_ops
-            by_bytes_total += n * by_bytes
+
+            def kernel(a):
+                return k8.fp8_conv(a, w, bias, res, stride, padding, dt)
+
+            def general(a):
+                return k8._cuda_conv(a, w, bias, res, stride, padding, dt, general=True)
+
+            # In turns: the kernel, the general kernel, the plain version, cuDNN,
+            # the general kernel, the kernel.
+            t = cuda_times(kernel, [x], iters=3)
+            tg = cuda_times(general, [x], iters=3) if key == "fp8_wgmma" else []
+            tp = cuda_times(lambda a: k8._plain_conv(a, w, bias, res, stride, padding, dt), [x],
+                            iters=3)
+            tl = cuda_times(lambda a: quant._conv2d(a.permute(0, 3, 1, 2), wc, bias, stride,
+                                                    padding), [x], iters=5)
+            if key == "fp8_wgmma":
+                tg += cuda_times(general, [x], iters=3)
+            t += cuda_times(kernel, [x], iters=3)
+            ms, call_bound = statistics.median(t), bound(call_bytes, call_ops)
+            row = [ms, statistics.median(tp), call_bound[0], statistics.median(tl)]
+            on_general = f", general kernel {spread(tg)}" if tg else ""
+            log(f"(c) fp8 conv x{n} x {tuple(x.shape)} w {tuple(w.shape)} s{stride} pad "
+                f"{padding}{' +res' if res is not None else ''} [{key}]: kernel {spread(t)}"
+                f"{on_general}, plain {spread(tp)}, cuDNN bf16 {spread(tl)}, bound "
+                f"{call_bound[0]:.4f} ms ({call_bound[1]}), {call_bound[0] / ms:.1%} of bound")
+            totals[key] = [tot + n * v for tot, v in zip(totals[key], row)]
+            if tg:
+                general_on_wgmma += n * statistics.median(tg)
+            by_ops[key] += n * call_ops
+            by_bytes[key] += n * call_bytes
+            calls[key] += n
             del x, w, wc, bias, res
             torch.cuda.empty_cache()
-    report["bound_by"]["fp8"] = bound(by_bytes_total, by_ops_total)[1]
-    report["rows"]["fp8"] = totals
-    log(f"(c) fp8 conv over the {len(dense_calls)} calls of the dense b{TIMED_BATCH} "
-        f"forward: kernel {totals[0]:.3f} ms, plain {totals[1]:.3f}, bound {totals[2]:.3f}, "
-        f"cuDNN bf16 {totals[3]:.3f}")
+    for key in FP8_KEYS:
+        report["bound_by"][key] = bound(by_bytes[key], by_ops[key])[1]
+        report["rows"][key] = totals[key]
+    report["fp8_general_on_wgmma_ms"] = general_on_wgmma
+    new, gen = totals["fp8_wgmma"], totals["fp8"]
+    log(f"(c) fp8 conv over the {calls['fp8_wgmma']} calls of the dense b{TIMED_BATCH} forward "
+        f"that the wgmma kernel takes: wgmma kernel {new[0]:.3f} ms, general kernel "
+        f"{general_on_wgmma:.3f} ({general_on_wgmma / new[0]:.2f}x), plain {new[1]:.3f}, bound "
+        f"{new[2]:.3f}, cuDNN bf16 {new[3]:.3f}")
+    log(f"(c) over the {calls['fp8']} calls the general kernel takes: kernel {gen[0]:.3f} ms, plain "
+        f"{gen[1]:.3f}, bound {gen[2]:.3f}, cuDNN bf16 {gen[3]:.3f}; all {len(dense_calls)} "
+        f"calls: {new[0] + gen[0]:.3f} ms (the general kernel alone "
+        f"{general_on_wgmma + gen[0]:.3f})")
+    if not new[0] < general_on_wgmma:
+        raise AssertionError(f"the wgmma kernel's total {new[0]:.3f} ms is not below the "
+                             f"general kernel's {general_on_wgmma:.3f} on the same calls")
 
 
 def split_conv_ab() -> None:
@@ -4896,8 +4967,13 @@ def kernels_line() -> dict:
         ("K4f winograd_conv_s2d (Winograd F(2,3) s2d conv, folded U, fwd and dx)",
          "unet_implementations_tpu_torch/kernels/csrc/winograd.cu",
          "unet_implementations_tpu/kernels/winograd.py:266", "K4f"),
-        ("fp8_conv (the fp8 conv mode's conv, e5m2/e4m3 operands, float32 sums, fwd; "
-         "replaces no Pallas kernel: JAX's qconv is an XLA fp8 conv)",
+        ("fp8_conv_wgmma_kernel (the fp8 conv mode's conv where Cin and Cout are multiples "
+         "of 32: fp8 casts cast once per tile, f16 wgmma, float32 sums, fwd; replaces no "
+         "Pallas kernel: JAX's qconv is an XLA fp8 conv)",
+         "unet_implementations_tpu_torch/kernels/csrc/fp8_conv.cu",
+         "unet_implementations_tpu/ops/quant.py:81", "fp8_wgmma"),
+        ("fp8_conv_kernel (the fp8 conv mode's general conv: the first conv and the head; "
+         "mma.sync e5m2/e4m3 operands, float32 sums, fwd; replaces no Pallas kernel)",
          "unet_implementations_tpu_torch/kernels/csrc/fp8_conv.cu",
          "unet_implementations_tpu/ops/quant.py:81", "fp8"),
     ]
@@ -4956,6 +5032,8 @@ def main() -> int:
             phase_fields(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
+        for name, trace in zip(failures, failure_traces):
+            print(f"!! phase failed: {name}\n{trace}", file=sys.stderr)
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         print(json.dumps({"ok": False, "failed": failures}))
         return 1

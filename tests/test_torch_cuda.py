@@ -38,8 +38,10 @@ relative L2. The fp8 conv (``kernels/fp8_conv.py``): its casts bit for bit
 the plain version's on every bf16 and fp16 value; the conv alone (no bias) within
 one bf16 ulp of the exact sum (float64 of the same fp8 values, on the CPU)
 plus float32's summation bound, K·2^-24·Σ|products| (the plain version sums
-the same exact products in float32 in another order); the mode raises under
-autograd.
+the same exact products in float32 in another order), at the general
+kernel's shapes and at the wgmma kernel's edges (its launch count, a repeat
+bit for bit, its epilogue and packed weights bit for bit); the mode raises
+under autograd.
 """
 
 import numpy as np
@@ -841,16 +843,27 @@ def test_fp8_cast_bitwise(dtype, fp8):
 @pytest.mark.parametrize("shape,k,stride,padding", [
     ((2, 17, 23, 3, 8), 3, 1, (1, 1, 1, 1)), ((2, 16, 16, 24, 40), 3, 2, (1, 1, 1, 1)),
     ((1, 12, 12, 12, 70), 5, 1, (2, 2, 2, 2)), ((2, 9, 9, 64, 32), 2, 1, (1, 0, 1, 0)),
-    ((2, 10, 12, 32, 12), 1, 1, (0, 0, 0, 0)), ((1, 11, 8, 16, 16), 3, 1, (0, 0, 1, 1))])
+    ((2, 10, 12, 32, 12), 1, 1, (0, 0, 0, 0)), ((1, 11, 8, 16, 16), 3, 1, (0, 0, 1, 1)),
+    # The wgmma kernel's edges: stride 2 at odd sizes and B = 3, 5x5 at both
+    # strides, W = 16 and 40, one and several N-tiles (Cout 32, 96, 128,
+    # 256), Cin of several chunks, 1x1, and the s2d transforms' paddings.
+    ((3, 15, 13, 32, 32), 3, 2, (1, 1, 1, 1)), ((2, 9, 9, 32, 32), 3, 2, (1, 0, 1, 0)),
+    ((2, 19, 17, 64, 64), 5, 1, (2, 2, 2, 2)), ((1, 21, 23, 32, 64), 5, 2, (2, 2, 2, 2)),
+    ((2, 16, 16, 64, 128), 3, 1, (1, 1, 1, 1)), ((1, 40, 40, 32, 256), 3, 1, (1, 1, 1, 1)),
+    ((2, 12, 12, 96, 96), 2, 1, (1, 0, 1, 0)), ((2, 10, 12, 32, 64), 1, 1, (0, 0, 0, 0)),
+    ((3, 16, 40, 128, 32), 3, 1, (1, 1, 1, 1))])
 def test_fp8_conv(shape, k, stride, padding, fp8):
     _need_cuda()
     b, h, w, cin, cout = shape
     g = torch.Generator(device="cuda").manual_seed(cin + cout)
     x = torch.randn((b, h, w, cin), generator=g, device="cuda").to(torch.bfloat16)
     wt = (torch.randn((cout, cin, k, k), generator=g, device="cuda") * 0.2).to(torch.bfloat16)
-    before = k8.fp8_conv.launches
+    wgmma = k8.wgmma_applicable(x.shape, wt.shape, stride, padding)
+    assert wgmma == (cin % 32 == 0 and cout % 32 == 0)
+    before = (k8.fp8_conv.launches, k8.fp8_conv.wgmma_launches)
     got = k8.fp8_conv(x, wt, None, None, stride, padding, fp8)
-    assert k8.fp8_conv.launches == before + 1
+    assert (k8.fp8_conv.launches, k8.fp8_conv.wgmma_launches) == (before[0] + 1,
+                                                                  before[1] + wgmma)
     assert got.shape == k8.output_size(x.shape, wt.shape, stride, padding)
 
     xq, wq = (k8.fp8_values(k8.fp8_bits_plain(a.cpu(), fp8), fp8).double() for a in (x, wt))
@@ -864,7 +877,36 @@ def test_fp8_conv(shape, k, stride, padding, fp8):
     spacing = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2.0 ** -126))) - 7)
     err = (got.double().cpu() - exact).abs()
     assert bool((err <= spacing + cin * k * k * 2.0 ** -24 * absum).all())
+    # chip_smoke.py phase 16 (a)'s gate: within one bf16 ulp of the plain
+    # version, or else (where float32 sums cancel) of the exact sum as above.
+    plain = k8._plain_conv(x, wt, None, None, stride, padding, fp8).double().cpu()
+    far = (got.double().cpu() - plain).abs() > spacing
+    assert int(far.sum()) <= 4096
     assert torch.equal(got, k8.fp8_conv(x, wt, None, None, stride, padding, fp8))
+
+
+@pytest.mark.parametrize("fp8", [torch.float8_e5m2, torch.float8_e4m3fn])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fp8_conv_wgmma_epilogue(dtype, fp8):
+    """The wgmma kernel with a residual and a bias: ((conv rounded) +
+    residual, rounded) + bias, rounded, each in x's dtype, bit for bit from
+    the kernel's own conv; its packed weights bit for bit the plain pack."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 16, 40, 64), generator=g, device="cuda").to(dtype)
+    wt = (torch.randn((64, 64, 3, 3), generator=g, device="cuda") * 0.05).to(dtype)
+    bias = (torch.randn(64, generator=g, device="cuda") * 0.1).to(dtype)
+    res = torch.randn((2, 16, 40, 64), generator=g, device="cuda").to(dtype)
+    plan = k8.wgmma_plan(x.shape, wt.shape, 1, (1, 1, 1, 1))
+    assert plan is not None
+    assert torch.equal(k8.pack_weight(wt, fp8, plan.bn).view(torch.int16).cpu(),
+                       k8.pack_weight_plain(wt.cpu(), fp8, plan.bn).view(torch.int16))
+    before = k8.fp8_conv.wgmma_launches
+    conv = k8.fp8_conv(x, wt, None, None, 1, (1, 1, 1, 1), fp8)
+    got = k8.fp8_conv(x, wt, bias, res, 1, (1, 1, 1, 1), fp8)
+    assert k8.fp8_conv.wgmma_launches == before + 2
+    assert torch.equal(got, (res + conv) + bias)
+    assert torch.equal(got, k8.fp8_conv(x, wt, bias, res, 1, (1, 1, 1, 1), fp8))
 
 
 def test_fp8_mode_raises_under_autograd(monkeypatch):

@@ -108,6 +108,37 @@ def test_device_busy_spans_the_window_launches():
     assert profiling.device_busy_us(records, {99}) == 0.0
 
 
+class _Profile:
+    """A profile whose events are the given FunctionEvents, as sorted."""
+
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def _event(eid, name, start_us, end_us, device=torch.autograd.DeviceType.CPU, thread=1):
+    from torch.autograd.profiler_util import FunctionEvent
+    return FunctionEvent(eid, name, thread, start_us, end_us, input_shapes=[],
+                         device_type=device, is_user_annotation=name == profiling.WINDOW)
+
+
+def test_window_is_the_host_range():
+    """The window's range on the device's timeline can sort before the host's
+    and end before the last iteration's backward (thread 2): the rows still
+    count every call of the host's range, and none from before it."""
+    events = [_event(1, "aten::mul", 0, 4),
+              _event(2, profiling.WINDOW, 9, 25, device=torch.autograd.DeviceType.CUDA),
+              _event(3, profiling.WINDOW, 10, 60),
+              _event(4, "aten::mul", 12, 20),
+              _event(5, "aten::mul", 30, 40, thread=2),
+              _event(6, "aten::mul", 45, 55, thread=2)]
+    rows, busy_us = profiling.cost_rows(_Profile(events), 1, torch.float32, CPU)
+    assert [(r["name"], r["calls"], r["device_us"]) for r in rows] == [("aten::mul", 3, 28)]
+    assert busy_us == 28
+
+
 def test_summarize_format_and_diff():
     rows, _ = _table(lambda: F.relu(F.conv2d(torch.randn(1, 3, 8, 8), torch.randn(4, 3, 3, 3))))
     s = profiling.summarize(rows)

@@ -284,3 +284,108 @@ class TestModel:
         # Each encoder and decoder conv, decoder conv_0 as two segments, the head.
         assert len(nodes) == 3 * 2 + 2 * 3 + 1
         assert torch.equal(program.module()(x), want)
+
+
+def _pack_formula(bits: np.ndarray, bn: int) -> np.ndarray:
+    """The wgmma kernel's packed values by their defining index formula:
+    value i = ((((((nt·NC + cc)·taps + tap)·2 + k8)·(bn/8) + n8)·8 + nr)·8 + kr
+    holds bits[nt·bn + 8·n8 + nr, 16·cc + 8·k8 + kr, tap // kw, tap % kw]."""
+    cout, cin, kh, kw = bits.shape
+    i = np.arange(bits.size)
+    kr, i = i % 8, i // 8
+    nr, i = i % 8, i // 8
+    n8, i = i % (bn // 8), i // (bn // 8)
+    k8, i = i % 2, i // 2
+    tap, i = i % (kh * kw), i // (kh * kw)
+    cc, nt = i % (cin // 16), i // (cin // 16)
+    return bits[nt * bn + 8 * n8 + nr, 16 * cc + 8 * k8 + kr, tap // kw, tap % kw]
+
+
+def _f16_bits(fp8_bytes: np.ndarray, jfp8) -> np.ndarray:
+    """The float16 bits of fp8 values (JAX's), NaN as 0x7e00 with its sign."""
+    values = np.asarray(jnp.asarray(fp8_bytes).view(jfp8).astype(jnp.float32))
+    half = values.astype(np.float16).view(np.uint16)
+    nan = ((fp8_bytes.astype(np.uint16) & 0x80) << 8) | 0x7E00
+    return np.where(np.isnan(values), nan, half).astype(np.uint16)
+
+
+class TestWgmmaPack:
+    """``pack_weight_plain`` (what the wgmma kernel's pack writes on the card)
+    against the index formula over the float16 of JAX's fp8 cast of the same
+    kernel."""
+
+    @pytest.mark.parametrize("fp8", sorted(FP8))
+    @pytest.mark.parametrize("cout", [32, 64, 96])
+    @pytest.mark.parametrize("cin", [32, 64, 96])
+    @pytest.mark.parametrize("k", [1, 2, 3, 5])
+    def test_pack_order_against_formula(self, fp8, k, cin, cout):
+        rng = np.random.default_rng(1000 * k + 10 * cin + cout)
+        w = (rng.normal(size=(cout, cin, k, k)) * 64).astype(np.float32)
+        w.flat[:4] = [np.nan, np.inf, -600.0, 70000.0]
+        wt = _t(w)
+        # The same bf16 values on both sides (the float32 -> bf16 casts of
+        # torch and JAX differ on a NaN's sign).
+        same = wt.view(torch.int16).numpy().view(jnp.bfloat16)
+        jbits = np.asarray(jnp.asarray(same).astype(FP8[fp8][1])).view(np.uint8)
+        want = _f16_bits(jbits, FP8[fp8][1])
+        for bn in [b for b in k8.WGMMA_TILE_N if cout % b == 0]:
+            got = k8.pack_weight_plain(wt, FP8[fp8][0], bn)
+            assert got.dtype == torch.float16 and got.numel() == w.size
+            np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                                          _pack_formula(want, bn))
+
+
+_MODELS = {"dense": DENSE, "s2d": S2D_LAYOUT,
+           "k5": {**DENSE, "kernel_size": 5, "n_conv_per_stage": 3,
+                  "n_conv_per_stage_decoder": 1}}
+
+
+class TestWgmmaRule:
+    """Which kernel takes each fp8 conv call the models make under ``all``."""
+
+    @pytest.mark.parametrize("layout", sorted(_MODELS))
+    def test_model_calls(self, clean_env, layout):
+        _policy(clean_env)
+        calls, real = [], quant.fp8_conv
+
+        def spy(x, w, bias, residual, stride, padding, fp8):
+            calls.append((tuple(x.shape), tuple(w.shape), stride, tuple(padding)))
+            return real(x, w, bias, residual, stride, padding, fp8)
+
+        clean_env.setattr(quant, "fp8_conv", spy)
+        model = UNet(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                     **_MODELS[layout]).eval()
+        with torch.no_grad():
+            model(torch.rand(1, 64, 64, 3))
+        assert len(calls) == {"dense": 28, "s2d": 28, "k5": 29}[layout]
+        general = [c for c in calls if not k8.wgmma_applicable(*c)]
+        # The first conv (Cin 3, or 12 in s2d) and the head (Cout 3 or 12).
+        assert general == [c for c in calls if c[0][3] in (3, 12) or c[1][0] in (3, 12)]
+        assert [calls.index(c) for c in general] == [0, len(calls) - 1]
+        # The same calls at 512² and b8, the card's shapes, keep their kernel.
+        for x_shape, w_shape, stride, padding in calls:
+            big = (8, 8 * x_shape[1], 8 * x_shape[2], x_shape[3])
+            assert (k8.wgmma_applicable(big, w_shape, stride, padding)
+                    == ((x_shape, w_shape, stride, padding) not in general))
+
+    @pytest.mark.parametrize("x_shape,w_shape,stride,padding,bn", [
+        ((2, 9, 9, 64), (32, 64, 2, 2), 1, (1, 0, 1, 0), 32),
+        ((1, 40, 40, 32), (256, 32, 3, 3), 1, (1, 1, 1, 1), 128),
+        ((8, 512, 512, 32), (32, 32, 3, 3), 1, (1, 1, 1, 1), 32),
+        ((8, 32, 32, 512), (512, 512, 3, 3), 1, (1, 1, 1, 1), 128),
+        ((8, 512, 512, 32), (64, 32, 5, 5), 2, (2, 2, 2, 2), 32)])
+    def test_plan_fits(self, x_shape, w_shape, stride, padding, bn):
+        plan = k8.wgmma_plan(x_shape, w_shape, stride, padding)
+        assert plan.bn == bn and 1 <= plan.tiles <= 256 // bn
+        _, _, offsets = k8.wgmma_geometry(x_shape, w_shape, stride, padding)
+        wps = [-(-(128 * plan.tiles + off) // 8) * 8 for off in offsets]
+        assert plan.stage_bytes == w_shape[2] * w_shape[3] * 32 * bn + 2 * sum(wps) * 16
+        assert (plan.stages * (plan.stage_bytes + 16) + plan.ring * 512 * 16 * 2
+                <= k8.SMEM_BYTES)
+        assert 2 <= plan.stages <= k8.WGMMA_MAX_STAGES and plan.ring in k8.WGMMA_RINGS
+
+    @pytest.mark.parametrize("x_shape,w_shape,stride", [
+        ((1, 8, 8, 3), (32, 3, 3, 3), 1), ((1, 8, 8, 32), (12, 32, 1, 1), 1),
+        ((1, 8, 8, 48), (32, 48, 3, 3), 1), ((1, 8, 8, 32), (32, 32, 3, 3), 3)])
+    def test_general_shapes(self, x_shape, w_shape, stride):
+        assert not k8.wgmma_applicable(x_shape, w_shape, stride, (1, 1, 1, 1))

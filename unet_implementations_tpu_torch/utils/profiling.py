@@ -370,7 +370,12 @@ def cost_rows(prof, iters: int, dtype: torch.dtype, device: torch.device) -> tup
     itemsize = torch.empty((), dtype=dtype).element_size()
     cuda = device.type == "cuda"
     events = prof.events()
-    window = [e.time_range for e in events if e.name == WINDOW]
+    # The host's range, not the span the profiler also draws for it on the
+    # device's timeline: that span is shorter (on an H100 it has ended
+    # before the last iteration's backward) and starts within microseconds
+    # of the host's, so that either may sort first.
+    window = [e.time_range for e in events
+              if e.name == WINDOW and e.device_type == torch.autograd.DeviceType.CPU]
     lo, hi = (window[0].start, window[0].end) if window else (-math.inf, math.inf)
     anchors: Dict[int, Any] = {}
     spent: Dict[int, float] = defaultdict(float)
