@@ -310,6 +310,34 @@ Phases (any failure makes the script exit non-zero without the kernels line):
    with the gate against the kernel's values set from the step with K1bwd's
    sums reordered (see ``fields_model``).
 
+17. The decoder upsample folds (``ops/s2d.py``: ``conv_up_fold``,
+   ``conv_s2d_multi_up_fold``, ``conv_dense_up_fold``) under JAX's policies
+   (FOLD_POLICIES: unset, ``UNET_TPU_S2D_UP_FOLD=1``, ``UNET_TPU_DENSE_UP_FOLD=1``),
+   and the s2d layout and kernel_size 5 on row shards, ``unet_6stage`` at 512².
+   (a) Each fold at the b8 forward's shapes in float32 against the unfolded
+   composite (the plain upsample, then the convs) within FOLD_ATOL/FOLD_RTOL,
+   a second call bit for bit. (b) The b8 float32 forward of each layout under
+   each policy against the unfolded one (E2E_F32_REL_L2), and a b8 float32
+   train step under each against the unfolded step (its loss within
+   E2E_F32_REL_L2, its gradients within TRAIN_F32_PLAIN_GRAD_REL), every run's
+   launches gated by JAX's rules (``fold_launches``: with the fold, K2a 0
+   where the dense fold takes the decoders, K2b 0 where the s2d fold does; K3
+   still 3 in the s2d eval forward). (d) The s2d layout's b8 artifact exported
+   under S2D=1 replays bit for bit its eager forward, its kernel nodes the
+   launches. (f) The dense b8 forward under ``UNET_TPU_CONV_FP8=all`` with the
+   dense fold: 48 fp8 launches (each folded decoder's conv_0 runs its interior
+   conv and four strips), the wgmma kernel's as ``wgmma_applicable`` takes
+   the calls, and each distinct fold and strip call at phase 16 (a)'s gates.
+   (c) Printed: the bf16 b128 forward and b32 step of each layout under each
+   policy by CUDA events (the forwards in turns; the dense step under S2D=1
+   is its unset step, so not run), each layout's folded forward by kernel,
+   and the b32 step's backward by autograd node (``utils/profiling.py``)
+   unfolded and with the layout's fold. (e) SP_RANKS gloo ranks (``--sp17-worker``) of one space group
+   against one process at 512² b2 float32, phase 13's bounds: the s2d layout
+   with the fold off and on, and ``UNet(**FIELDS16)``; on the shards K3 0 (an
+   s2d block takes its module path), K2b 2 with the fold off, every K1 split
+   and K1bwd two-pass; the halo'd K2b bit for bit the unsharded K2b.
+
 ``python3 chip_smoke.py --ab-steps ROOT LABEL=DIR ...`` is the in-call
 comparison of versions: for each checkout DIR in turn (list them A, B, B, A),
 phase 7's b32 dense step (10 steps by CUDA events after 3 warm-ups), the
@@ -331,8 +359,8 @@ and TF32 off in every process (``NVIDIA_TF32_OVERRIDE=0``).
 Every forward and train step runs with the launch counts set to 0 just
 before it: one with the kernels must read its counts after it, one with the
 plain versions 0. The ``launches`` of the kernels line add up those counted
-runs of the main paths (phases 3, 6-13, 14's replays, 15 and 16; phase 13's
-in its ranks).
+runs of the main paths (phases 3, 6-13, 14's replays, 15-17; phases 13's and
+17's ranks' in their ranks).
 
 The last three lines are the card (as nvidia-smi reports it), a JSON line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``; after a failed
@@ -795,6 +823,11 @@ def k2_halo_plain(x, above, below):
     return upsample2x_nhwc(torch.cat([above, x, below], dim=1))[:, 2:2 * x.shape[1] + 2]
 
 
+def k2b_halo_plain(x, above, below):
+    """The plain version of ``upsample2x_into_s2d_halo``."""
+    return upsample2x_into_s2d(torch.cat([above, x, below], dim=1))[:, 1:x.shape[1] + 1]
+
+
 class _Values(torch.autograd.Function):
     """``values`` in the forward, the gradient of ``differentiable`` in the
     backward."""
@@ -837,9 +870,10 @@ def plain_versions(k1_version=k1_plain):
     """Route the model's blocks through the plain PyTorch versions (K1
     through ``k1_version``)."""
     names = ("fused_instance_norm", "upsample2x_nhwc_fast", "upsample2x_into_s2d_fast",
-             "fused_s2d_tail", "upsample2x_nhwc_halo")
+             "fused_s2d_tail", "upsample2x_nhwc_halo", "upsample2x_into_s2d_halo")
     saved = [getattr(blocks, name) for name in names]
-    plain = (k1_version, upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail, k2_halo_plain)
+    plain = (k1_version, upsample2x_nhwc, upsample2x_into_s2d, k3._torch_tail, k2_halo_plain,
+             k2b_halo_plain)
     for name, fn in zip(names, plain):
         setattr(blocks, name, fn)
     try:
@@ -3424,21 +3458,30 @@ def sp_worker(rank: int, port: int, d: Path) -> int:
     return 0
 
 
-def sp_halo_k2() -> None:
-    """(c): the halo'd K2a on two row shards of each K2a input of the b2
-    forward against the unsharded K2a, bit for bit."""
+# The halo'd wrappers of K2a and K2b: (inputs (side, channels), unsharded
+# wrapper, halo'd wrapper, input seed, phase item).
+SP_HALO_K2 = {"K2a": (K2_INPUTS, k2.upsample2x_nhwc_fast, k2.upsample2x_nhwc_halo, SEED + 19,
+                      "13 (c)"),
+              "K2b": (K2B_INPUTS, k2.upsample2x_into_s2d_fast, k2.upsample2x_into_s2d_halo,
+                      SEED + 29, "17 (e)")}
+
+
+def sp_halo_k2(kernel: str = "K2a") -> None:
+    """Phase 13 (c) (K2a) or 17 (e) (K2b): the halo'd kernel on two row
+    shards of each of its inputs of the b2 forward against the unsharded
+    kernel, bit for bit."""
+    inputs, whole, halo, seed, item = SP_HALO_K2[kernel]
     for dtype in (torch.float32, torch.bfloat16):
-        for side, c in K2_INPUTS:
-            x = k2_input(SP_BATCH, side, c, seed=SEED + 19, dtype=dtype)
-            full = k2.upsample2x_nhwc_fast(x)
+        for side, c in inputs:
+            x = k2_input(SP_BATCH, side, c, seed=seed, dtype=dtype)
             h = side // 2
-            top = k2.upsample2x_nhwc_halo(x[:, :h], x[:, :1], x[:, h:h + 1])
-            bottom = k2.upsample2x_nhwc_halo(x[:, h:], x[:, h - 1:h], x[:, -1:])
-            if not torch.equal(torch.cat([top, bottom], dim=1), full):
-                raise AssertionError(f"halo'd K2a {tuple(x.shape)} {dtype}: rows differ from "
-                                     f"the unsharded K2a")
-    log(f"(c) halo'd K2a on two row shards of each of the {len(K2_INPUTS)} K2a inputs (b"
-        f"{SP_BATCH}, float32 and bf16): bit for bit the unsharded K2a")
+            top = halo(x[:, :h], x[:, :1], x[:, h:h + 1])
+            bottom = halo(x[:, h:], x[:, h - 1:h], x[:, -1:])
+            if not torch.equal(torch.cat([top, bottom], dim=1), whole(x)):
+                raise AssertionError(f"halo'd {kernel} {tuple(x.shape)} {dtype}: rows differ "
+                                     f"from the unsharded {kernel}")
+    log(f"{item} halo'd {kernel} on two row shards of each of the {len(inputs)} {kernel} inputs "
+        f"(b{SP_BATCH}, float32 and bf16): bit for bit the unsharded {kernel}")
 
 
 def sp_check_launches(ranks: list) -> None:
@@ -4869,6 +4912,431 @@ def phase_fields(root: Path):
     fields_model()
 
 
+# Phase 17: the decoder upsample folds (``ops/s2d.py``, JAX's
+# ``UNET_TPU_S2D_UP_FOLD`` and ``UNET_TPU_DENSE_UP_FOLD``) and the s2d layout
+# and kernel_size 5 on row shards. The policies, each run with the variables
+# of the others unset; "unset" is the default path, PR 18's.
+FOLD_VARS = ("UNET_TPU_S2D_UP_FOLD", "UNET_TPU_DENSE_UP_FOLD")
+FOLD_POLICIES = {"unset": {}, "S2D=1": {"UNET_TPU_S2D_UP_FOLD": "1"},
+                 "DENSE=1": {"UNET_TPU_DENSE_UP_FOLD": "1"}}
+# (a): each fold against the unfolded composite in float32, at
+# tests/test_up_fold.py's tolerances: the fold rounds the combined kernel
+# where the composite rounds the lerps, and sums in another order.
+FOLD_ATOL, FOLD_RTOL = 2e-5, 1e-4
+# The s2d layout's folded decoders at 512²: (block, coarse side, Cin of the
+# upsampled segment, features), its skip s2d with 4 x features channels.
+S2D_FOLDS = [("decoder_3", 128, 128, 64), ("decoder_4", 256, 64, 32)]
+# (c): CUDA-event readings of each b128 forward and b32 step, after warm-ups,
+# in turns.
+FOLD_TIMED, FOLD_WARMUP = 3, 2
+# (e): the models of the two gloo ranks, at 512² b2 float32 (phase 13's
+# constants): (layout, fields, fold policy).
+SP17_MODELS = {"s2d": ("s2d", {}, "unset"), "s2d fold": ("s2d", {}, "S2D=1"),
+               "k5 3/1": ("dense", FIELDS16, "unset")}
+
+
+@contextmanager
+def fold_policy(name: str):
+    """The fold variables as ``FOLD_POLICIES[name]`` sets them, restored after."""
+    saved = {k: os.environ.pop(k, None) for k in FOLD_VARS}
+    os.environ.update(FOLD_POLICIES[name])
+    try:
+        yield
+    finally:
+        for k in FOLD_VARS:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+
+
+def fold_launches(layout: str, policy: str, train: bool, fields: dict = None) -> dict:
+    """The launches of one 512² forward (or train step) under a fold policy,
+    by JAX's rules: the s2d fold takes the s2d decoders in both modes; the
+    dense fold takes every dense decoder (each coarse grid 16² or more) under
+    DENSE=1, and in eval mode under S2D=1 too. K3 still follows a folded
+    conv_0."""
+    if fields:
+        base = dict(FIELDS_PER_STEP if train else FIELDS_PER_FORWARD)
+    else:
+        base = dict(PER_STEP[layout] if train else PER_FORWARD[layout])
+    if policy == "DENSE=1" or (policy == "S2D=1" and not train):
+        base["K2a"] = 0
+    if policy == "S2D=1" and layout == "s2d":
+        base["K2b"] = 0
+    return base
+
+
+def check_fold(label: str, fold, composite) -> str:
+    """``fold()`` against ``composite()`` within FOLD_ATOL/FOLD_RTOL, and a
+    second call of ``fold`` bit for bit (deterministic cuDNN)."""
+    with deterministic(), torch.no_grad():
+        got, want, again = fold(), composite(), fold()
+    err = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, atol=FOLD_ATOL, rtol=FOLD_RTOL))
+    same = torch.equal(got, again)
+    if not (close and same):
+        raise AssertionError(f"(a) {label}: max |fold - composite| {err:.3e} (within "
+                             f"{FOLD_ATOL:g} + {FOLD_RTOL:g}·|composite|: {close}), repeat {same}")
+    return f"(a) {label} {tuple(got.shape)}: max |fold - composite| {err:.3e}; repeat bit for bit"
+
+
+def fold_functions() -> None:
+    """(a): each fold at the b8 512² forward's shapes, float32, against the
+    unfolded composite (the plain upsample, then the convs)."""
+    from unet_implementations_tpu_torch.ops import s2d as s2d_ops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def kernel(cout, cin):
+        return rand(cout, cin, 3, 3, scale=(2 / (9 * cout)) ** 0.5)
+
+    for name, side, cin, feats in S2D_FOLDS:
+        x, skip = rand(SERVE_BATCH, side, side, cin), rand(SERVE_BATCH, side, side, 4 * feats)
+        w, b = kernel(feats, cin + feats), rand(feats, scale=0.1)
+        up = upsample2x_into_s2d(x)
+        log(check_fold(f"{name} conv_up_fold", lambda: s2d_ops.conv_up_fold(x, w[:, :cin]),
+                       lambda: s2d_ops.conv_s2d(up, w[:, :cin], None)))
+        log(check_fold(f"{name} conv_s2d_multi_up_fold",
+                       lambda: s2d_ops.conv_s2d_multi_up_fold(x, [skip], w, b, (cin, feats)),
+                       lambda: s2d_ops.conv_s2d_multi([up, skip], w, b, (cin, feats))))
+        del x, skip, up
+    for d, (side, c_up) in enumerate(K2_INPUTS):
+        feats = DEFAULT_FEATURES[len(DEFAULT_FEATURES) - 2 - d]
+        x, skip = rand(SERVE_BATCH, side, side, c_up), rand(SERVE_BATCH, 2 * side, 2 * side, feats)
+        w, b = kernel(feats, c_up + feats), rand(feats, scale=0.1)
+
+        def composite():
+            both = torch.cat([upsample2x_nhwc(x), skip], dim=-1).permute(0, 3, 1, 2)
+            return F.conv2d(both, w, b, padding=1).permute(0, 2, 3, 1)
+
+        log(check_fold(f"decoder_{d} conv_dense_up_fold",
+                       lambda: s2d_ops.conv_dense_up_fold(x, [skip], w, b), composite))
+        del x, skip
+    torch.cuda.empty_cache()
+
+
+def fold_forwards(x8: torch.Tensor) -> None:
+    """(b): the b8 float32 forward of each layout under each policy against
+    the unfolded one, and one b8 float32 train step under each (the loss
+    and the gradients against the unfolded step's), launches gated."""
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 24, CHECK_BATCH, IMG)))
+    for layout in LAYOUTS:
+        model = seeded_model(torch.float32, layout)
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        ref = None
+        with deterministic(), torch.inference_mode():
+            for policy in FOLD_POLICIES:
+                with fold_policy(policy):
+                    out = counted_path(lambda: model(x8), fold_launches(layout, policy, False))
+                ref = out if ref is None else ref
+                rel = rel_l2(out, ref)
+                log(f"(b) {layout} b{SERVE_BATCH} float32 forward, {policy}: launches "
+                    f"{({k: v for k, v in fold_launches(layout, policy, False).items() if v})}; "
+                    f"rel-L2 to unset {rel:.3e} (bound {E2E_F32_REL_L2:g})")
+                if rel > E2E_F32_REL_L2:
+                    raise AssertionError(f"(b) {layout} {policy}: the folded forward is "
+                                         f"{rel:.3e} from the unfolded one")
+        del model, ref
+        steps = {}
+        for policy in FOLD_POLICIES:
+            model = UNet(dtype=torch.float32, **LAYOUTS[layout]).to("cuda")
+            model.load_state_dict(state, strict=True)
+            step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            with fold_policy(policy), deterministic():
+                loss = counted_path(lambda: float(step(batch, gen)),
+                                    fold_launches(layout, policy, True))
+            steps[policy] = (loss, {n: p.grad.detach().float().clone()
+                                    for n, p in model.named_parameters()}, grad_groups(model))
+            del model, step
+        ref_loss, ref_grads, groups = steps["unset"]
+        for policy in ("S2D=1", "DENSE=1"):
+            loss, grads, _ = steps[policy]
+            loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+            rels = group_rel_l2(grads, ref_grads, groups)
+            worst = max(rels, key=rels.get)
+            log(f"(b) {layout} b{CHECK_BATCH} float32 step, {policy}: launches "
+                f"{({k: v for k, v in fold_launches(layout, policy, True).items() if v})}; "
+                f"loss {loss:.7f} against unset {ref_loss:.7f} (rel {loss_rel:.3e}, bound "
+                f"{E2E_F32_REL_L2:g}); gradients worst group rel-L2 {rels[worst]:.3e} ({worst}; "
+                f"bound {TRAIN_F32_PLAIN_GRAD_REL:g})")
+            if loss_rel > E2E_F32_REL_L2 or rels[worst] > TRAIN_F32_PLAIN_GRAD_REL:
+                raise AssertionError(f"(b) {layout} {policy}: the folded step is off the "
+                                     f"unfolded one")
+        del steps
+        torch.cuda.empty_cache()
+
+
+def fold_times() -> None:
+    """(c): the bf16 b128 forward of each layout under each policy, in
+    turns, and its b32 step, by CUDA events; the folded forwards by kernel;
+    the b32 step's backward by autograd node (``utils/profiling.py``)
+    unfolded and with the layout's fold. Printed, not gated (the launches
+    are)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    xb = torch.randn((TIMED_BATCH, IMG, IMG, 3), generator=g, device="cuda").to(torch.bfloat16)
+    order = list(FOLD_POLICIES) + list(FOLD_POLICIES)[::-1]
+    report["fold"] = {}
+    for layout in LAYOUTS:
+        model = seeded_model(torch.bfloat16, layout)
+        ms = {p: [] for p in FOLD_POLICIES}
+        with torch.inference_mode():
+            for policy in order:
+                with fold_policy(policy):
+                    ms[policy] += cuda_times(
+                        lambda inp: counted_path(lambda: model(inp),
+                                                 fold_launches(layout, policy, False)),
+                        [xb], iters=FOLD_TIMED, warmup=FOLD_WARMUP)
+        for policy in FOLD_POLICIES:
+            report["fold"][(layout, "forward", policy)] = statistics.median(ms[policy])
+            log(f"(c) {layout} b{TIMED_BATCH} bf16 forward, {policy}: {spread(ms[policy])}; "
+                f"{statistics.median(ms[policy]) / statistics.median(ms['unset']):.4f}x unset")
+        del model
+        torch.cuda.empty_cache()
+    del xb
+    batch = device_batch(as_uint8(synthetic_batch(SEED + 26, TRAIN_BATCH, IMG)))
+    for layout in LAYOUTS:
+        # The dense layout's step under S2D=1 is its unset step (no dense
+        # decoder folds in training without DENSE=1; (b) holds them equal).
+        policies = [p for p in FOLD_POLICIES if not (layout == "dense" and p == "S2D=1")]
+        for policy in policies:
+            model = seeded_model(torch.bfloat16, layout).train()
+            step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+            with fold_policy(policy):
+                report["fold"][(layout, "step", policy)] = timed_steps(
+                    f"(c) {layout} train step, {policy}:", step, batch,
+                    fold_launches(layout, policy, True))
+            del model, step
+            torch.cuda.empty_cache()
+        unset = report["fold"][(layout, "step", "unset")][0]
+        log(f"(c) {layout} b{TRAIN_BATCH} step against unset: " + ", ".join(
+            f"{p} {report['fold'][(layout, 'step', p)][0] / unset:.4f}x" for p in policies[1:]))
+    del batch
+    torch.cuda.empty_cache()
+    for layout, policy in (("dense", "DENSE=1"), ("s2d", "S2D=1")):
+        with fold_policy(policy):
+            r = profiling.profile_forward(TIMED_BATCH, torch.bfloat16, layout, iters=3,
+                                          seed=SEED + 27)
+        top = sorted(r["per_kernel"].items(), key=lambda kv: -kv[1])[:10]
+        log(f"(c) {layout} b{TIMED_BATCH} forward, {policy} (profiler): device "
+            f"{r['device_ms']:.3f} ms, busy {r['busy_share']:.1%}; by kind "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["by_kind"].items(),
+                                                          key=lambda kv: -kv[1]))
+            + "; top kernels " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+        torch.cuda.empty_cache()
+    for layout, policy in (("dense", "unset"), ("dense", "DENSE=1"), ("s2d", "unset"),
+                           ("s2d", "S2D=1")):
+        with fold_policy(policy):
+            r = profiling.profile_train_step(TRAIN_BATCH, torch.bfloat16, layout, iters=3,
+                                             seed=SEED + 27)
+        nodes = sorted(r["by_source"].items(), key=lambda kv: -kv[1])[:8]
+        log(f"(c) {layout} b{TRAIN_BATCH} step, {policy} (profiler): device {r['device_ms']:.3f} "
+            f"ms a step, phases " + ", ".join(f"{k} {v:.3f}" for k, v in r["phases_ms"].items())
+            + "; by node: " + ", ".join(f"{k} {v:.3f}" for k, v in nodes))
+        torch.cuda.empty_cache()
+
+
+def fold_artifact(tmp: Path, x8: torch.Tensor) -> None:
+    """(d): the s2d layout's b8 artifact exported under S2D=1 replays bit for
+    bit its eager forward under the policy, one operator node a launch."""
+    model = seeded_model(torch.bfloat16, "s2d")
+    expected = fold_launches("s2d", "S2D=1", False)
+    with fold_policy("S2D=1"):
+        served, export_s, mib = artifact(model, tmp / "fold_artifact", SERVE_BATCH)
+        with torch.inference_mode():
+            eager = counted(lambda: model(x8), expected)
+    with torch.inference_mode():
+        replay = counted_path(lambda: served(x8), expected)
+    nodes = graph_launches(served)
+    calls = sum(1 for n in served.program.graph.nodes if n.op == "call_function")
+    same = torch.equal(replay, eager)
+    log(f"(d) s2d artifact exported under S2D=1 at b{SERVE_BATCH} ({export_s:.1f} s, {mib:.1f} "
+        f"MiB): {calls} call_function nodes, kernel nodes "
+        f"{({k: v for k, v in nodes.items() if v})}; replay bit for bit the eager forward: {same}")
+    if not same or nodes != expected:
+        raise AssertionError(f"(d) the folded artifact: replay equal {same}, nodes {nodes}")
+
+
+def sp17_model(name: str, dtype=torch.float32) -> UNet:
+    """(e)'s model ``name``: the full-width UNet with dropout rates 0."""
+    layout, fields, _ = SP17_MODELS[name]
+    return UNet(encoder_dropout_rates=(0.0,) * len(DEFAULT_FEATURES),
+                decoder_dropout_rates=(0.0,) * (len(DEFAULT_FEATURES) - 1), dtype=dtype,
+                generator=torch.Generator().manual_seed(SEED + 28), **LAYOUTS[layout], **fields)
+
+
+def sp17_file(name: str, what: str) -> str:
+    """A file name for ``what`` of (e)'s model ``name`` (whose label holds a
+    slash)."""
+    return f"{what}_{list(SP17_MODELS).index(name)}.pt"
+
+
+def sp17_launches(name: str, train: bool, spatial_run: bool) -> dict:
+    """The launches of (e)'s model ``name``, one process or a rank: on a row
+    shard no K3 (its two K1 run instead), every K1 split and every K1bwd
+    two-pass."""
+    layout, fields, policy = SP17_MODELS[name]
+    out = fold_launches(layout, policy, train, fields)
+    if not spatial_run:
+        return out
+    out = {**out, "K1": out["K1"] + 2 * out["K3"], "K3": 0}
+    return {**out, "K1 split": out["K1"], "K1bwd split": out["K1bwd"]}
+
+
+def sp17_worker(rank: int, port: int, d: Path) -> int:
+    """(e): one gloo rank of the space group: each SP17_MODELS model's
+    spatial forward and step, float32, launches counted."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.maybe_initialize_distributed(f"tcp://localhost:{port}", SP_RANKS, rank,
+                                             backend="gloo", device="cuda:0")
+    try:
+        grid = spatial.create_mesh_dp_sp(SP_RANKS, device="cuda:0")
+        data = dict(np.load(d / "batch.npz"))
+        batch = device_batch({k: data[k] for k in ("image", "mask")})
+        x = torch.from_numpy(data["x"]).cuda()
+        out = {}
+        for name, (_, _, policy) in SP17_MODELS.items():
+            model = sp17_model(name).to("cuda:0")
+            model.load_state_dict(torch.load(d / sp17_file(name, "init")), strict=True)
+            step = spatial.spatial_train_step(model, sgd_nesterov(model.parameters()), grid)
+            with deterministic(), fold_policy(policy):
+                logits = sp_counted(lambda: spatial.spatial_forward(model, grid, x),
+                                    sp17_launches(name, False, True), out, f"{name} forward")
+                out[f"{name} logits"] = spatial.gather_rows(logits, grid.context).cpu()
+                out[f"{name} loss"] = sp_counted(lambda: float(step(batch, None)),
+                                                 sp17_launches(name, True, True), out,
+                                                 f"{name} step")
+            out[f"{name} params"] = {k: v.cpu() for k, v in params_of(model).items()}
+            del model, step
+            torch.cuda.empty_cache()
+        torch.save(out, d / f"sp17_rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def fold_shards(root: Path) -> None:
+    """(e): SP_RANKS gloo ranks against one process, each SP17_MODELS model,
+    at phase 13's bounds; K3 0 and K2b launched on the s2d shards."""
+    sp_halo_k2("K2b")
+    d = root / "sp17"
+    d.mkdir()
+    rng = np.random.default_rng(SEED + 30)
+    batch = as_uint8(synthetic_batch(SEED + 30, SP_BATCH, IMG))
+    data = {"image": batch["image"], "mask": batch["mask"],
+            "x": rng.normal(size=(SP_BATCH, IMG, IMG, 3)).astype(np.float32)}
+    np.savez(d / "batch.npz", **data)
+    states = {}
+    for name in SP17_MODELS:
+        states[name] = {k: v.clone() for k, v in sp17_model(name).state_dict().items()}
+        torch.save(states[name], d / sp17_file(name, "init"))
+    torch.cuda.empty_cache()
+    port = free_port()
+    run_ranks([[sys.executable, str(Path(__file__).resolve()), "--sp17-worker", str(r),
+                str(port), str(d)] for r in range(SP_RANKS)], "phase 17's spatial ranks")
+    ranks = [torch.load(d / f"sp17_rank{r}.pt") for r in range(SP_RANKS)]
+    for r, out in enumerate(ranks):
+        for name in SP17_MODELS:
+            for run in ("forward", "step"):
+                got, expected = out[f"{name} {run}"]["got"], out[f"{name} {run}"]["expected"]
+                if got != expected:
+                    raise AssertionError(f"rank {r} {name} {run}: launches {got}, expected "
+                                         f"{expected}")
+                for kernel in KERNELS:
+                    report["path_launches"][kernel] += got[kernel]
+    x = torch.from_numpy(data["x"]).cuda()
+    one_batch = device_batch({k: data[k] for k in ("image", "mask")})
+    for name, (_, _, policy) in SP17_MODELS.items():
+        model = sp17_model(name).to("cuda")
+        model.load_state_dict(states[name], strict=True)
+        groups = grad_groups(model)
+        model.eval()
+        step = make_segmentation_train_step(model, sgd_nesterov(model.parameters()))
+        with deterministic(), fold_policy(policy):
+            with torch.no_grad():
+                logits = counted_path(lambda: model(x), sp17_launches(name, False, False)).cpu()
+            loss = counted_path(lambda: float(step(one_batch, None)),
+                                sp17_launches(name, True, False))
+        fwd = rel_l2(ranks[0][f"{name} logits"], logits)
+        same = all(torch.equal(out[f"{name} logits"], ranks[0][f"{name} logits"])
+                   for out in ranks)
+        ref = params_of(model)
+        log(f"(e) {name}: rank launches forward "
+            f"{({k: v for k, v in ranks[0][f'{name} forward']['got'].items() if v})}, step "
+            f"{({k: v for k, v in ranks[0][f'{name} step']['got'].items() if v})}; spatial "
+            f"forward against one process's rel-L2 {fwd:.3e} (bound {SP_FWD_REL:g}), the ranks' "
+            f"logits equal: {same}")
+        if not (fwd <= SP_FWD_REL and same):
+            raise AssertionError(f"(e) {name}: the spatial forward: rel-L2 {fwd:.3e}, ranks "
+                                 f"equal {same}")
+        for r, out in enumerate(ranks):
+            got = {k: v.cuda() for k, v in out[f"{name} params"].items()}
+            loss_rel = abs(out[f"{name} loss"] - loss) / abs(loss)
+            rel, worst = worst_rel(got, ref, groups)
+            log(f"(e) {name} rank {r} step: loss {out[f'{name} loss']:.7f} / one process "
+                f"{loss:.7f} (rel {loss_rel:.3e}, bound {SP_LOSS_REL:g}); parameters worst group "
+                f"rel-L2 {rel:.3e} ({worst}; bound {TRAIN_F32_PLAIN_GRAD_REL:g})")
+            if not (loss_rel <= SP_LOSS_REL and rel <= TRAIN_F32_PLAIN_GRAD_REL):
+                raise AssertionError(f"(e) {name} rank {r}: loss {loss_rel:.3e}, parameters "
+                                     f"{rel:.3e}")
+        for key in ranks[0][f"{name} params"]:
+            if not all(torch.equal(out[f"{name} params"][key], ranks[0][f"{name} params"][key])
+                       for out in ranks):
+                raise AssertionError(f"(e) {name}: the ranks' parameters differ at {key}")
+        del model, step
+        torch.cuda.empty_cache()
+
+
+def fold_fp8(x8: torch.Tensor) -> None:
+    """(f): the dense b8 forward under ``all`` with the dense fold (S2D=1, eval):
+    its fp8 launches (each folded decoder's conv_0 runs its interior conv and
+    four strips where the unfolded one ran the upsampled segment's conv: 4
+    more), and each distinct fold or strip call against its plain version at
+    phase 16 (a)'s gates."""
+    model = seeded_model(torch.bfloat16)
+    xb = x8.to(torch.bfloat16)
+    unfolded = set(record_fp8_calls(model, xb))
+    with fold_policy("S2D=1"):
+        calls = record_fp8_calls(model, xb)
+        n_fp8 = 28 + 4 * len(K2_INPUTS)
+        n_wgmma = sum(k8.wgmma_applicable(sig[0], sig[1], sig[2], sig[3]) for sig in calls)
+        with fp8_policy("all"), torch.inference_mode():
+            fp8_counted(lambda: model(xb), fold_launches("dense", "S2D=1", False), n_fp8, n_wgmma)
+    new = [sig for sig in dict.fromkeys(calls) if sig not in unfolded]
+    log(f"(f) dense b{SERVE_BATCH} forward under all with the dense fold: {len(calls)} fp8 "
+        f"launches (bound {n_fp8}), {n_wgmma} the wgmma kernel's; {len(new)} distinct fold and "
+        f"strip calls")
+    if len(calls) != n_fp8:
+        raise AssertionError(f"(f) {len(calls)} fp8 calls, expected {n_fp8}")
+    for i, sig in enumerate(new):
+        for fp8 in FP8_TYPES:
+            log(f"   {check_fp8_call(sig, fp8, SEED + 31 + i)}")
+        torch.cuda.empty_cache()
+
+
+@phase("17. the decoder upsample folds and the s2d layout and k = 5 on row shards "
+       "(unet_6stage 512²)")
+def phase_folds(root: Path):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x8 = torch.randn((SERVE_BATCH, IMG, IMG, 3), generator=g, device="cuda")
+    for item, run in (("(a)", fold_functions), ("(b)", lambda: fold_forwards(x8)),
+                      ("(d)", lambda: fold_artifact(root, x8)), ("(f)", lambda: fold_fp8(x8))):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        log(f"{item} done in {time.perf_counter() - t0:.1f} s")
+    del x8
+    torch.cuda.empty_cache()
+    for item, run in (("(c)", fold_times), ("(e)", lambda: fold_shards(root))):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        log(f"{item} done in {time.perf_counter() - t0:.1f} s")
+
+
 AB_PROGRAM = f"""
 import statistics, sys, tempfile
 import torch
@@ -4982,7 +5450,7 @@ def kernels_line() -> dict:
         ms, plain_ms, bound_ms, library_ms = rows.get(key, [None] * 4)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            # The counted runs of the main paths (phases 3, 6-16).
+            # The counted runs of the main paths (phases 3, 6-17).
             "launches": report["path_launches"][key],
             "max_abs_err": report["err"][key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -5030,6 +5498,8 @@ def main() -> int:
             phase_analysis(Path(recipe_root))
             torch.cuda.empty_cache()
             phase_fields(Path(recipe_root))
+            torch.cuda.empty_cache()
+            phase_folds(Path(recipe_root))
     log(f"total {time.perf_counter() - t0:.1f} s")
     if failures:
         for name, trace in zip(failures, failure_traces):
@@ -5050,6 +5520,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--sp17-worker"]:
+        sys.exit(sp17_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--cli-worker"]:
         sys.exit(cli_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--spatial-cards"]:

@@ -41,7 +41,10 @@ plus float32's summation bound, K·2^-24·Σ|products| (the plain version sums
 the same exact products in float32 in another order), at the general
 kernel's shapes and at the wgmma kernel's edges (its launch count, a repeat
 bit for bit, its epilogue and packed weights bit for bit); the mode raises
-under autograd.
+under autograd. The upsample folds (``ops/s2d.py``) against the plain
+upsample and the unfolded convs at ``tests/test_up_fold.py``'s tolerances
+(2e-5 + 1e-4·|x|, float32, TF32 off); K2b on halo'd row shards bit for bit
+the unsharded K2b; a folded s2d forward launches no K2a or K2b.
 """
 
 import numpy as np
@@ -119,6 +122,66 @@ def test_upsample_bitwise(dtype, shape):
     with torch.no_grad():
         assert torch.equal(upsample2x_nhwc_fast(x), upsample2x_nhwc(x))
     assert upsample2x_nhwc_fast.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_upsample_s2d_halo_bitwise(dtype):
+    """K2b on two row shards, each with its neighbour's edge row (its own at
+    the image's edge), gives the unsharded K2b's rows bit for bit."""
+    from unet_implementations_tpu_torch.kernels.upsample import upsample2x_into_s2d_halo
+
+    _need_cuda()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 16, 12, 64)))
+    x = x.to("cuda", DTYPES[dtype])
+    before = upsample2x_into_s2d_fast.launches
+    with torch.no_grad():
+        top = upsample2x_into_s2d_halo(x[:, :8], x[:, :1], x[:, 8:9])
+        bottom = upsample2x_into_s2d_halo(x[:, 8:], x[:, 7:8], x[:, -1:])
+        assert torch.equal(torch.cat([top, bottom], dim=1), upsample2x_into_s2d_fast(x))
+    assert upsample2x_into_s2d_fast.launches == before + 3
+
+
+def test_up_folds_against_the_composite(monkeypatch):
+    """The folds on the card (float32, TF32 off) against the plain upsample
+    and the unfolded convs, at tests/test_up_fold.py's tolerances."""
+    from unet_implementations_tpu_torch.ops import s2d
+
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, 16, 16, 64), generator=g, device="cuda")
+    skip_s2d = torch.randn((2, 16, 16, 128), generator=g, device="cuda")
+    skip = torch.randn((2, 32, 32, 32), generator=g, device="cuda")
+    w = torch.randn((32, 96, 3, 3), generator=g, device="cuda") * 0.05
+    b = torch.randn((32,), generator=g, device="cuda") * 0.1
+    with torch.no_grad():
+        got = s2d.conv_s2d_multi_up_fold(x, [skip_s2d], w, b, (64, 32))
+        want = s2d.conv_s2d_multi([s2d.upsample2x_into_s2d(x), skip_s2d], w, b, (64, 32))
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        got = s2d.conv_dense_up_fold(x, [skip], w, b)
+        both = torch.cat([upsample2x_nhwc(x), skip], dim=-1).permute(0, 3, 1, 2)
+        want = torch.nn.functional.conv2d(both, w, b, padding=1).permute(0, 2, 3, 1)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_folded_s2d_forward_launches_no_upsample(monkeypatch):
+    """With ``UNET_TPU_S2D_UP_FOLD=1`` an s2d model's eval forward runs no K2a
+    or K2b (its dense decoder folds too in eval) and still its K3, within
+    1e-4 relative L2 of the unfolded forward (float32, TF32 off)."""
+    _need_cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = UNet(features_per_stage=(8, 32, 32), strides=(1, 2, 2), **S2D_LAYOUT,
+                 encoder_dropout_rates=(0.0,) * 3, decoder_dropout_rates=(0.0,) * 2).cuda().eval()
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    counts = (upsample2x_nhwc_fast, upsample2x_into_s2d_fast, torch_region.fused_s2d_tail)
+    with torch.no_grad():
+        want = model(x)
+        monkeypatch.setenv("UNET_TPU_S2D_UP_FOLD", "1")
+        before = [fn.launches for fn in counts]
+        got = model(x)
+    assert [fn.launches - n for fn, n in zip(counts, before)] == [0, 0, 3]
+    assert float((got - want).norm() / want.norm()) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -239,10 +239,28 @@ class TestModelFields:
             assert s2d_region.region_applicable(x, v, v, torch.zeros(8, 8, 3, 3), v, v)
             assert not s2d_region.region_applicable(x, v, v, torch.zeros(8, 8, 5, 5), v, v)
 
-    def test_spatial_k5_not_ported(self):
-        model = UNet(**WRAP3, kernel_size=5)
-        with pytest.raises(NotImplementedError, match="kernel_size != 3"):
-            model(torch.zeros(1, 16, 32, 3), spatial=SpatialContext(None, 2, 0))
+    @pytest.mark.parametrize("layout,k", [("dense", 5), ("s2d", 3), ("s2d", 5)])
+    def test_spatial_k5_not_ported(self, monkeypatch, layout, k):
+        """Ported (the name is kept from when it raised): k = 5 and the s2d
+        layout run on a row shard. On a space group of one rank, whose
+        all-reduces are the identity, the shard's halo path (two zero rows a
+        side for k = 5, one s2d row for the s2d convs, no K3) gives the
+        unsharded forward; a k = 5 shard too shallow for its two halo rows
+        raises."""
+        flags = S2D if layout == "s2d" else {}
+        monkeypatch.setattr(torch.distributed, "all_reduce", lambda t, group=None: None)
+        model = UNet(**WRAP3, **flags, kernel_size=k).eval()
+        x = torch.from_numpy(np.random.default_rng(k).normal(size=(2, 16, 32, 3)).astype(
+            np.float32))
+        with torch.no_grad():
+            got = model(x, spatial=SpatialContext(None, 1, 0))
+            want = model(x)
+        # The unsharded s2d forward takes K3 (its plain version), the shard
+        # the module path: float32 sums in another order.
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-5, rel
+        with pytest.raises(ValueError, match="H must be at least 16"):
+            UNet(**WRAP3, kernel_size=5)(x[:, :4], spatial=SpatialContext(None, 2, 0))
 
 
 class TestConvert:

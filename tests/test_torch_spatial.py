@@ -25,9 +25,20 @@ RANK PORT DIR``). Two launches run at once:
   CSV row, the same parameters on both ranks, a strict ``best_model``, and
   masks equal to one process's ``predict``.
 
-In-process: K2a's plain version on halo'd shards equals the rows of the
-unsharded upsample bit for bit, and the refusals that need no group (an
-indivisible height, the s2d layout, ``--spatial`` with ``--grad_accum``).
+The four ranks also run, on both grids, three more models (``MODELS``): an
+s2d one (3 stages, features 8-32-32: level 0 in s2d and decoder_0 wrapped,
+so both decoders are s2d), with the upsample fold off and on
+(``UNET_TPU_S2D_UP_FOLD``), and the tiny dense model at ``kernel_size=5``
+(two halo rows a side, shards of two rows at the bottleneck on the (1, 4)
+grid). Each spatial forward against JAX's unsharded forward (1e-5) and
+``spatial_forward_jit`` (5e-4), under the same policy; the s2d model's step
+with the fold on against JAX's unsharded step with the fold on, at the
+dense model's bounds.
+
+In-process: K2a's and K2b's plain versions on halo'd shards equal the rows
+of the unsharded upsample bit for bit, and the refusals that need no group
+(an indivisible height, a k = 5 shard too shallow for its halo, ``--spatial``
+with ``--grad_accum``).
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ if __name__ == "__main__":
 
 from unet_implementations_tpu_torch import cli  # noqa: E402
 from unet_implementations_tpu_torch.kernels.upsample import (  # noqa: E402
+    upsample2x_into_s2d_fast,
+    upsample2x_into_s2d_halo,
     upsample2x_nhwc_fast,
     upsample2x_nhwc_halo,
 )
@@ -66,6 +79,12 @@ SIZE = 32
 TINY = dict(features_per_stage=(8, 16, 32), strides=(1, 2, 2), s2d_level0=False,
             s2d_low_channel_decoders=False, encoder_dropout_rates=(0.0,) * 3,
             decoder_dropout_rates=(0.0,) * 2)
+# The further models of the four-rank launch: (config, the s2d fold on).
+S2D_TINY = dict(TINY, features_per_stage=(8, 32, 32), s2d_level0=True,
+                s2d_low_channel_decoders=True)
+MODELS = {"s2d": (S2D_TINY, False), "s2d_fold": (S2D_TINY, True),
+          "k5": (dict(TINY, kernel_size=5), False)}
+FOLD_VAR = "UNET_TPU_S2D_UP_FOLD"
 # (n_data, n_space) of the four-rank launch, in its order.
 GRIDS = {"dp2_sp2": (2, 2), "dp1_sp4": (1, 4)}
 FWD_REL_L2 = 1e-5
@@ -96,21 +115,42 @@ def global_batch() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _model(d: Path) -> UNet:
-    model = UNet(**TINY)
-    model.load_state_dict(torch.load(d / "init.pt"), strict=True)
+def _model(d: Path, name: str = "tiny") -> UNet:
+    model = UNet(**(TINY if name == "tiny" else MODELS[name][0]))
+    model.load_state_dict(torch.load(d / f"init_{name}.pt"), strict=True)
     return model
 
 
+def _models_run(grid, batch: dict, d: Path) -> None:
+    """The further models' spatial forwards on this grid, and the folded s2d
+    model's step; saves what the parent compares."""
+    out = {"data_rank": grid.data_rank}
+    for name, (_, fold) in MODELS.items():
+        os.environ[FOLD_VAR] = "1" if fold else "0"
+        model = _model(d, name)
+        out[name] = spatial.gather_rows(spatial.spatial_forward(model, grid, batch["x"]),
+                                        grid.context)
+        if fold:
+            step = spatial.spatial_train_step(model, train_state.sgd_nesterov(
+                model.parameters()), grid)
+            out[f"{name} loss"] = float(step({"image": batch["image"], "mask": batch["mask"]},
+                                             None))
+            out[f"{name} params"] = model.state_dict()
+    os.environ.pop(FOLD_VAR)
+    n_data, n_space = grid.n_data, grid.n_space
+    torch.save(out, d / f"models_dp{n_data}_sp{n_space}_rank{grid.rank}.pt")
+
+
 def _grid_run(name: str, d: Path) -> None:
-    """One grid's forward, train step and their controls; saves what the
-    parent compares."""
+    """One grid's forward, train step and their controls, then the further
+    models'; saves what the parent compares."""
     n_data, n_space = GRIDS[name]
     grid = spatial.create_mesh_dp_sp(n_space, n_data, device="cpu")
     ctx = grid.context
     b = GLOBAL_BATCH // n_data
     batch = {k: torch.from_numpy(v[grid.data_rank * b:(grid.data_rank + 1) * b])
              for k, v in np.load(d / "batch.npz").items()}
+    _models_run(grid, batch, d)
     model = _model(d)
     logits = spatial.gather_rows(spatial.spatial_forward(model, grid, batch["x"]), ctx)
     with torch.no_grad():  # the control: the shards alone
@@ -259,16 +299,23 @@ def sp_run(tmp_path_factory):
     d = tmp_path_factory.mktemp("spatial")
     batch = global_batch()
     np.savez(d / "batch.npz", **batch)
-    jmodel = JaxUNet(**TINY)
-    shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
-                            jnp.zeros((1, SIZE, SIZE, 3), jnp.float32))["params"]
-    params = jax.tree.map(jnp.asarray, _seeded_params(shapes, np.random.default_rng(29)))
-    tx = jax_ts.sgd_nesterov()
-    state = jax_ts.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                              opt_state=tx.init(params), tx=tx, apply_fn=jmodel.apply)
-    model = UNet(**TINY)
-    model.load_state_dict(convert.params_from_jax(jax.device_get(params), model), strict=True)
-    torch.save(model.state_dict(), d / "init.pt")
+    models = {}
+    for i, (name, config) in enumerate([("tiny", TINY)] + [(n, c) for n, (c, _) in
+                                                          MODELS.items()]):
+        jmodel = JaxUNet(**config)
+        shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                                jnp.zeros((1, SIZE, SIZE, 3), jnp.float32))["params"]
+        params = jax.tree.map(jnp.asarray,
+                              _seeded_params(shapes, np.random.default_rng(29 + i)))
+        tx = jax_ts.sgd_nesterov()
+        state = jax_ts.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                  opt_state=tx.init(params), tx=tx, apply_fn=jmodel.apply)
+        model = UNet(**config)
+        model.load_state_dict(convert.params_from_jax(jax.device_get(params), model),
+                              strict=True)
+        torch.save(model.state_dict(), d / f"init_{name}.pt")
+        models[name] = (jmodel, state, model)
+    jmodel, state, model = models["tiny"]
     _write_cli_data(d)
 
     env = {k: v for k, v in os.environ.items()
@@ -288,7 +335,8 @@ def sp_run(tmp_path_factory):
                 p.wait()
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"process {i} failed:\n{out[-4000:]}"
-    return {"dir": d, "state": state, "batch": batch, "model": model, "jmodel": jmodel}
+    return {"dir": d, "state": state, "batch": batch, "model": model, "jmodel": jmodel,
+            "models": models}
 
 
 def _rel_l2(a, b) -> float:
@@ -369,6 +417,71 @@ def test_spatial_train_step_matches_jax_full_batch(sp_run, name):
     assert abs(own - want_loss) > 100 * LOSS_REL * abs(want_loss), (own, want_loss)
 
 
+def _models_ranks(sp_run, name: str) -> list:
+    n_data, n_space = GRIDS[name]
+    return [torch.load(sp_run["dir"] / f"models_dp{n_data}_sp{n_space}_rank{r}.pt")
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("name", GRIDS)
+def test_spatial_models_match_jax(sp_run, name, model, monkeypatch):
+    """The s2d model (fold off and on) and the k = 5 model on row shards
+    against JAX's unsharded forward and its ``spatial_forward_jit``, JAX's
+    policy set as the workers' was (JAX reads it while tracing)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from unet_implementations_tpu.parallel.spatial import (
+        create_mesh_dp_sp,
+        spatial_forward_jit,
+        spatial_sharding,
+    )
+
+    n_data, n_space = GRIDS[name]
+    monkeypatch.setenv(FOLD_VAR, "1" if MODELS[model][1] else "0")
+    got = _assembled(_models_ranks(sp_run, name), model, n_data)
+    jmodel, state, _ = sp_run["models"][model]
+    x = jnp.asarray(sp_run["batch"]["x"])
+    want = np.asarray(jax.jit(lambda p, x: jmodel.apply({"params": p}, x))(state.params, x))
+    assert _rel_l2(got, want) <= FWD_REL_L2, _rel_l2(got, want)
+    mesh = create_mesh_dp_sp(n_space, n_data=n_data)
+    jax_spatial = np.asarray(spatial_forward_jit(jmodel, mesh)(
+        jax.device_put(state.params, NamedSharding(mesh, P())),
+        jax.device_put(x, spatial_sharding(mesh))))
+    assert float(np.abs(got - jax_spatial).max()) <= JAX_SPATIAL_TOL
+
+
+@pytest.fixture(scope="module")
+def s2d_fold_step(sp_run):
+    """JAX's unsharded step of the s2d model with the fold on: (loss, the
+    updated parameters as the port's state dict)."""
+    import jax
+    import jax.numpy as jnp
+
+    from unet_implementations_tpu.training import steps as jax_steps
+    from unet_implementations_tpu_torch.models import convert
+
+    _, state, model = sp_run["models"]["s2d_fold"]
+    jbatch = {k: jnp.asarray(sp_run["batch"][k]) for k in ("image", "mask")}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(FOLD_VAR, "1")
+        want_state, want_loss = jax_steps.make_segmentation_train_step(donate=False)(
+            state, jbatch, jax.random.key(0))
+    return float(want_loss), convert.params_from_jax(jax.device_get(want_state.params), model)
+
+
+@pytest.mark.parametrize("name", GRIDS)
+def test_spatial_s2d_fold_step_matches_jax_full_batch(sp_run, s2d_fold_step, name):
+    want_loss, want = s2d_fold_step
+    for rank, got in enumerate(_models_ranks(sp_run, name)):
+        loss = got["s2d_fold loss"]
+        assert abs(loss - want_loss) <= LOSS_REL * abs(want_loss), (rank, loss, want_loss)
+        for key, value in got["s2d_fold params"].items():
+            assert _rel_l2(value.numpy(), want[key].numpy()) <= PARAM_REL_L2, (rank, key)
+
+
 def test_halo_backward_is_its_transpose_and_bad_grids_are_refused(sp_run):
     ranks = [torch.load(sp_run["dir"] / f"halo_rank{r}.pt") for r in range(WORLD)]
     forward = sum(r["forward"] for r in ranks)
@@ -378,20 +491,33 @@ def test_halo_backward_is_its_transpose_and_bad_grids_are_refused(sp_run):
         assert r["refused"] is not None and "does not divide" in r["refused"], r["refused"]
 
 
-@pytest.mark.parametrize("n_space", [2, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_halo_upsample_rows_are_the_unsharded_rows(n_space, dtype):
-    rng = np.random.default_rng(43)
-    x = torch.from_numpy(rng.normal(size=(2, 8, 6, 5))).to(dtype)
-    want = upsample2x_nhwc_fast(x)
+def _halo_rows_of(x, n_space, whole, halo):
+    """``halo`` on each of n_space row shards of x, with the neighbours' edge
+    rows (the shard's own at the edges), against ``whole`` of x."""
     h = x.shape[1] // n_space
     rows = []
     for s in range(n_space):
         shard = x[:, s * h:(s + 1) * h]
         above = x[:, s * h - 1:s * h] if s > 0 else shard[:, :1]
         below = x[:, (s + 1) * h:(s + 1) * h + 1] if s < n_space - 1 else shard[:, -1:]
-        rows.append(upsample2x_nhwc_halo(shard, above, below))
-    assert torch.equal(torch.cat(rows, dim=1), want)
+        rows.append(halo(shard, above, below))
+    return torch.cat(rows, dim=1), whole(x)
+
+
+@pytest.mark.parametrize("n_space", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_upsample_rows_are_the_unsharded_rows(n_space, dtype):
+    x = torch.from_numpy(np.random.default_rng(43).normal(size=(2, 8, 6, 5))).to(dtype)
+    got, want = _halo_rows_of(x, n_space, upsample2x_nhwc_fast, upsample2x_nhwc_halo)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_space", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_s2d_upsample_rows_are_the_unsharded_rows(n_space, dtype):
+    x = torch.from_numpy(np.random.default_rng(44).normal(size=(2, 8, 6, 5))).to(dtype)
+    got, want = _halo_rows_of(x, n_space, upsample2x_into_s2d_fast, upsample2x_into_s2d_halo)
+    assert torch.equal(got, want)
 
 
 def test_refusals_without_a_group(tmp_path):
@@ -399,8 +525,11 @@ def test_refusals_without_a_group(tmp_path):
     x = torch.zeros(1, 6, SIZE, 3)  # 24 rows over 4 ranks: shards of 6, not divisible by 4
     with pytest.raises(ValueError, match="divisible by 4·4"):
         UNet(**TINY)(x, spatial=ctx)
-    with pytest.raises(NotImplementedError, match="s2d layout.*item 7"):
-        UNet(**{**TINY, "s2d_level0": True})(torch.zeros(1, 8, SIZE, 3), spatial=ctx)
+    # k = 5 takes two halo rows a side: 16 rows over 4 ranks leave shards of
+    # one row at the bottleneck (the s2d layout runs on shards too).
+    with pytest.raises(ValueError, match="H must be at least 32"):
+        UNet(**{**TINY, "s2d_level0": True, "kernel_size": 5})(torch.zeros(1, 4, SIZE, 3),
+                                                               spatial=ctx)
     argv = ["our_unet", "train", "--data_dir", str(tmp_path / "none"), "--output_dir",
             str(tmp_path / "o"), "--device", "cpu", "--spatial", "2"]
     with pytest.raises(ValueError, match="--grad_accum with --spatial"):

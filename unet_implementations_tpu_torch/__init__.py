@@ -73,9 +73,3 @@ def default_device(device=None) -> torch.device:
         return torch.device("cuda", distributed.local_rank())
     return torch.device("cuda")
 
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error of a JAX feature the port does not have yet: ``item`` is its
-    entry in ROADMAP.md's queue 1."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md queue 1 item {item})")

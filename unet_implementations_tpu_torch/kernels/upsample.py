@@ -34,6 +34,8 @@ one halo row on each side (the neighbours' edge rows, or the shard's own
 edge row repeated at the image's top and bottom, which is the kernel's edge
 clamp) and keeps output rows [2, 2h + 2): each is computed from the same
 input values as the unsharded kernel's row, so it is that row bit for bit.
+``upsample2x_into_s2d_halo`` does the same with K2b on an s2d level's shard,
+keeping output rows [1, h + 1).
 
 Both are differentiable. The backward is the transpose of the plain version,
 as the JAX package's is (``jax.linear_transpose`` of the reference,
@@ -209,6 +211,17 @@ def upsample2x_nhwc_halo(x: torch.Tensor, above: torch.Tensor,
     h = x.shape[1]
     up = upsample2x_nhwc_fast(torch.cat([above, x, below], dim=1))
     return up[:, 2:2 * h + 2]
+
+
+def upsample2x_into_s2d_halo(x: torch.Tensor, above: torch.Tensor,
+                             below: torch.Tensor) -> torch.Tensor:
+    """``upsample2x_into_s2d_fast`` of a row shard (B, h, W, C), given the
+    rows beyond it (as ``upsample2x_nhwc_halo``): (B, h, W, 4C), the shard's
+    rows of the s2d upsample. K2b (one launch) on the h + 2 rows, cropped to
+    output rows [1, h + 1)."""
+    _check_input(x, "upsample2x_into_s2d_halo")
+    up = upsample2x_into_s2d_fast(torch.cat([above, x, below], dim=1))
+    return up[:, 1:x.shape[1] + 1]
 
 
 # Kernel launches since the count was last set to 0 (CPU calls do not count).

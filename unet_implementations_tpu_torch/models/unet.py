@@ -10,8 +10,8 @@ JAX. The encoder-transfer model is the segmentation UNet with its encoder
 grafted from an autoencoder and frozen (``recipes/ae_transfer.py``). The
 CLIP_UNet model is the segmentation UNet with ``clip_fusion``: a global
 (B, clip_dim) image embedding fused at the bottleneck. Under spatial
-partitioning (``parallel/spatial.py``) the dense model runs on a row shard of
-each image. ``remat`` recomputes each block's activations in the backward
+partitioning (``parallel/spatial.py``) the model runs on a row shard of each
+image, in either layout. ``remat`` recomputes each block's activations in the backward
 (JAX's ``nn.remat``), with the same channel-dropout masks.
 """
 
@@ -24,7 +24,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from unet_implementations_tpu_torch import default_device, not_ported
+from unet_implementations_tpu_torch import default_device
 from unet_implementations_tpu_torch.models.blocks import (
     ConvBlock,
     InstanceNorm,
@@ -34,8 +34,9 @@ from unet_implementations_tpu_torch.models.blocks import (
     nchw,
     nhwc,
     plain_conv2d,
+    s2d_conv,
 )
-from unet_implementations_tpu_torch.ops.s2d import conv_s2d, depth_to_space, space_to_depth
+from unet_implementations_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 from unet_implementations_tpu_torch.parallel.spatial import SpatialContext
 
 # The 6-stage configuration the reference trains.
@@ -206,21 +207,26 @@ class UNet(nn.Module):
 
         ``spatial``: ``x`` is this rank's row shard (B, H/S, W, C_in) of the
         images of a space group of S ranks, and so is the output (JAX's
-        spatially sharded forward). The shards must stay equal and even at
-        every level: H divisible by 2^(stages-1)·S. The dense layout and 3×3
-        convs only."""
+        spatially sharded forward), in either layout. The shards must stay
+        equal and even at every level: H divisible by 2^(stages-1)·S; and
+        each level's shard must hold the k//2 halo rows its k×k convs take
+        from each neighbour: H at least 2^(stages-1)·S·(k//2)."""
         n = self.n_stages
         if spatial is not None:
-            if self.s2d_level0 or self.s2d_low_channel_decoders:
-                raise not_ported("--spatial with the s2d layout", 7)
-            if self.kernel_size != 3:
-                raise not_ported("--spatial with kernel_size != 3", 7)
             down = math.prod(self.strides)
+            height = x.shape[1] * spatial.size
             if x.shape[1] % down:
                 raise ValueError(
-                    f"spatial partitioning: images of {x.shape[1] * spatial.size} rows over "
+                    f"spatial partitioning: images of {height} rows over "
                     f"{spatial.size} ranks leave shards that are not equal and even at every "
                     f"level; H must be divisible by {down}·{spatial.size}")
+            if x.shape[1] // down < self.kernel_size // 2:
+                least = down * spatial.size * (self.kernel_size // 2)
+                raise ValueError(
+                    f"spatial partitioning with kernel_size {self.kernel_size}: each level's "
+                    f"shard must hold the {self.kernel_size // 2} rows a conv takes from each "
+                    f"neighbour; images of {height} rows over {spatial.size} ranks leave "
+                    f"{x.shape[1] // down} at the deepest level; H must be at least {least}")
         x = nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
         # The JAX model's rules: the s2d level needs even sizes and a
         # stride-1 first stage; encoder_1 then takes the s2d skip through a
@@ -261,7 +267,7 @@ class UNet(nn.Module):
         head = (self.segmentation_output if self.head == "segmentation"
                 else self.reconstruction_output[0])
         if use_s2d:
-            out = depth_to_space(conv_s2d(nhwc(x), head.weight, head.bias))
+            out = depth_to_space(nhwc(s2d_conv(x, head, spatial)))
         else:
             out = nhwc(conv2d(x, head, spatial))
         out = out.to(torch.float32)

@@ -99,7 +99,8 @@ def _conv2d(x, weight, bias, stride: int, pads: tuple) -> torch.Tensor:
 
 def qconv_sum(xs: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
               bias: Optional[torch.Tensor], stride: int = 1, padding=0,
-              rows: Optional[int] = None) -> torch.Tensor:
+              rows: Optional[int] = None,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``Σ_i conv(xs[i], weights[i]) + bias``: the conv of the channel-concat
     of the NCHW tensors ``xs`` by the kernel whose input-channel slices are
     ``weights`` (each in the activations' dtype), without the concat.
@@ -108,17 +109,23 @@ def qconv_sum(xs: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     Quantized (``quantizes``): the terms in the activations' dtype, summed in
     order, then the bias, as JAX's ``ConvOp`` and ``conv_s2d_multi`` do.
     Otherwise the bias goes with the first conv and the others add into its
-    output in place."""
+    output in place.
+
+    ``residual`` (NCHW, the output's shape): a folded segment's contribution
+    (JAX's up-folds). Quantized, it comes first, as in JAX: the convs add to
+    it in order, then the bias. Otherwise it adds into the convs' sum in
+    place, last."""
     pads = _paddings(padding)
     if quantizes(xs[0], rows):
         tensors = [*xs, *weights] + ([] if bias is None else [bias])
+        tensors += [] if residual is None else [residual]
         if _build.records_grad(*tensors):
             raise NotImplementedError(
                 "the fp8 conv mode (UNET_TPU_CONV_FP8) is forward-only in the PyTorch package: "
                 "run it under torch.no_grad() or torch.inference_mode(), or unset the variable "
                 "to train (ROADMAP.md's departures)")
         fp8 = fp8_conv_dtype()
-        y = None
+        y = None if residual is None else residual.permute(0, 2, 3, 1)
         for i, (x, w) in enumerate(zip(xs, weights)):
             last = i == len(xs) - 1
             y = fp8_conv(x.permute(0, 2, 3, 1), w, bias if last else None, y, stride, pads, fp8)
@@ -127,7 +134,7 @@ def qconv_sum(xs: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     for x, w in zip(xs, weights):
         yi = _conv2d(x, w, bias if y is None else None, stride, pads)
         y = yi if y is None else y.add_(yi)
-    return y
+    return y if residual is None else y.add_(residual)
 
 
 def qconv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],

@@ -1,28 +1,44 @@
-"""Space-to-depth execution of a full-resolution level: the layout algebra.
+"""Space-to-depth execution of a full-resolution level: the layout algebra
+and the decoder's upsample folds.
 
-Counterpart of ``unet_implementations_tpu/models/s2d.py``, without the
-upsample folds. A stride-1 k×k conv commutes exactly with space-to-depth:
-rearrange (B, 2i+dy, 2j+dx, c) to (B, i, j, q·C + c) with q = dy·2 + dx
-(q-major), and the conv becomes a K′×K′ conv over the rearranged tensor
-whose (4Cout, 4Cin) kernel is the original kernel scattered into a fixed
-pattern of zeros (25% dense for k = 3). The numbers are those of the dense
-conv: the extra products multiply structural zeros.
+Counterpart of ``unet_implementations_tpu/models/s2d.py``. A stride-1 k×k
+conv commutes exactly with space-to-depth: rearrange (B, 2i+dy, 2j+dx, c)
+to (B, i, j, q·C + c) with q = dy·2 + dx (q-major), and the conv becomes a
+K′×K′ conv over the rearranged tensor whose (4Cout, 4Cin) kernel is the
+original kernel scattered into a fixed pattern of zeros (25% dense for
+k = 3). The numbers are those of the dense conv: the extra products multiply
+structural zeros.
 
 Concatenating two q-major tensors is not the s2d of their concatenation,
 so the kernel transform takes ``in_segments`` and ``conv_s2d_multi`` convs
 each segment separately and sums, without materializing the concat.
+
+The upsample folds (``conv_up_fold``, ``conv_s2d_multi_up_fold``,
+``conv_dense_up_fold``): a decoder's conv_0 of the 2x bilinear upsample of
+x is a 3×3 conv of x itself on the coarse grid, whose kernel folds the lerp
+weights in (``fold_up_kernel``), with its one-block border frame recomputed
+on 3-line strips. No upsampled tensor is made. The policies
+``up_fold_enabled`` and ``dense_up_fold_enabled`` read JAX's variables
+``UNET_TPU_S2D_UP_FOLD`` and ``UNET_TPU_DENSE_UP_FOLD`` at each call and
+default to off, as JAX decides off the TPU.
 
 Every function takes and returns NHWC tensors, as the JAX functions do;
 conv kernels are in torch's (Cout, Cin, kh, kw) layout. The convs run as
 ``ops/quant.py::qconv`` on NCHW views in channels_last memory: ``F.conv2d``
 (cuDNN on the card), so an NHWC-contiguous input reaches cuDNN without a
 copy, or the fp8 conv where the fp8 mode takes the conv.
+
+Row shards (``parallel/spatial.py``): a conv given ``rows`` takes x already
+padded with its neighbours' halo rows (K′//2 a side; the row above alone for
+the stride-2 conv), pads only its columns, and shows the fp8 policy
+``rows``, the whole grid's rows. The folds take a ``RowShard`` instead.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence
+import os
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -208,17 +224,18 @@ def transform_kernel_stride2(kernel: torch.Tensor) -> torch.Tensor:
 
 
 def conv_s2d_to_dense_stride2(x: torch.Tensor, kernel: torch.Tensor,
-                              bias: torch.Tensor) -> torch.Tensor:
+                              bias: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """Stride-2 3×3 conv of an s2d input (B, H′, W′, 4Cin) into a DENSE
     (B, H′, W′, Cout) map: a 2×2 conv padded (1, 0) in rows and columns.
 
     Through ``F.conv2d`` the (1, 0) padding is done as padding 1 on both sides
     and dropping the last output row and column: one extra row and column of
     products, and no padded copy of the input; the returned NHWC view is then
-    not contiguous.
+    not contiguous. With ``rows`` (a row shard) x carries the row above it.
     """
     kt = transform_kernel_stride2(kernel.to(x.dtype))
-    return _nhwc(qconv(_nchw(x), kt, bias.to(x.dtype), 1, (1, 0, 1, 0)))
+    padding = (1, 0, 1, 0) if rows is None else (0, 0, 1, 0)
+    return _nhwc(qconv(_nchw(x), kt, bias.to(x.dtype), 1, padding, rows))
 
 
 def s2d_bias(bias: torch.Tensor) -> torch.Tensor:
@@ -226,28 +243,48 @@ def s2d_bias(bias: torch.Tensor) -> torch.Tensor:
     return bias.repeat(4)
 
 
+def _same(pad: int, rows: Optional[int]):
+    """A same conv's padding: ``pad`` a side, or on a row shard (``rows``),
+    whose halo rows are its row padding, the columns' alone."""
+    return pad if rows is None else (0, 0, pad, pad)
+
+
+def halo_of(kernel_size: int) -> int:
+    """The s2d rows a side that a stride-1 s2d conv of a k×k kernel reads
+    beyond its output row (K′ // 2): 1 for k = 3 and 5, 0 for k = 1."""
+    entries = _s2d_kernel_pattern(kernel_size)
+    return -int(entries[:, 0].min())
+
+
 def conv_s2d(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
-             in_segments: Optional[Sequence[int]] = None) -> torch.Tensor:
+             in_segments: Optional[Sequence[int]] = None,
+             rows: Optional[int] = None) -> torch.Tensor:
     """Stride-1 same-padded conv over an s2d tensor, exact against the dense
     conv. ``kernel`` is the canonical (Cout, Cin, k, k) kernel, cast to x's
-    dtype and transformed here; ``bias`` None adds none."""
+    dtype and transformed here; ``bias`` None adds none. ``rows``: x is a
+    row shard with its halo rows (see the module's docstring)."""
     kt = transform_kernel(kernel.to(x.dtype), in_segments)
     b = None if bias is None else s2d_bias(bias).to(x.dtype)
-    return _nhwc(qconv(_nchw(x), kt, b, 1, kt.shape[-1] // 2))
+    return _nhwc(qconv(_nchw(x), kt, b, 1, _same(kt.shape[-1] // 2, rows), rows))
+
+
+def _segment_kernels(kernel: torch.Tensor, segments: Sequence[int]) -> list:
+    """The s2d kernels of each segment's slice of ``kernel``."""
+    bounds = np.cumsum((0, *segments))
+    return [transform_kernel(kernel[:, lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
 
 
 def conv_s2d_multi(xs: Sequence[torch.Tensor], kernel: torch.Tensor, bias: torch.Tensor,
-                   segments: Sequence[int]) -> torch.Tensor:
+                   segments: Sequence[int], rows: Optional[int] = None) -> torch.Tensor:
     """Stride-1 s2d conv over a channel-concat of s2d tensors without
     materializing the concat: ``conv(concat(xs), K) == Σ conv(x_i, K_i)``,
-    with ``K_i`` the kernel's slice of segment i (``qconv_sum``)."""
+    with ``K_i`` the kernel's slice of segment i (``qconv_sum``). ``rows``:
+    each x is a row shard with its halo rows."""
     if len(xs) != len(segments):
         raise ValueError(f"{len(xs)} inputs for {len(segments)} segments")
-    kernel = kernel.to(xs[0].dtype)
-    bounds = np.cumsum((0, *segments))
-    kts = [transform_kernel(kernel[:, lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    kts = _segment_kernels(kernel.to(xs[0].dtype), segments)
     y = qconv_sum([_nchw(x) for x in xs], kts, s2d_bias(bias).to(xs[0].dtype), 1,
-                  kts[0].shape[-1] // 2)
+                  _same(kts[0].shape[-1] // 2, rows), rows)
     return _nhwc(y)
 
 
@@ -281,3 +318,196 @@ def upsample2x_into_s2d(x: torch.Tensor) -> torch.Tensor:
     c00, c01 = lerp2_taps(row0, 2)
     c10, c11 = lerp2_taps(row1, 2)
     return torch.cat([c00, c01, c10, c11], dim=-1)
+
+
+# --- The upsample folds -------------------------------------------------------
+#
+# For output sub-pixel parity o and original kernel tap k, a 3×3 conv of the
+# 2x upsample reads upsampled row n = o + k - 1, the two-tap lerp of x's rows;
+# _FOLD_TAPS[o, k, dy + 1] is its weight on x's row offset dy ∈ {-1, 0, 1}:
+#     n = 2·by + ry;  ry = 0 -> {x[by - 1]: 0.25, x[by]: 0.75}
+#                     ry = 1 -> {x[by]: 0.75, x[by + 1]: 0.25}
+_FOLD_TAPS = np.zeros((2, 3, 3), np.float64)
+for _o in range(2):
+    for _k in range(3):
+        _by, _ry = (_o + _k - 1) // 2, (_o + _k - 1) % 2
+        if _ry == 0:
+            _FOLD_TAPS[_o, _k, _by] += 0.25
+            _FOLD_TAPS[_o, _k, _by + 1] += 0.75
+        else:
+            _FOLD_TAPS[_o, _k, _by + 1] += 0.75
+            _FOLD_TAPS[_o, _k, _by + 2] += 0.25
+del _o, _k, _by, _ry
+
+# The taps as a tensor on a device (float64), made once per device; while
+# ``torch.export`` traces, made anew (see ``_on_device``).
+_DEVICE_TAPS: dict = {}
+
+
+def _taps(device: torch.device) -> torch.Tensor:
+    if torch.compiler.is_compiling():
+        return torch.tensor(_FOLD_TAPS, device=device)
+    taps = _DEVICE_TAPS.get(device)
+    if taps is None:
+        with torch.inference_mode(False):
+            taps = _DEVICE_TAPS[device] = torch.tensor(_FOLD_TAPS, device=device)
+    return taps
+
+
+def fold_up_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> (4Cout, Cin, 3, 3), the q-major composite kernel:
+    output channel (oy·2 + ox)·Cout + o.
+
+    ``conv_s2d(upsample2x_into_s2d(x), K)`` is, away from the border frame, a
+    plain 3×3 conv of the pre-upsample x by this kernel: the four q groups of
+    the upsample are lerps of the same Cin channels, so the lerp weights fold
+    into the kernel. As JAX's einsum does, the fold contracts over the rows'
+    taps and then over the columns', each sum exact (float64) and rounded once
+    to the kernel's dtype: JAX casts the kernel to the activation's dtype
+    first, and so do the callers here.
+    """
+    cout, cin, kh, kw = kernel.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"fold_up_kernel takes a 3x3 kernel, got {kh}x{kw}")
+    taps = _taps(kernel.device)
+    # (o, c, ky, kx) with (oy, ky, dy) -> (o, c, kx, oy, dy), rounded.
+    rows = torch.einsum("ocyx,pyd->ocxpd", kernel.double(), taps).to(kernel.dtype)
+    # with (ox, kx, dx) -> (o, c, oy, dy, ox, dx), rounded.
+    kf = torch.einsum("ocxpd,qxe->ocpdqe", rows.double(), taps).to(kernel.dtype)
+    return kf.permute(2, 4, 0, 1, 3, 5).reshape(4 * cout, cin, 3, 3)
+
+
+class RowShard(NamedTuple):
+    """A fold's row shard: its input x carries one neighbour row on each side
+    that is not the grid's edge. ``rows``: the whole coarse grid's rows;
+    ``first`` and ``last``: whether x holds its top and bottom rows."""
+
+    rows: int
+    first: bool
+    last: bool
+
+
+def _up_contrib_strip(x3: torch.Tensor, kt: torch.Tensor, axis: int, last: bool,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """The up-segment's contribution to one border line of the s2d output,
+    by the reference path: ``x3``, up to 3 rows (``axis=1``) or columns
+    (``axis=2``) at an edge of the pre-upsample tensor, upsampled (plain, in
+    x's dtype), then the s2d conv by ``kt`` (``transform_kernel`` of the
+    segment's kernel) padded (1, 1) on both axes, and its first or
+    (``last``) last line kept. The slice's far-edge clamp is wrong for the
+    whole tensor, but the kept line reads none of it. ``rows``: the grid the
+    fp8 policy sees (JAX's strip is a 3-line slice of the whole tensor)."""
+    up = upsample2x_into_s2d(x3)
+    y = _nhwc(qconv(_nchw(up), kt, None, 1, 1, rows))
+    return y.narrow(axis, y.shape[axis] - 1 if last else 0, 1)
+
+
+def _up_fold(x: torch.Tensor, kernel: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """``conv_up_fold`` of x, or of a ``RowShard``'s rows: the interior's
+    folded conv, the border frame's strips written into one copy of it (out
+    of place: autograd records the copy and the slice writes), the neighbour
+    rows' outputs dropped."""
+    b, h, w, _ = x.shape
+    kernel = kernel.to(x.dtype)
+    grid = None if shard is None else shard.rows
+    first, last = (True, True) if shard is None else (shard.first, shard.last)
+    y = _nhwc(qconv(_nchw(x), fold_up_kernel(kernel), None, 1, 1, grid))
+    # The strips' s2d kernel, made once. Column strips take every row of x
+    # (exact in each row a shard keeps) and the corners, as JAX writes them
+    # last.
+    kt = transform_kernel(kernel)
+    out = y.clone()
+    if first:
+        out[:, :1] = _up_contrib_strip(x[:, :3], kt, 1, False, 3)
+    if last:
+        out[:, h - 1:] = _up_contrib_strip(x[:, max(h - 3, 0):], kt, 1, True, 3)
+    out[:, :, :1] = _up_contrib_strip(x[:, :, :3], kt, 2, False, grid)
+    out[:, :, w - 1:] = _up_contrib_strip(x[:, :, w - 3:], kt, 2, True, grid)
+    return out[:, 0 if first else 1:h if last else h - 1]
+
+
+def conv_up_fold(x: torch.Tensor, kernel: torch.Tensor,
+                 shard: Optional[RowShard] = None) -> torch.Tensor:
+    """The up-segment of an s2d decoder conv, computed without upsampling.
+
+    ``x``: the pre-upsample dense tensor (B, H, W, Cin), on the s2d level's
+    grid; ``kernel``: (Cout, Cin, 3, 3). Returns the (B, H, W, 4Cout) s2d
+    contribution of ``conv_s2d(upsample2x_into_s2d(x), K)``, without bias.
+
+    Interior: one folded 3×3 conv (``fold_up_kernel``). Border: the fold's
+    zero padding is not the composite's (the upsample clamps its lerps at
+    the edge, then the s2d conv zero-pads a whole block), so the one-block
+    frame is recomputed by the reference path on 3-line strips.
+
+    ``shard``: x is a row shard with a neighbour row beyond each edge that is
+    not the grid's; output block row r reads x's rows r−1…r+1 only, so the
+    folded conv and the column strips are exact on the shard's rows, and
+    the row strips run only at the grid's edges. Returns the shard's rows.
+    """
+    b, h, w, _ = x.shape
+    grid_h = h if shard is None else shard.rows
+    if grid_h < 3 or w < 3:
+        raise ValueError(
+            f"conv_up_fold needs a >=3x3 coarse grid for its border-strip recompute (got "
+            f"{grid_h}x{w}); callers must fall back to the reference upsample path below that.")
+    return _up_fold(x, kernel, shard)
+
+
+def up_fold_enabled() -> bool:
+    """Whether an s2d decoder folds its upsample into conv_0
+    (``conv_s2d_multi_up_fold``): ``UNET_TPU_S2D_UP_FOLD``, JAX's variable
+    and parsing ("0", "false" and "" are off, anything else on), read at each
+    call. Unset: off, as JAX decides off the TPU; whether the card should
+    fold by default is for its benchmark to decide."""
+    v = os.environ.get("UNET_TPU_S2D_UP_FOLD")
+    return v is not None and v not in ("0", "false", "")
+
+
+def dense_up_fold_enabled(deterministic: bool = True) -> bool:
+    """Whether a dense decoder folds its upsample into conv_0
+    (``conv_dense_up_fold``): ``UNET_TPU_DENSE_UP_FOLD`` forces both modes;
+    unset, the eval forward (``deterministic``) follows ``up_fold_enabled``
+    and training does not fold, as JAX's per-mode policy."""
+    v = os.environ.get("UNET_TPU_DENSE_UP_FOLD")
+    if v is not None:
+        return v not in ("0", "false", "")
+    return deterministic and up_fold_enabled()
+
+
+def conv_s2d_multi_up_fold(x_pre_up: torch.Tensor, rest: Sequence[torch.Tensor],
+                           kernel: torch.Tensor, bias: torch.Tensor, segments: Sequence[int],
+                           shard: Optional[RowShard] = None) -> torch.Tensor:
+    """``conv_s2d_multi([upsample2x_into_s2d(x_pre_up), *rest], ...)`` with
+    the upsample folded into segment 0's kernel (``conv_up_fold``); the rest
+    (s2d tensors) add their convs, then the bias, in JAX's order. ``shard``:
+    x_pre_up as ``conv_up_fold`` takes it, each of ``rest`` with its halo
+    rows."""
+    if len(rest) != len(segments) - 1:
+        raise ValueError(f"{1 + len(rest)} inputs for {len(segments)} segments")
+    kernel = kernel.to(x_pre_up.dtype)
+    y = conv_up_fold(x_pre_up, kernel[:, :segments[0]], shard)
+    kts = _segment_kernels(kernel[:, segments[0]:], segments[1:])
+    rows = None if shard is None else shard.rows
+    out = qconv_sum([_nchw(x) for x in rest], kts, s2d_bias(bias).to(y.dtype), 1,
+                    _same(1, rows), rows, residual=_nchw(y))
+    return _nhwc(out)
+
+
+def conv_dense_up_fold(x_pre_up: torch.Tensor, rest: Sequence[torch.Tensor],
+                       kernel: torch.Tensor, bias: torch.Tensor,
+                       shard: Optional[RowShard] = None) -> torch.Tensor:
+    """A dense decoder's conv_0, ``conv(concat([upsample2x_nhwc(x_pre_up),
+    *rest]), K) + bias``, with the upsample folded away: segment 0 runs as
+    ``conv_up_fold`` on the coarse grid (as many products as the dense conv
+    of the upsample) and is rearranged once (``depth_to_space``); the rest
+    (dense, on the fine grid) add their 3×3 convs, then the bias. ``shard``:
+    as ``conv_s2d_multi_up_fold``'s, ``rest`` padded with one halo row a
+    side."""
+    kernel = kernel.to(x_pre_up.dtype)
+    c0 = x_pre_up.shape[-1]
+    y = depth_to_space(conv_up_fold(x_pre_up, kernel[:, :c0], shard))
+    weights = kernel[:, c0:].split([x.shape[-1] for x in rest], dim=1)
+    rows = None if shard is None else 2 * shard.rows
+    out = qconv_sum([_nchw(x) for x in rest], weights, bias.to(y.dtype), 1, _same(1, rows), rows,
+                    residual=_nchw(y))
+    return _nhwc(out)

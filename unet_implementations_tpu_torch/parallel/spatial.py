@@ -15,13 +15,20 @@ the port writes them out:
   ``shard_batch_spatial``): rank s of a space group of S holds rows
   ``[s·H/S, (s+1)·H/S)`` of every image.
 - The model runs on the shard with a ``SpatialContext``
-  (``UNet.forward(..., spatial=)``): each 3×3 conv pads its input with one
-  halo row from each neighbour (zero rows at the image's top and bottom; a
-  stride-2 conv of an even shard needs only the row above), K1's statistics
-  and K1bwd's sums are all-reduced over the space group between their passes
-  (``kernels/instance_norm.py``), and K2a runs on rows with a halo
-  (``kernels/upsample.py``). The loss sums Dice's per-image sums over the
-  space group and its class counts over the grid (``ops/losses.py``).
+  (``UNet.forward(..., spatial=)``), in the dense and the s2d layout: each
+  conv pads its input with halo rows from its neighbours (zero rows at the
+  image's top and bottom): k//2 a side for a stride-1 k×k conv; at stride 2,
+  whose even shard's last output row reads fewer rows below, k//2 above and
+  k − 2 − k//2 below; one s2d row a side for an s2d 3×3 or 5×5 conv and the
+  row above for the stride-2 conv of an s2d input. K1's statistics and
+  K1bwd's sums are all-reduced over the space group between their passes
+  (``kernels/instance_norm.py``; with ``group=4`` on s2d shards), and K2a
+  and K2b run on rows with one halo row a side (``kernels/upsample.py``). A
+  folded upsample (``ops/s2d.py::conv_up_fold``) runs on the shard with one
+  neighbour row beyond each inner edge. K3 does not run on a shard (its
+  statistics and conv span the tensor it is given), so an s2d block takes
+  its module path there. The loss sums Dice's per-image sums over the space
+  group and its class counts over the grid (``ops/losses.py``).
 - ``SpatialParallel`` wraps a model for training: rank 0's parameters are
   broadcast when it is built, and after each backward the gradients are
   summed over the grid and divided by its size (``average_gradients``).
@@ -50,10 +57,12 @@ all-reduces would run during the backward, interleaved with the backward's
 own collectives on the space groups.
 
 Refused, each with a ValueError: a process group whose size ``n_space`` does
-not divide, and images whose height does not split into equal, even shards
-at every level of the model (``UNet.forward``: H divisible by
+not divide, images whose height does not split into equal, even shards at
+every level of the model (``UNet.forward``: H divisible by
 ``2^(stages-1) · n_space``; JAX's forward instead replicates an indivisible
-axis). The s2d layout under a space group is not ported.
+axis), and shards too shallow for a conv's halo: a k×k conv takes its k//2
+halo rows from the neighbouring ranks alone, so each level's shard must hold
+k//2 rows (JAX's partitioner takes rows from further ranks).
 """
 
 from __future__ import annotations
@@ -164,45 +173,51 @@ def _slots(local: torch.Tensor, context: SpatialContext) -> torch.Tensor:
 
 
 class _HaloRows(torch.autograd.Function):
-    """(above, below), each (B, 1, W, C), of a row shard x (B, h, W, C): the
-    last row of the rank above and the first row of the rank below, zero rows
-    at the images' top and bottom. The backward is the transpose: each halo
-    row's cotangent is added to the edge row it was copied from, on the rank
-    that owns it."""
+    """(above, below), each (B, n, W, C), of a row shard x (B, h, W, C): the
+    last n rows of the rank above and the first n rows of the rank below,
+    zero rows at the images' top and bottom. The backward is the transpose:
+    each halo row's cotangent is added to the row it was copied from, on the
+    rank that owns it."""
 
     @staticmethod
-    def forward(ctx, x, context):
-        ctx.context, ctx.shape, ctx.dtype, ctx.device = context, x.shape, x.dtype, x.device
-        slots = _slots(torch.stack([x[:, 0], x[:, -1]]), context).to(x.dtype)
-        zero = torch.zeros_like(x[:, :1])
-        above = zero if context.first else slots[context.index - 1, 1].unsqueeze(1)
-        below = zero if context.last else slots[context.index + 1, 0].unsqueeze(1)
+    def forward(ctx, x, context, n):
+        ctx.context, ctx.shape, ctx.dtype, ctx.device, ctx.n = (context, x.shape, x.dtype,
+                                                                x.device, n)
+        slots = _slots(torch.stack([x[:, :n], x[:, -n:]]), context).to(x.dtype)
+        zero = torch.zeros_like(x[:, :n])
+        above = zero if context.first else slots[context.index - 1, 1]
+        below = zero if context.last else slots[context.index + 1, 0]
         return above, below
 
     @staticmethod
     def backward(ctx, g_above, g_below):
-        context = ctx.context
+        context, n = ctx.context, ctx.n
         b, _, w, c = ctx.shape
-        zero = torch.zeros((b, 1, w, c), dtype=ctx.dtype, device=ctx.device)
+        zero = torch.zeros((b, n, w, c), dtype=ctx.dtype, device=ctx.device)
         g_above = zero if g_above is None else g_above
         g_below = zero if g_below is None else g_below
-        # Slot s holds rank s's cotangents of the rank above's last row and
-        # the rank below's first row.
-        slots = _slots(torch.stack([g_above[:, 0], g_below[:, 0]]), context).to(ctx.dtype)
+        # Slot s holds rank s's cotangents of the rank above's last rows and
+        # the rank below's first rows.
+        slots = _slots(torch.stack([g_above, g_below]), context).to(ctx.dtype)
         dx = torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device)
         if not context.first:
-            dx[:, 0] += slots[context.index - 1, 1]
+            dx[:, :n] += slots[context.index - 1, 1]
         if not context.last:
-            dx[:, -1] += slots[context.index + 1, 0]
-        return dx, None
+            dx[:, -n:] += slots[context.index + 1, 0]
+        return dx, None, None
 
 
-def halo_rows(x: torch.Tensor, context: SpatialContext, repeat_edges: bool = False):
-    """(above, below) of the row shard x (B, h, W, C): the rows beyond it,
-    from the neighbouring ranks. At the images' top and bottom they are zero
-    rows (a conv's SAME padding), or with ``repeat_edges`` the shard's own
+def halo_rows(x: torch.Tensor, context: SpatialContext, repeat_edges: bool = False,
+              n: int = 1):
+    """(above, below), each (B, n, W, C), of the row shard x (B, h, W, C):
+    the n rows beyond it on each side, from the neighbouring ranks, which
+    must hold n rows each. At the images' top and bottom they are zero rows
+    (a conv's SAME padding), or with ``repeat_edges`` (n = 1) the shard's own
     edge rows (a resize's edge clamp)."""
-    above, below = _HaloRows.apply(x, context)
+    if not 1 <= n <= x.shape[1]:
+        raise ValueError(f"a halo of {n} rows from shards of {x.shape[1]} rows: each level's "
+                         f"shard must hold the rows its convs read beyond it")
+    above, below = _HaloRows.apply(x, context, n)
     if repeat_edges and context.first:
         above = x[:, :1]
     if repeat_edges and context.last:
@@ -210,11 +225,24 @@ def halo_rows(x: torch.Tensor, context: SpatialContext, repeat_edges: bool = Fal
     return above, below
 
 
-def pad_rows(x: torch.Tensor, context: SpatialContext, below: bool = True) -> torch.Tensor:
-    """The row shard x (B, h, W, C) with one halo row above it and, with
-    ``below``, one below it (zero rows at the images' edges)."""
+def pad_rows(x: torch.Tensor, context: SpatialContext, above: int = 1,
+             below: int = 1) -> torch.Tensor:
+    """The row shard x (B, h, W, C) with ``above`` halo rows above it and
+    ``below`` below it (zero rows at the images' edges)."""
+    n = max(above, below)
+    if n == 0:
+        return x
+    up, down = halo_rows(x, context, n=n)
+    return torch.cat([up[:, n - above:], x, down[:, :below]], dim=1)
+
+
+def neighbour_rows(x: torch.Tensor, context: SpatialContext) -> torch.Tensor:
+    """The row shard x (B, h, W, C) with one neighbour's row beyond each edge
+    that is not an image's edge (an up-fold's input, ``ops/s2d.py::
+    conv_up_fold``)."""
     up, down = halo_rows(x, context)
-    return torch.cat([up, x, down] if below else [up, x], dim=1)
+    return torch.cat(([] if context.first else [up]) + [x] + ([] if context.last else [down]),
+                     dim=1)
 
 
 class _AllReduceSum(torch.autograd.Function):
